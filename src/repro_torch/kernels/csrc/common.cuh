@@ -1,0 +1,42 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel takes f32 or bf16 storage and does its arithmetic in f32.
+// Each C entry point launches on the stream it is given, allocates nothing,
+// and returns cudaGetLastError() so the Python wrapper can raise on a launch
+// the runtime refused.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+constexpr float kNegInf = -1e30f;  // the mask value of the JAX package
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// VEC consecutive elements moved as one load or store (16 bytes when
+// VEC * sizeof(T) == 16).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+inline bool aligned(const void* p, size_t n) {
+  return (reinterpret_cast<uintptr_t>(p) % n) == 0;
+}
+
+}  // namespace rt
