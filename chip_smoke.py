@@ -5,23 +5,34 @@
 
 Phases, one line (or a few) each; any failure exits non-zero before the
 result line:
-  1. device  — torch's device name; the card's name and power limit
-  2. build   — nvcc builds every kernel of kernels/csrc/ for sm_90a
-  3. kernels — each kernel against its plain PyTorch version on the card at
-               the serving path's shapes (edge cases included), then timed
-               with CUDA events beside the plain version, the one PyTorch
-               call that computes the same function (where there is one) and
-               the card's bound for the work; device-only times from
-               torch.profiler beside the CUDA-event times
-  4. serve   — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
-               (random weights from a seeded generator): 24 requests through
-               the StraightLine router, chunked prefill; then again with
-               whole-prompt prefill. Launch counts are read per run. Then
-               launches per prefill and per decode step, a batch-8 decode
-               step's time and the device's busy share over a few steps.
-  5. parity  — served requests re-run teacher-forced through the port's
-               plain path on the CPU in f32 on the same weights
-  6. summary — the kernels JSON line, then the result line.
+  1. device   — torch's device name; the card's name and power limit
+  2. build    — nvcc builds every kernel of kernels/csrc/ for sm_90a
+  3. kernels  — each kernel (and each leg of the paged decode) against its
+                plain PyTorch version on the card at the serving paths'
+                shapes (edge cases included), then timed with CUDA events
+                beside the plain version, the one PyTorch call that computes
+                the same function (where there is one) and the card's bound
+                for the work; device-only times from torch.profiler beside
+                the CUDA-event times
+  4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
+                (random weights from a seeded generator): 24 requests through
+                the StraightLine router onto paged engines, chunked prefill;
+                then again with whole-prompt prefill. Launch counts are read
+                per run. Then launches per prefill and per decode step, a
+                batch-8 decode step's time and the device's busy share.
+  5. launcher — launch/serve.main() at FULL width in bf16: 32 requests onto
+                dense engines (the decode_attention kernel), 4 router workers,
+                prewarm, traces and metrics; chunked prefill, then
+                whole-prompt prefill
+  6. pools    — a FULL bf16 paged engine under an EngineLoop with an int8
+                pool and chained tables, 8 prompts of 120-200 tokens; again
+                with flat tables (identical streams) and with a bf16 pool on
+                chained tables; bytes per cached token of each pool
+  7. parity   — served requests re-run teacher-forced through the port's
+                plain paths on the CPU in f32 on the same weights: the
+                whole-sequence forward (phase 4), the dense cache (phase 5)
+                and the paged int8 pool (phase 6)
+  8. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -31,6 +42,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chip_smoke_out"
 sys.path.insert(0, str(ROOT / "src"))
@@ -108,13 +120,111 @@ def check_tol(name: str, e: float, dtype) -> None:
         raise AssertionError(f"{name}: error {e} above {tol}")
 
 
+def paged_decode_bytes(lens, B, KV, G, hd, ps, quant: bool, tpp: int) -> int:
+    """Bytes one paged decode call must move: the live tokens' K and V rows
+    (a token's row of one head is hd int8 values and a bf16 scale, or hd
+    bf16 values), q in and out in bf16, the lengths, and the table entries
+    it reads (a page id per live page; chained tables add an l1 entry per
+    table page)."""
+    pages = [-(-int(n) // ps) for n in lens]
+    tables = 4 * sum(pages) + (4 * sum(-(-p // tpp) for p in pages) if tpp else 0)
+    row = hd + 2 if quant else 2 * hd
+    return 2 * sum(int(n) for n in lens) * KV * row + 2 * 2 * B * KV * G * hd + 4 * B + tables
+
+
+def pool_rows(torch, lens, num_pages: int, ps: int, P: int, gen):
+    """Flat block-table rows (len(lens), P) int32 on the host: distinct
+    pages across rows, ceil(len / ps) live entries each, then null pages."""
+    perm = (torch.randperm(num_pages - 1, generator=gen) + 1).tolist()
+    tab = torch.zeros(len(lens), P, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        k = -(-n // ps)
+        tab[b, :k] = torch.tensor(perm[:k], dtype=torch.int32)
+        perm = perm[k:]
+    return tab
+
+
+def chain(torch, tab, tpp: int):
+    """The chained tables (l1 (B, P / tpp), l2 (1 + B * P / tpp, tpp)) of
+    flat rows ``tab``: l2 row 0 null, then one row per (slot, table page)
+    that holds a live page."""
+    B, P = tab.shape
+    W1 = P // tpp
+    l1 = torch.zeros(B, W1, dtype=torch.int32)
+    l2 = torch.zeros(1 + B * W1, tpp, dtype=torch.int32)
+    for b in range(B):
+        for j in range(W1):
+            if bool(tab[b, j * tpp:(j + 1) * tpp].ne(0).any()):
+                l1[b, j] = 1 + b * W1 + j
+                l2[1 + b * W1 + j] = tab[b, j * tpp:(j + 1) * tpp]
+    return l1, l2
+
+
+def int8_pools(torch, g, dev, NP, KV, ps, hd):
+    """Random int8 K/V pools and their bf16 scale pools."""
+    ik = torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+    iv = torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+    ks = (torch.rand(NP, KV, ps, 1, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    vs = (torch.rand(NP, KV, ps, 1, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    return ik, iv, ks, vs
+
+
+def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
+    """One quantizing write into random int8 pools against the plain write.
+    The int8 values may differ from quantize_kv only where x * 127 / amax is
+    exactly half-way between two integers (found in f64, where that quotient
+    is exact), and only by 1; every other byte of pages 1.. must match, and
+    pages outside the row must be untouched (page 0 absorbs pad writes and
+    is never compared). Returns (ties in the input, int8 values differing)."""
+    KV, ps, hd = 5, 16, 64
+    pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(NP, KV, ps, 1, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+    k, v = (torch.randn((1, Lp, KV, hd), generator=g, device=dev).to(dt) for _ in range(2))
+    shifted = pa_ops._shift_row(row, off, ps)
+    got = pa_ops.paged_prefill_write_quant(*(t.clone() for t in pools + scales), k, v, row, offset=off)
+    want = write_ref(*(t.clone() for t in pools + scales), k, v, shifted)
+    torch.cuda.synchronize()
+    t = torch.arange(Lp, device=dev)
+    pages, slot = shifted.long()[t // ps], t % ps
+    live = pages != 0
+    at = (pages[live][:, None], torch.arange(KV, device=dev)[None, :], slot[live][:, None])
+    ties = diffs = 0
+    for x, a, b in ((k, got[0], want[0]), (v, got[1], want[1])):
+        xd = x[0][live].double()
+        r = xd * 127 / xd.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+        tie = (r - torch.floor(r)) == 0.5
+        d = (a[at].float() - b[at].float()).abs()
+        if float(d.max()) > 1 or bool((d > 0)[~tie].any()):
+            raise AssertionError(f"paged_prefill_write_quant Lp={Lp} off={off}: int8 values "
+                                 f"differ from quantize_kv away from a rounding tie")
+        ties += int(tie.sum())
+        diffs += int((d > 0).sum())
+        b[at] = a[at]                        # the ties taken, every other byte must match
+    untouched = torch.ones(NP, dtype=torch.bool, device=dev)
+    untouched[shifted[: -(-Lp // ps)].long()] = False
+    untouched[0] = False
+    for a, b, before in zip(got, want, pools + scales):
+        if not torch.equal(a[1:], b[1:]):
+            raise AssertionError(f"paged_prefill_write_quant Lp={Lp}: pages differ from the plain write")
+        if not torch.equal(a[untouched], before[untouched]):
+            raise AssertionError(f"paged_prefill_write_quant Lp={Lp}: touched a page outside the row")
+    return ties, diffs
+
+
 def phase_kernels(torch, dev):
     from torch.nn import functional as F
 
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref, paged_prefill_write_ref
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref,
+        paged_prefill_write_quant_ref,
+        paged_prefill_write_ref,
+    )
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -178,7 +288,7 @@ def phase_kernels(torch, dev):
         pool_k.index_put_(at, k[0])
         pool_v.index_put_(at, v[0])
 
-    b_ms, b_by = bound(2 * 2 * 2 * Lp * KV * hd + 4 * P, 0, F32_FLOPS_S)
+    b_ms, b_by = bound(2 * 2 * 2 * Lp * KV * hd + 4 * -(-Lp // ps), 0, F32_FLOPS_S)
     rows.append({
         "name": "paged_prefill_write", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -215,9 +325,8 @@ def phase_kernels(torch, dev):
     q = randn(B, 1, G * KV, hd)
     pk, pv = randn(NP, KV, ps, hd), randn(NP, KV, ps, hd)
     qg = q[:, 0].reshape(B, KV, G, hd)
-    pages = sum(-(-int(n) // ps) for n in lens_t)
-    nbytes = 2 * pages * 2 * KV * ps * hd + 2 * 2 * B * KV * G * hd + 4 * B * (P + 1)
-    b_ms, b_by = bound(nbytes, 4 * KV * G * hd * int(lens_t.sum()), F32_FLOPS_S)
+    b_ms, b_by = bound(paged_decode_bytes(lens_t.tolist(), B, KV, G, hd, ps, False, 0),
+                       4 * KV * G * hd * int(lens_t.sum()), F32_FLOPS_S)
     rows.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -253,39 +362,220 @@ def phase_kernels(torch, dev):
             q, k, v, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
     })
+    # -- dense decode: the launcher's shapes, T = 96 masked in place -------
+    B, T = 4, 96
+    errs = []
+    for (dt, cap, TT, lens_l) in [(bf16, 0.0, 96, [1, 9, 57, 96]), (f32, 0.0, 96, [1, 16, 95, 96]),
+                                  (bf16, 30.0, 96, [1, 9, 57, 96]), (bf16, 0.0, 128, [1, 16, 95, 128])]:
+        q = randn(B, 1, G * KV, hd, dtype=dt)
+        cache = randn(2, B, TT, KV, hd, dtype=dt)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        out = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
+        ref = decode_attention_ref(q[:, 0].reshape(B, KV, G, hd), cache[0].transpose(1, 2),
+                                   cache[1].transpose(1, 2), lens, softcap=cap)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("decode_attention: non-finite output")
+        e = err(out.reshape(B, KV, G, hd), ref)
+        check_tol(f"decode_attention T={TT} lens={lens_l} softcap={cap} {dt}", e, dt)
+        errs.append(e)
+    zero = da_ops.decode_attention(q, cache[0], cache[1], torch.zeros(B, dtype=torch.int32, device=dev))
+    if not (bool(torch.isfinite(zero).all()) and float(zero.float().abs().max()) == 0.0):
+        raise AssertionError("decode_attention: a length of 0 must give 0")
+    lens_d = torch.tensor([1, 9, 57, 96], dtype=torch.int32, device=dev)
+    q = randn(B, 1, G * KV, hd)
+    cache = randn(2, B, T, KV, hd)
+    k_c, v_c = cache[0], cache[1]
+    qg = q[:, 0].reshape(B, KV, G, hd)
+    n_live = int(lens_d.sum())
+    nbytes = 2 * 2 * n_live * KV * hd + 2 * 2 * B * KV * G * hd + 4 * B
+    b_ms, b_by = bound(nbytes, 4 * KV * G * hd * n_live, F32_FLOPS_S)
+    sdpa_mask = (torch.arange(T, device=dev)[None, None, None, :] < lens_d[:, None, None, None])
+    q_t, k_t, v_t = q.transpose(1, 2), k_c.transpose(1, 2), v_c.transpose(1, 2)
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:94",
+        "shape": f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), lengths {lens_d.tolist()}",
+        "max_abs_err": max(errs),
+        "fns": (lambda a=(q, k_c, v_c, lens_d): da_ops.decode_attention(*a),
+                lambda a=(qg, k_t, v_t, lens_d): decode_attention_ref(*a)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q_t, k_t, v_t, attn_mask=sdpa_mask, enable_gqa=True)),
+        "library_call": "scaled_dot_product_attention (boolean length mask, enable_gqa)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    })
+
+    # -- quantized prefill write: int8 bits against quantize_kv, ties counted;
+    #    the small pool above, then the compact-pool phase's 129-page pool and
+    #    16-entry rows at its whole-prompt buckets (Lp 128 and 256) ----------
+    NPp, Pp, tpp_p = 129, 16, 4
+    lens_p = [120, 128, 129, 144, 161, 176, 193, 208]      # the pools phase's decode lengths
+    tab_p = pool_rows(torch, lens_p, NPp, ps, Pp, gen_tab)
+    row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32)
+    ties_total = diffs_total = 0
+    for (np_, row, Lp, off, dt) in [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16),
+                                    (NP, row_small, 16, 64, bf16), (NP, row_small, 20, 0, bf16),
+                                    (NP, row_small, 96, 0, f32), (NP, row_small, 64, 32, f32),
+                                    (NPp, tab_p[0], 128, 0, bf16), (NPp, tab_p[7], 256, 0, bf16)]:
+        ties, diffs = check_quant_write(torch, pa_ops, paged_prefill_write_quant_ref, g, dev,
+                                        np_, row.to(dev), Lp, off, dt)
+        ties_total += ties
+        diffs_total += diffs
+        log(f"  paged_prefill_write_quant pool {np_} pages Lp={Lp} offset={off} {dt}: scales exact, "
+            f"int8 values differing {diffs}, all at rounding ties (ties in the input {ties}), "
+            f"untouched pages preserved")
+    Lp, row = 256, tab_p[7].to(dev)                       # 7 of the 8 pool prompts bucket to 256
+    qpools = [torch.zeros(NPp, KV, ps, hd, dtype=torch.int8, device=dev) for _ in range(2)]
+    qscales = [torch.zeros(NPp, KV, ps, 1, dtype=bf16, device=dev) for _ in range(2)]
+    k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
+    b_ms, b_by = bound(2 * (2 * Lp * KV * hd + Lp * KV * (hd + 2)) + 4 * -(-Lp // ps), 0, F32_FLOPS_S)
+    rows.append({
+        "name": "paged_prefill_write_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:299",
+        "shape": f"k/v (1, {Lp}, {KV}, {hd}) bf16 into int8 ({NPp}, {KV}, {ps}, {hd}) + bf16 scales",
+        "max_abs_err": 0.0, "rounding_ties": ties_total, "int8_values_differing": diffs_total,
+        "fns": (lambda a=(*qpools, *qscales, k, v, row): pa_ops.paged_prefill_write_quant(*a),
+                lambda a=(*qpools, *qscales, k, v, row): paged_prefill_write_quant_ref(*a)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+    })
+
+    # -- paged decode legs: int8 pools, chained tables, both; dead slots and
+    #    page-boundary lengths in the small pool, then the compact-pool
+    #    phase's shapes (129 pages, 16-entry rows, 4 per table page) --------
+    B, G = 8, 3
+    tab = torch.stack([torch.randperm(NP - 1, generator=gen_tab)[:P] + 1 for _ in range(B)])
+    tab[0] = 0
+    tab[7] = 0
+    lens = torch.tensor([1, 16, 17, 32, 96, 5, 48, 1], dtype=torch.int32, device=dev)
+    tab = tab.to(torch.int32)
+    leg_errs = {"int8": [], "chained": [], "int8+chained": []}
+    cases = [(NP, tab, lens, 2, dt, cap) for (dt, cap) in [(bf16, 0.0), (f32, 0.0), (bf16, 30.0)]]
+    cases.append((NPp, tab_p, torch.tensor(lens_p, dtype=torch.int32, device=dev), tpp_p, bf16, 0.0))
+    for (np_, tab_c, lens_c, tpp, dt, cap) in cases:
+        l1, l2 = chain(torch, tab_c, tpp)
+        tab_c, l1, l2 = tab_c.to(dev), l1.to(dev), l2.to(dev)
+        q = randn(B, 1, G * KV, hd, dtype=dt)
+        qg = q[:, 0].reshape(B, KV, G, hd)
+        pk, pv = randn(np_, KV, ps, hd, dtype=dt), randn(np_, KV, ps, hd, dtype=dt)
+        ik, iv, ks, vs = int8_pools(torch, g, dev, np_, KV, ps, hd)
+        flat = pa_ops.paged_attention(q, pk, pv, tab_c, lens_c, softcap=cap)
+        outs = {
+            "chained": (pa_ops.paged_attention(q, pk, pv, l1, lens_c, softcap=cap, l2_tab=l2),
+                        paged_attention_ref(qg, pk, pv, l1, lens_c, softcap=cap, l2_tab=l2), flat),
+            "int8": (pa_ops.paged_attention(q, ik, iv, tab_c, lens_c, softcap=cap, pool_ks=ks, pool_vs=vs),
+                     paged_attention_ref(qg, ik, iv, tab_c, lens_c, softcap=cap, pool_ks=ks, pool_vs=vs),
+                     None),
+        }
+        outs["int8+chained"] = (
+            pa_ops.paged_attention(q, ik, iv, l1, lens_c, softcap=cap, pool_ks=ks, pool_vs=vs, l2_tab=l2),
+            paged_attention_ref(qg, ik, iv, l1, lens_c, softcap=cap, pool_ks=ks, pool_vs=vs, l2_tab=l2),
+            outs["int8"][0])
+        torch.cuda.synchronize()
+        for leg, (out, ref, same_as) in outs.items():
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"paged_attention[{leg}]: non-finite output")
+            if same_as is not None and not torch.equal(out, same_as):
+                raise AssertionError(f"paged_attention[{leg}]: differs from the flat table's output")
+            e = err(out.reshape(B, KV, G, hd), ref)
+            check_tol(f"paged_attention[{leg}] pool {np_} pages, tpp {tpp}, lens={lens_c.tolist()} "
+                      f"softcap={cap} {dt}" + (" (bit-identical to flat)" if same_as is not None else ""),
+                      e, dt)
+            leg_errs[leg].append(e)
+    # timed at the compact-pool phase's shapes, each beside its twin without
+    # the option it adds (int8 -> bf16 flat, chained -> bf16 flat,
+    # int8+chained -> int8 flat), in the same run
+    lens_t = torch.tensor(lens_p, dtype=torch.int32, device=dev)
+    l1, l2 = chain(torch, tab_p, tpp_p)
+    tab_t, l1, l2 = tab_p.to(dev), l1.to(dev), l2.to(dev)
+    q = randn(B, 1, G * KV, hd)
+    qg = q[:, 0].reshape(B, KV, G, hd)
+    pk, pv = randn(NPp, KV, ps, hd), randn(NPp, KV, ps, hd)
+    ik, iv, ks, vs = int8_pools(torch, g, dev, NPp, KV, ps, hd)
+    flat_fns = {False: lambda: pa_ops.paged_attention(q, pk, pv, tab_t, lens_t),
+                True: lambda: pa_ops.paged_attention(q, ik, iv, tab_t, lens_t, pool_ks=ks, pool_vs=vs)}
+    for leg, quant, chained, twin in [("int8", True, False, "flat"), ("chained", False, True, "flat"),
+                                      ("int8+chained", True, True, "int8")]:
+        b_ms, b_by = bound(paged_decode_bytes(lens_p, B, KV, G, hd, ps, quant, tpp_p if chained else 0),
+                           4 * KV * G * hd * sum(lens_p), F32_FLOPS_S)
+        kv = (ik, iv) if quant else (pk, pv)
+        kw = {"pool_ks": ks, "pool_vs": vs} if quant else {}
+        t_ = l1 if chained else tab_t
+        if chained:
+            kw["l2_tab"] = l2
+        rows.append({
+            "name": f"paged_attention[{leg}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:167",
+            "shape": f"q ({B}, {KV}, {G}, {hd}) bf16, {'int8' if quant else 'bf16'} pool ({NPp}, {KV}, "
+                     f"{ps}, {hd}), {f'chained (tpp {tpp_p})' if chained else 'flat'} tables, "
+                     f"lengths {lens_p}",
+            "max_abs_err": max(leg_errs[leg]),
+            "fns": (lambda a=(q, *kv, t_, lens_t), kw=kw: pa_ops.paged_attention(*a, **kw),
+                    lambda a=(qg, *kv, t_, lens_t), kw=kw: paged_attention_ref(*a, **kw)),
+            "twin": (twin, flat_fns[twin == "int8"]),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        })
+
     for r in rows:
         kernel, plain = r.pop("fns")
         r["ms"], r["plain_ms"] = time_ms(kernel), time_ms(plain)
         r["device_ms"], r["plain_device_ms"] = device_ms(kernel), device_ms(plain)
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        twin = ""
+        if "twin" in r:
+            name, fn = r.pop("twin")
+            r["twin"] = {"leg": name, "ms": time_ms(fn), "device_ms": device_ms(fn)}
+            twin = f", {name} leg at the same shape {r['twin']['ms']:.5f} ms (device {r['twin']['device_ms']})"
         log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.5f} ms (device {r['device_ms']}), "
             f"plain {r['plain_ms']:.5f} ms (device {r['plain_device_ms']}), library {lib} ms, "
-            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){twin}")
     return rows
 
 
 def counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
 
     return {"rmsnorm": rms_ops.rmsnorm, "paged_prefill_write": pa_ops.paged_prefill_write,
-            "paged_attention": pa_ops.paged_attention, "flash_attention": fa_ops.flash_attention_bhsd}
+            "paged_prefill_write_quant": pa_ops.paged_prefill_write_quant,
+            "paged_attention": pa_ops.paged_attention, "flash_attention": fa_ops.flash_attention_bhsd,
+            "decode_attention": da_ops.decode_attention}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import _build
+
+    for w in counters().values():
+        _build.reset_launches(w)
+
+
+def read_counts() -> dict:
+    """Launches per kernel; the paged decode's total under ``paged_attention``
+    and each leg under ``paged_attention[leg]`` (the flat leg is the
+    ``paged_attention`` row of the summary)."""
+    out = {}
+    for n, w in counters().items():
+        out[n] = w.launches
+        for leg, c in getattr(w, "leg_launches", {}).items():
+            out[f"{n}[{leg}]"] = c
+    return out
 
 
 def serve_leg(torch, chunk_tokens: int, params):
     from repro_torch.launch import serve_hybrid
 
-    wrappers = counters()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     r = serve_hybrid.main(device="cuda", smoke=False, chunk_tokens=chunk_tokens,
                           out_dir=str(OUT / f"serve_chunk{chunk_tokens}"), seed=0, params=params,
                           verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: w.launches for n, w in wrappers.items()}
+    counts = read_counts()
     m = r["metrics"].summary()
     log(f"  chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
         f"serve {r['serve_s']:.3f} s (wall {wall:.3f} s incl. tier set-up), placement {r['by_tier']}, "
@@ -301,11 +591,10 @@ def phase_step(torch, cfg, params, dev):
     from repro_torch.launch.serve_hybrid import MAXLEN, PROMPT, PS, prompt_for
     from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
 
-    wrappers = counters()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def snap():
-        return {n: w.launches for n, w in wrappers.items()}
+        return read_counts()
 
     def delta(a, b, k=1):
         return {n: (b[n] - a[n]) / k for n in a}
@@ -355,8 +644,126 @@ def phase_step(torch, cfg, params, dev):
         log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
 
 
-def phase_parity(torch, legs):
-    """Teacher-forced parity of served tokens against the CPU f32 plain path."""
+def launcher_leg(torch, chunk_tokens: int, params):
+    """launch/serve.main() at FULL width in bf16 on dense engines."""
+    from repro_torch.launch import serve
+
+    out = OUT / f"launcher_chunk{chunk_tokens}"
+    out.mkdir(parents=True, exist_ok=True)
+    argv = ["--workers", "4", "--prewarm", "--chunk-tokens", str(chunk_tokens),
+            "--trace-out", str(out / "trace.json"), "--metrics-interval", "0.05",
+            "--metrics-out", str(out / "metrics.prom")]
+    reset_counts()
+    t0 = time.perf_counter()
+    r = serve.main(argv, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    m = r["metrics"].summary()
+    log(f"  launcher chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
+        f"serve {r['wall_s']:.3f} s (wall {wall:.3f} s incl. tier set-up and prewarm), "
+        f"placement {r['by_tier']}, median response {m['median_response_s']} s, "
+        f"p99 {m['p99_response_s']} s; launches {counts}")
+    if m["total"] != 32 or m["failed"] != 0:
+        raise AssertionError(f"launcher chunk_tokens={chunk_tokens}: {m}")
+    if counts["decode_attention"] <= 0:
+        raise AssertionError(f"decode_attention was not launched by the launcher (chunk {chunk_tokens})")
+    return r, counts
+
+
+POOL_PROMPTS = [120, 131, 142, 154, 165, 177, 188, 200]
+
+
+def pools_run(torch, cfg, params, dev, cache_dtype: str, chained: bool):
+    """A FULL paged engine under an EngineLoop serving 8 prompts of 120-200
+    tokens, 16-token pages, 4 pages per second-level table row."""
+    import numpy as np
+
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+    from repro_torch.serving.scheduler import EngineLoop
+
+    prompts = [[int(t) for t in np.random.default_rng(1000 + i).integers(1, cfg.vocab_size, n)]
+               for i, n in enumerate(POOL_PROMPTS)]
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=16, num_pages=129, max_slots=8, max_seq_len=256, max_new_tokens=8,
+        cache_dtype=cache_dtype, chained_tables=chained, table_page_entries=4),
+        params=params, device=dev)
+    eng.prewarm()
+    reset_counts()
+    t0 = time.perf_counter()
+    with EngineLoop(eng, name=f"pools-{cache_dtype}-{'chained' if chained else 'flat'}") as loop:
+        sids = [loop.submit(p) for p in prompts]
+        outs = [loop.wait(sid, 300).out for sid in sids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    snap = eng.capacity_now()
+    log(f"  pools {cache_dtype} {'chained' if chained else 'flat'}: {len(outs)} requests in "
+        f"{wall:.3f} s, kv_bytes_per_token {snap['kv_bytes_per_token']}, "
+        f"{eng.preemptions} preemptions; launches {counts}")
+    return {"prompts": prompts, "outs": outs, "counts": counts, "snap": snap, "wall_s": wall}
+
+
+def phase_pools(torch, cfg, params, dev):
+    """int8 pool on chained tables, on flat tables, and a bf16 pool on
+    chained tables: identical int8 streams, every leg launched."""
+    i8c = pools_run(torch, cfg, params, dev, "int8", True)
+    i8f = pools_run(torch, cfg, params, dev, "int8", False)
+    bfc = pools_run(torch, cfg, params, dev, "bf16", True)
+    if i8c["outs"] != i8f["outs"]:
+        raise AssertionError(f"int8 chained and flat streams differ: {i8c['outs']} vs {i8f['outs']}")
+    log(f"  int8 chained == int8 flat: {len(i8c['outs'])} identical greedy streams")
+    for run, key in ((i8f, "paged_prefill_write_quant"), (i8f, "paged_attention[int8]"),
+                     (i8c, "paged_attention[int8+chained]"), (bfc, "paged_attention[chained]")):
+        if run["counts"][key] <= 0:
+            raise AssertionError(f"{key} was not launched in the compact-pool phase")
+    KV, hd = cfg.n_kv_heads, cfg.hd         # 32 layers x 2 x 5 x (64 + 2) and x 64 x 2 at FULL
+    want = {"int8": cfg.n_layers * 2 * KV * (hd + 2), "bf16": cfg.n_layers * 2 * KV * hd * 2}
+    got = {"int8": i8c["snap"]["kv_bytes_per_token"], "bf16": bfc["snap"]["kv_bytes_per_token"]}
+    log(f"  kv_bytes_per_token: int8 {got['int8']} B, bf16 {got['bf16']} B "
+        f"(from the shapes: {want['int8']} and {want['bf16']})")
+    if got != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"kv_bytes_per_token {got}, expected {want}")
+    return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
+
+
+def teacher_forced_rows(torch, cfg, params, prompt, out, layout: str):
+    """Logit rows of the port's plain path on the CPU for the prompt and
+    every served token but the last, fed one decode step at a time: a dense
+    cache, or a paged int8 pool on 16-token pages."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rotary import positions_for
+
+    model = get_model(cfg)
+    n = len(prompt) + len(out)
+    if layout == "dense":
+        cache = model.init_cache(1, n, "cpu")
+        pidx = 0
+    else:
+        pages = -(-n // 16)
+        cache = model.init_paged_cache(1 + pages, 16, "cpu")
+        row = torch.arange(1, pages + 1, dtype=torch.int32)
+        pidx = attn.PagedPrefillIndex(row, 0)
+    L = len(prompt)
+    h, cache = tf.forward(cfg, params, torch.tensor([prompt]), positions_for(1, L), mode="prefill",
+                          cache=cache, cache_index=pidx)
+    rows = [model.logits(params, h[0, -1])]
+    for j, tok in enumerate(out[:-1]):
+        pos = torch.tensor([L + j], dtype=torch.int32)
+        idx = pos if layout == "dense" else attn.PagedIndex(pos, row[None, :])
+        h, cache = tf.forward(cfg, params, torch.tensor([[tok]]), pos[:, None], mode="decode",
+                              cache=cache, cache_index=idx)
+        rows.append(model.logits(params, h[0, -1]))
+    return rows
+
+
+def phase_parity(torch, legs, launcher, pools):
+    """Teacher-forced parity of served tokens against the port's plain paths
+    on the CPU in f32 on the same weights: the whole-sequence forward for
+    the paged serves, the dense cache for the launcher, the paged int8 pool
+    for the compact-pool phase."""
     from repro_torch.models import get_model
 
     cfg = legs[0]["cfg"]
@@ -368,27 +775,39 @@ def phase_parity(torch, legs):
 
     p32 = to_cpu(params)
     model = get_model(cfg32)
-    steps = flips = 0
-    worst = 0.0
-    for r, rids in zip(legs, ([0, 1, 5, 12, 23], [3, 18])):
-        for rid in rids:
-            prompt, out = r["prompts"][rid], r["results"][rid]
-            ctx = prompt + out[:-1]
-            with torch.no_grad():
-                lg = model.logits(p32, model.hidden(p32, [ctx]))[0]
-            for j, tok in enumerate(out):
-                row = lg[len(prompt) - 1 + j]
-                top = int(torch.argmax(row))
-                steps += 1
-                if top != tok:
-                    lead = float(row[top] - row[tok])
-                    flips += 1
-                    worst = max(worst, lead)
-                    log(f"  flip rid={rid} step={j}: gpu {tok} cpu {top}, cpu lead {lead:.4f}")
-                    if lead > FLIP_BOUND:
-                        raise AssertionError(f"rid {rid} step {j}: CPU lead {lead} above {FLIP_BOUND}")
-    log(f"  {steps} teacher-forced steps, {flips} flips, largest CPU lead {worst:.4f} "
-        f"(bound {FLIP_BOUND})")
+    tally = {"steps": 0, "flips": 0, "worst": 0.0}
+
+    def check(name, rid, rows, out):
+        for j, tok in enumerate(out):
+            row = rows[j]
+            top = int(torch.argmax(row))
+            tally["steps"] += 1
+            if top != tok:
+                lead = float(row[top] - row[tok])
+                tally["flips"] += 1
+                tally["worst"] = max(tally["worst"], lead)
+                log(f"  flip {name} rid={rid} step={j}: gpu {tok} cpu {top}, cpu lead {lead:.4f}")
+                if lead > FLIP_BOUND:
+                    raise AssertionError(f"{name} rid {rid} step {j}: CPU lead {lead} above {FLIP_BOUND}")
+
+    with torch.no_grad():
+        for r, rids in zip(legs, ([0, 1, 5, 12, 23], [3, 18])):
+            for rid in rids:
+                prompt, out = r["prompts"][rid], r["results"][rid]
+                lg = model.logits(p32, model.hidden(p32, [prompt + out[:-1]]))[0]
+                check("serve_hybrid", rid, lg[len(prompt) - 1:], out)
+        for r, rids in zip(launcher, ([0, 7, 19], [2, 30])):
+            for rid in rids:
+                prompt, out = r["prompts"][rid], r["results"][rid]
+                check("launcher", rid, teacher_forced_rows(torch, cfg32, p32, prompt, out, "dense"),
+                      out)
+        cfg8 = cfg32.replace(kv_quant=True)
+        run = pools["int8_chained"]
+        for i in (0, 7):
+            prompt, out = run["prompts"][i], run["outs"][i]
+            check("pools int8", i, teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
+    log(f"  {tally['steps']} teacher-forced steps, {tally['flips']} flips, largest CPU lead "
+        f"{tally['worst']:.4f} (bound {FLIP_BOUND})")
 
 
 def main() -> int:
@@ -428,25 +847,53 @@ def main() -> int:
     log("phase 4 serve: smollm-360m FULL bf16, 24 requests through StraightLineRouter")
     chunked, c_counts = serve_leg(torch, 32, None)
     whole, w_counts = serve_leg(torch, 0, chunked["params"])
-    for name in ("rmsnorm", "paged_prefill_write", "paged_attention"):
+    for name in ("rmsnorm", "paged_prefill_write", "paged_attention[flat]"):
         if c_counts[name] <= 0:
             raise AssertionError(f"{name} was not launched in the chunked serve")
     if w_counts["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched in the whole-prompt serve")
     phase_step(torch, chunked["cfg"], chunked["params"], dev)
 
-    # 5. parity
-    log("phase 5 parity: teacher-forced CPU f32 plain path on the same weights")
-    phase_parity(torch, [chunked, whole])
+    # 5. launcher
+    log("phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines")
+    l_chunk, lc_counts = launcher_leg(torch, 32, chunked["params"])
+    l_whole, lw_counts = launcher_leg(torch, 0, chunked["params"])
+    if lw_counts["flash_attention"] <= 0:
+        raise AssertionError("flash_attention was not launched by the whole-prompt launcher")
 
-    # 6. summary
+    # 6. compact pools
+    log("phase 6 pools: FULL bf16 paged engine, int8 pool and chained tables, prompts of 120-200 tokens")
+    pools = phase_pools(torch, chunked["cfg"], chunked["params"], dev)
+
+    # 7. parity
+    log("phase 7 parity: teacher-forced CPU f32 plain paths on the same weights")
+    phase_parity(torch, [chunked, whole], [l_chunk, l_whole], pools)
+
+    # 8. summary
+    runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
+            "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
+            "pools_int8_flat": pools["int8_flat"]["counts"],
+            "pools_bf16_chained": pools["bf16_chained"]["counts"]}
+    main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
+                "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
+                "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
+                "paged_attention[int8]": "pools_int8_flat", "paged_attention[chained]": "pools_bf16_chained",
+                "paged_attention[int8+chained]": "pools_int8_chained"}
     for r in rows:
-        r["launches"] = (w_counts if r["name"] == "flash_attention" else c_counts)[r["name"]]
-        r["launches_by_leg"] = {"chunk32": c_counts[r["name"]], "whole_prompt": w_counts[r["name"]]}
+        key = "paged_attention[flat]" if r["name"] == "paged_attention" else r["name"]
+        r["launches"] = runs[main_run[r["name"]]][key]
+        r["main_run"] = main_run[r["name"]]
+        r["launches_by_run"] = {run: c[key] for run, c in runs.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("shape", "device_ms", "plain_device_ms", "launches_by_leg")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra} for r in rows]}))
+    extra = ("shape", "device_ms", "plain_device_ms", "main_run", "launches_by_run")
+    log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s")
+    table = []
+    for r in rows:
+        table.append({k: r[k] for k in keys + extra})
+        table[-1].update({k: r[k] for k in ("library_call", "rounding_ties", "int8_values_differing",
+                                            "twin") if k in r})
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -143,11 +143,22 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``; engine loops on several threads may
+def count_launch(wrapper, leg: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` and, for a kernel with several legs,
+    to ``wrapper.leg_launches[leg]``; engine loops on several threads may
     launch the same kernel at once."""
     with _count_lock:
         wrapper.launches += 1
+        if leg is not None:
+            wrapper.leg_launches[leg] += 1
+
+
+def reset_launches(wrapper) -> None:
+    """Set a wrapper's launch counts (and its legs') to 0."""
+    with _count_lock:
+        wrapper.launches = 0
+        for leg in getattr(wrapper, "leg_launches", {}):
+            wrapper.leg_launches[leg] = 0
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

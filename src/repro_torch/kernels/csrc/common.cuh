@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes f32 or bf16 storage and does its arithmetic in f32.
+// Every kernel takes f32 or bf16 activations (and, for the KV pools, int8
+// with bf16 scales) and does its arithmetic in f32.
 // Each C entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a launch
 // the runtime refused.
@@ -10,14 +11,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace rt {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 constexpr float kNegInf = -1e30f;  // the mask value of the JAX package
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);

@@ -1,6 +1,9 @@
 """Model-facing wrappers for the paged KV pool: the decode-time
 gather-attention over block tables, and its write-side twin, the prefill
-scatter that lands a prompt's (or chunk's) K/V in the pool in place.
+scatter that lands a prompt's (or chunk's) K/V in the pool in place. Every
+entry point carries an int8 leg (scale pools beside the value pools:
+quantize at write, dequantize on gather), and the decode also takes chained
+two-level block tables.
 
 For a CPU tensor each wrapper runs its plain version (``ref.py``); for a
 CUDA tensor it launches the kernel of ``csrc/paged_attention.cu`` or raises.
@@ -16,16 +19,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import (
     gather_kv,
     paged_attention_ref,
+    paged_prefill_write_quant_ref,
     paged_prefill_write_ref,
 )
+from repro_torch.models.quant import dequantize_kv
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _WRITE_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                ctypes.c_float, ctypes.c_float, _I, _P]
-_DECODE_THREADS, _DECODE_MAX_PER_THREAD = 128, 4     # csrc/paged_attention.cu
+_WRITE_QUANT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                _F, _F, _I, _I, _P]
+_DECODE_THREADS, _DECODE_MAX_PER_THREAD = 128, 4     # csrc/decode_tile.cuh
 _SMEM_LIMIT = 48 * 1024
+_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _shift_row(tab: torch.Tensor, offset: int, ps: int) -> torch.Tensor:
@@ -38,6 +46,23 @@ def _shift_row(tab: torch.Tensor, offset: int, ps: int) -> torch.Tensor:
     return torch.where(inside, tab[idx.clamp(0, P - 1)], torch.zeros_like(tab))
 
 
+def _write_row(name: str, pool_k, k, v, tab_row, offset):
+    """The (shifted) int32 row of a prefill write, after the checks the
+    kernels rely on when the pools lie on the card."""
+    num_pages, KV, ps, hd = pool_k.shape
+    tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)
+    if offset is not None:
+        tab = _shift_row(tab, offset, ps)
+    if pool_k.device.type == "cpu":
+        return tab
+    Lp = k.shape[1]
+    if k.shape != (1, Lp, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v must be (1, Lp, {KV}, {hd}), got {tuple(k.shape)}")
+    if -(-Lp // ps) > tab.shape[0]:
+        raise ValueError(f"{name}: {Lp} tokens need more than the row's {tab.shape[0]} pages")
+    return tab
+
+
 def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     """Scatter one prefilled prompt's (or prompt chunk's) K/V through its
     block-table row, IN PLACE.
@@ -48,24 +73,17 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     t lands at absolute position offset + t through the row shifted by
     ``offset // ps`` pages. Lp need not be a page multiple: the kernel writes
     the ragged tail itself. Returns (pool_k, pool_v)."""
-    num_pages, KV, ps, hd = pool_k.shape
-    tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)
-    if offset is not None:
-        tab = _shift_row(tab, offset, ps)
+    tab = _write_row("paged_prefill_write", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_ref(pool_k, pool_v, k, v, tab)
-    Lp = k.shape[1]
-    if k.shape != (1, Lp, KV, hd) or v.shape != k.shape:
-        raise ValueError(f"paged_prefill_write: k/v must be (1, Lp, {KV}, {hd}), got {tuple(k.shape)}")
+    num_pages, KV, ps, hd = pool_k.shape
     if pool_k.dtype not in _build.DTYPE_CODE or not (
             pool_v.dtype == k.dtype == v.dtype == pool_k.dtype) or pool_v.shape != pool_k.shape:
         raise ValueError("paged_prefill_write: pools and k/v must share one f32 or bf16 dtype and shape")
-    if -(-Lp // ps) > tab.shape[0]:
-        raise ValueError(f"paged_prefill_write: {Lp} tokens need more than the row's {tab.shape[0]} pages")
     _build.require_cuda("paged_prefill_write", pool_k, pool_v, k, v, tab)
     fn = _build.function("rt_paged_prefill_write", _WRITE_ARGS)
     err = fn(k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-             Lp, KV, ps, hd, pool_k.element_size(), num_pages, _build.stream_ptr(pool_k))
+             k.shape[1], KV, ps, hd, pool_k.element_size(), num_pages, _build.stream_ptr(pool_k))
     _build.count_launch(paged_prefill_write)
     _build.check(err, "paged_prefill_write")
     return pool_k, pool_v
@@ -74,21 +92,57 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
 paged_prefill_write.launches = 0
 
 
-def paged_gather_context(pool_k, pool_v, tab_row):
+def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, offset=None):
+    """Int8 leg of ``paged_prefill_write``: quantize per (token, head) at
+    write time and land the int8 values in pool_k/pool_v (num_pages, KV, ps,
+    hd) and the bf16 scales in pool_ks/pool_vs (num_pages, KV, ps, 1), all
+    IN PLACE. k/v are f32 or bf16 activations. Returns the four pools."""
+    tab = _write_row("paged_prefill_write_quant", pool_k, k, v, tab_row, offset)
+    if pool_k.device.type == "cpu":
+        return paged_prefill_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
+    num_pages, KV, ps, hd = pool_k.shape
+    if not (pool_k.dtype == pool_v.dtype == torch.int8 and pool_v.shape == pool_k.shape):
+        raise ValueError("paged_prefill_write_quant: pool_k/pool_v must be int8 of one shape")
+    if not (pool_ks.dtype == pool_vs.dtype == torch.bfloat16
+            and pool_ks.shape == pool_vs.shape == (num_pages, KV, ps, 1)):
+        raise ValueError(f"paged_prefill_write_quant: scale pools must be bf16 ({num_pages}, {KV}, {ps}, 1)")
+    if k.dtype not in _build.DTYPE_CODE or v.dtype != k.dtype:
+        raise ValueError("paged_prefill_write_quant: k/v must share one f32 or bf16 dtype")
+    _build.require_cuda("paged_prefill_write_quant", pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
+    fn = _build.function("rt_paged_prefill_write_quant", _WRITE_QUANT_ARGS)
+    err = fn(k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+             pool_vs.data_ptr(), tab.data_ptr(), k.shape[1], KV, ps, hd, _build.DTYPE_CODE[k.dtype],
+             num_pages, _build.stream_ptr(pool_k))
+    _build.count_launch(paged_prefill_write_quant)
+    _build.check(err, "paged_prefill_write_quant")
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_prefill_write_quant.launches = 0
+
+
+def paged_gather_context(pool_k, pool_v, tab_row, pool_ks=None, pool_vs=None):
     """One sequence's dense K/V context view from the page pool:
     (num_pages, KV, ps, hd) x (P,) -> two (1, P*ps, KV, hd) tensors where
     index t holds the token at logical position t (null-row entries carry
-    page-0 garbage; callers mask them by position)."""
+    page-0 garbage; callers mask them by position). With ``pool_ks``/
+    ``pool_vs`` the pools are int8 and the view is dequantized (f32)."""
     tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)[None, :]
     k = gather_kv(pool_k, tab)                    # (1, KV, P*ps, hd)
     v = gather_kv(pool_v, tab)
+    if pool_ks is not None:
+        k = dequantize_kv(k, gather_kv(pool_ks, tab), torch.float32)
+        v = dequantize_kv(v, gather_kv(pool_vs, tab), torch.float32)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
-def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0):
+def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
+                    pool_ks=None, pool_vs=None, l2_tab=None):
     """q: (B, 1, H, hd); pools: (num_pages, KV, ps, hd); block_tab: (B, P)
-    physical pages; lengths: (B,) valid tokens per sequence. Returns
-    (B, 1, H, hd)."""
+    physical pages, or with ``l2_tab`` (n_rows, tpp) the (B, W1) first-level
+    rows of a chained table; lengths: (B,) valid tokens per sequence.
+    ``pool_ks``/``pool_vs`` (num_pages, KV, ps, 1) bf16 select the int8
+    leg. Returns (B, 1, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
     num_pages, KV, ps, _ = pool_k.shape
     G = H // KV
@@ -96,29 +150,56 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0)
     dev = pool_k.device
     tab = torch.as_tensor(block_tab, dtype=torch.int32, device=dev)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    l2 = None if l2_tab is None else torch.as_tensor(l2_tab, dtype=torch.int32, device=dev)
+    quant = pool_ks is not None
     if dev.type == "cpu":
-        return paged_attention_ref(qg, pool_k, pool_v, tab, lens, softcap=softcap).reshape(B, 1, H, hd)
+        return paged_attention_ref(qg, pool_k, pool_v, tab, lens, softcap=softcap, pool_ks=pool_ks,
+                                   pool_vs=pool_vs, l2_tab=l2).reshape(B, 1, H, hd)
     if S != 1 or H % KV:
         raise ValueError(f"paged_attention: q must be (B, 1, H, hd) with H % KV == 0, got {tuple(q.shape)}")
-    if q.dtype not in _build.DTYPE_CODE or not (pool_k.dtype == pool_v.dtype == q.dtype):
-        raise ValueError("paged_attention: q and the pools must share one f32 or bf16 dtype")
-    if tab.shape[0] != B or lens.shape != (B,):
+    if q.dtype not in _build.DTYPE_CODE or pool_v.dtype != pool_k.dtype:
+        raise ValueError("paged_attention: q must be f32 or bf16 and the pools share one dtype")
+    if quant != (pool_k.dtype == torch.int8) or (not quant and pool_k.dtype != q.dtype):
+        raise ValueError("paged_attention: int8 pools need scale pools; other pools take q's dtype")
+    scales = ()
+    if quant:
+        if not (pool_ks.dtype == pool_vs.dtype == torch.bfloat16
+                and pool_ks.shape == pool_vs.shape == (num_pages, KV, ps, 1)):
+            raise ValueError(f"paged_attention: scale pools must be bf16 ({num_pages}, {KV}, {ps}, 1)")
+        scales = (pool_ks, pool_vs)
+    if lens.shape != (B,) or tab.dim() != 2 or tab.shape[0] != B:
         raise ValueError("paged_attention: block_tab must be (B, P) and lengths (B,)")
+    tpp, n_rows, P = 0, 0, tab.shape[1]
+    if l2 is not None:
+        if l2.dim() != 2:
+            raise ValueError("paged_attention: l2_tab must be (n_rows, tpp)")
+        n_rows, tpp = l2.shape
+        P = tab.shape[1] * tpp
     if G * hd > _DECODE_THREADS * _DECODE_MAX_PER_THREAD:
         raise ValueError(f"paged_attention: G*hd={G * hd} exceeds the kernel's register budget")
     smem = 4 * (G * hd + ps * (hd + 1) + ps * hd + G * ps + G)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention: a page needs {smem} bytes of shared memory")
     qg = qg.contiguous()
-    _build.require_cuda("paged_attention", qg, pool_k, pool_v, tab, lens)
+    _build.require_cuda("paged_attention", qg, pool_k, pool_v, tab, lens, *scales,
+                        *(() if l2 is None else (l2,)))
     out = torch.empty_like(qg)
     fn = _build.function("rt_paged_attention", _DECODE_ARGS)
-    err = fn(qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), B, KV, G, hd, ps, tab.shape[1], num_pages, 1.0 / hd ** 0.5,
-             float(softcap), _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    _build.count_launch(paged_attention)
+    err = fn(qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+             pool_ks.data_ptr() if quant else None, pool_vs.data_ptr() if quant else None,
+             tab.data_ptr(), None if l2 is None else l2.data_ptr(), lens.data_ptr(),
+             out.data_ptr(), B, KV, G, hd, ps, P, num_pages, tpp, n_rows, 1.0 / hd ** 0.5,
+             float(softcap), _build.DTYPE_CODE[q.dtype], _KV_CODE[pool_k.dtype],
+             _build.stream_ptr(q))
+    _build.count_launch(paged_attention, _leg(quant, l2 is not None))
     _build.check(err, "paged_attention")
     return out.reshape(B, 1, H, hd)
 
 
+def _leg(quant: bool, chained: bool) -> str:
+    return {(False, False): "flat", (True, False): "int8", (False, True): "chained",
+            (True, True): "int8+chained"}[quant, chained]
+
+
 paged_attention.launches = 0
+paged_attention.leg_launches = {leg: 0 for leg in ("flat", "int8", "chained", "int8+chained")}

@@ -1,14 +1,17 @@
-"""Model API the serving engine talks to (the torch twin of
-``repro/models/api.py``, decoder-LM paged paths only).
+"""Model API the serving engines talk to (the torch twin of
+``repro/models/api.py``, decoder-LM dense and paged paths; the speculative
+``verify`` passes are not ported yet, ROADMAP Queue 1 item 3).
 
     model = get_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
-    cache = model.init_paged_cache(num_pages, page_size, device)
-    tok, cache = model.prefill_paged(params, batch, cache)
-    tok, cache = model.decode(params, cache, batch)
+    cache = model.init_cache(batch, cap, device)            # dense stripes
+    tok, cache = model.prefill(params, batch, cache)         # one slot's view
+    pool = model.init_paged_cache(num_pages, page_size, device)
+    tok, pool = model.prefill_paged(params, batch, pool)
+    tok, cache = model.decode(params, cache, batch)          # either layout
 
 Batches hold tensors on the model's device, or host values the functions
-move there. The page pools are updated in place.
+move there. Caches and page pools are updated in place.
 """
 from __future__ import annotations
 
@@ -53,6 +56,12 @@ class DecoderLM:
         return init_tree(gen, self.param_defs(), self.cfg.param_dtype, gen.device)
 
     # -- cache ---------------------------------------------------------------
+    def cache_defs(self, batch: int, cap: int):
+        return tf.cache_defs(self.cfg, batch, cap)
+
+    def init_cache(self, batch: int, cap: int, device):
+        return tf.init_cache(self.cfg, batch, cap, device)
+
     def init_paged_cache(self, num_pages: int, page_size: int, device):
         return tf.init_paged_cache(self.cfg, num_pages, page_size, device)
 
@@ -68,6 +77,22 @@ class DecoderLM:
 
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params, hidden)
+
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+        """Dense whole-prompt prefill. batch: tokens (B, Lp) right-padded,
+        n_valid (B,) optional (the token comes from the last valid
+        position). ``cache`` (B-slot leaves, e.g. one slot's view of an
+        engine's stacked cache) is written IN PLACE from position 0; without
+        it a fresh cache of capacity ``cap`` (default Lp) is made. Returns
+        (next_token (B,), cache)."""
+        dev = params["embedding"].device
+        tokens = _tokens(batch["tokens"], dev)
+        B, S = tokens.shape
+        if cache is None:
+            cache = self.init_cache(B, cap or S, dev)
+        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev),
+                              mode="prefill", cache=cache, cache_index=0)
+        return next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid"))), cache
 
     def prefill_paged(self, params, batch: Mapping, cache):
         """Paged prefill of ONE sequence straight into the shared page pool.
@@ -100,6 +125,25 @@ class DecoderLM:
             raise NotImplementedError("recurrent chunk state is not ported yet")
         return cache
 
+    def prefill_chunk(self, params, batch: Mapping, cache, chunk_state):
+        """Dense resumable partial-context prefill of ONE slot's stripe.
+
+        batch: tokens (1, Cp) one right-padded chunk; n_valid (1,) valid
+        tokens in this chunk; offset tokens already in the stripe. cache: the
+        slot's view (B = 1 leaves, full capacity), written IN PLACE at
+        ``offset``; the chunk attends over the whole stripe by absolute
+        position. Returns (next_token (1,), cache, chunk_state); only the
+        final chunk's token is meaningful."""
+        dev = params["embedding"].device
+        tokens = _tokens(batch["tokens"], dev)
+        B, S = tokens.shape
+        offset = int(batch["offset"])
+        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
+                              mode="prefill", cache=cache,
+                              cache_index=attn_mod.ChunkPrefillIndex(offset))
+        tok = next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid")))
+        return tok, cache, chunk_state
+
     def prefill_chunk_paged(self, params, batch: Mapping, cache, chunk_state):
         """Paged resumable partial-context prefill of ONE sequence.
 
@@ -125,21 +169,31 @@ class DecoderLM:
         return tok, cache, chunk_state
 
     def decode(self, params, cache, batch: Mapping):
-        """One batched decode step over the page pool. batch: token (B, 1),
-        lengths (B,) tokens already in cache, block_tab (B, P). Returns
+        """One batched decode step. Paged (batch has ``block_tab``): token
+        (B, 1), lengths (B,) tokens already in cache, block_tab (B, P), or
+        with ``l2_tab`` (n_rows, tpp) the (B, W1) first level of a chained
+        table. Dense: token (B, 1) and ``lengths`` (B,) per-slot write
+        positions, or a scalar ``cache_index`` for an aligned batch. Returns
         (next_tokens (B,), cache)."""
-        if "block_tab" not in batch:
-            raise NotImplementedError("the dense decode path is not ported yet (ROADMAP Queue 1 item 7)")
         dev = params["embedding"].device
         tok = _tokens(batch["token"], dev)
         B, S = tok.shape
-        lens = torch.as_tensor(batch["lengths"], dtype=torch.int32, device=dev)
-        pidx = attn_mod.PagedIndex(
-            lens, torch.as_tensor(batch["block_tab"], dtype=torch.int32, device=dev)
-        )
-        pos = lens[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        if "block_tab" in batch:
+            lens = torch.as_tensor(batch["lengths"], dtype=torch.int32, device=dev)
+            l2 = batch.get("l2_tab")
+            idx = attn_mod.PagedIndex(
+                lens, torch.as_tensor(batch["block_tab"], dtype=torch.int32, device=dev),
+                None if l2 is None else torch.as_tensor(l2, dtype=torch.int32, device=dev),
+            )
+            pos = lens[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        elif "lengths" in batch:
+            idx = torch.as_tensor(batch["lengths"], dtype=torch.int32, device=dev)
+            pos = idx[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        else:
+            idx = int(batch["cache_index"])
+            pos = positions_for(B, S, idx, device=dev)
         h, cache = tf.forward(self.cfg, params, tok, pos, mode="decode", cache=cache,
-                              cache_index=pidx)
+                              cache_index=idx)
         return next_tokens(self.cfg, params, h), cache
 
 

@@ -41,7 +41,7 @@ class ModelConfig:
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024      # query-chunk size for chunked causal attention
-    kv_quant: bool = False      # int8 KV pools: not ported yet
+    kv_quant: bool = False      # int8 KV cache (values + per-(token, head) bf16 scales)
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0
 
@@ -51,7 +51,7 @@ class ModelConfig:
 
     @property
     def kv_dtype(self):
-        """Storage dtype of non-quantized KV pools."""
+        """Storage dtype of non-quantized KV caches and pools."""
         return self.kv_cache_dtype if self.kv_cache_dtype is not None else self.compute_dtype
 
     @property

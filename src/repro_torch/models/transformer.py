@@ -2,9 +2,10 @@
 over the stacked superblock parameters (the JAX package scans them with
 ``lax.scan``).
 
-Parameters and pools keep the JAX package's stacked layout: every leaf under
-``blocks`` carries a leading (n_superblocks,) axis, so a layer's parameters
-and pools are views ``leaf[i]`` and in-place pool writes land in the stack.
+Parameters, caches and pools keep the JAX package's stacked layout: every
+leaf under ``blocks`` carries a leading (n_superblocks,) axis, so a layer's
+parameters and caches are views ``leaf[i]`` and in-place writes land in the
+stack.
 """
 from __future__ import annotations
 
@@ -50,6 +51,29 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def _init(defs: dict, device) -> dict:
+    return {"blocks": {
+        key: {name: torch.zeros(s.shape, dtype=s.dtype, device=device) for name, s in leaves.items()}
+        for key, leaves in defs["blocks"].items()
+    }}
+
+
+def cache_defs(cfg: ModelConfig, batch: int, cap: int) -> dict:
+    """Dense decode cache: every attention layer has a (batch, cap) stripe
+    per slot, stacked on the superblock axis."""
+    _check_pattern(cfg)
+    n = cfg.n_superblocks
+    return {"blocks": {
+        f"l{i}_mixer": {name: attn.TensorSpec((n,) + s.shape, s.dtype)
+                        for name, s in attn.kv_cache_defs(cfg, batch, cap).items()}
+        for i, _ in enumerate(cfg.block_pattern)
+    }}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cap: int, device) -> dict:
+    return _init(cache_defs(cfg, batch, cap), device)
+
+
 def paged_cache_defs(cfg: ModelConfig, num_pages: int, page_size: int) -> dict:
     """Paged decode cache: every attention layer has its page pool, stacked
     on the superblock axis."""
@@ -65,10 +89,7 @@ def paged_cache_defs(cfg: ModelConfig, num_pages: int, page_size: int) -> dict:
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device) -> dict:
-    return {"blocks": {
-        key: {name: torch.zeros(s.shape, dtype=s.dtype, device=device) for name, s in leaves.items()}
-        for key, leaves in paged_cache_defs(cfg, num_pages, page_size)["blocks"].items()
-    }}
+    return _init(paged_cache_defs(cfg, num_pages, page_size), device)
 
 
 def _index(tree, i: int):

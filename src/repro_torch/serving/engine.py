@@ -1,31 +1,37 @@
-"""Batched inference over a paged KV cache: bucketed pad-aware prefill,
-chunked prefill under a per-step token budget, and continuous-batch decode.
+"""Batched inference engines: bucketed pad-aware prefill, chunked prefill
+under a per-step token budget, and continuous-batch decode, over a dense
+cache or a paged KV pool.
 
-The torch twin of ``repro/serving/engine.py``'s ``_EngineBase`` and
-``PagedInferenceEngine`` (see that module's docstring for the full
-contracts, which hold here unchanged):
+The torch twin of ``repro/serving/engine.py``'s ``_EngineBase``,
+``InferenceEngine`` and ``PagedInferenceEngine`` (see that module's
+docstring for the full contracts, which hold here unchanged):
 
-* the KV cache is a shared pool of fixed-size pages (serving/paging.py);
-  admission is gated on free pages, and page exhaustion preempts the newest
-  sequence back to the waiting queue (recompute-style resume);
-* prefill is truly paged: attention K/V scatter through the sequence's
-  block-table row inside each layer;
+* ``InferenceEngine`` (dense): every slot owns a ``max_len`` stripe of the
+  stacked cache; a prefill writes in place into its slot's stripe;
+* ``PagedInferenceEngine``: the KV cache is a shared pool of fixed-size
+  pages (serving/paging.py); admission is gated on free pages, and page
+  exhaustion preempts the newest sequence back to the waiting queue
+  (recompute-style resume); prefill is truly paged: attention K/V scatter
+  through the sequence's block-table row inside each layer; with
+  ``chained_tables`` the decode resolves pages through two-level tables;
+* ``cache_dtype`` picks the storage: f32, bf16, or int8 values with a bf16
+  scale per (token, head);
 * every prompt (and resume context) is right-padded to a power-of-two page
   bucket, so prefill runs at most ``num_buckets`` distinct shapes;
   ``compile_events`` counts the distinct prefill shapes executed and
   ``compile_ema_s`` times each first execution (on the card that includes
   building the kernel library, on the first shape);
-* with ``chunk_tokens > 0`` admission only reserves pages and a slot; each
-  ``step()`` shares one token budget between the decode batch and prefill
-  chunks (PREFILLING slots, FIFO, one chunk always);
+* with ``chunk_tokens > 0`` admission only reserves capacity and a slot;
+  each ``step()`` shares one token budget between the decode batch and
+  prefill chunks (PREFILLING slots, FIFO, one chunk always);
 * one reentrant ``lock`` covers every state-mutating entry point; the
   capacity probes are lock-free snapshots.
 
-Where the JAX engine jits its steps and donates the cache buffers, this one
-runs eagerly and updates the preallocated pools in place. Options this slice
-does not port raise ``NotImplementedError`` at construction, naming their
-ROADMAP Queue 1 item: int8 pools, chained tables, speculative decoding and
-the prefix cache; ``fork()`` raises when called.
+Where the JAX engines jit their steps and donate the cache buffers, these
+run eagerly and update the preallocated caches in place. Options this port
+does not have yet raise ``NotImplementedError`` naming their ROADMAP Queue 1
+item: speculative decoding (``spec_tokens``) and the prefix cache at
+construction, ``fork()`` when called.
 """
 from __future__ import annotations
 
@@ -43,14 +49,14 @@ from repro_torch.models.common import dtype_name, resolve_device
 from repro_torch.serving.paging import (
     NULL_PAGE,
     BlockAllocator,
+    ChainedTables,
     PageTable,
     bucket_lengths,
     bucket_tokens,
     num_buckets,
 )
 
-_ROADMAP_ITEM = {"cache_dtype='int8'": 1, "chained_tables": 2, "spec_tokens": 3,
-                 "prefix_cache": 4, "fork()": 5}
+_ROADMAP_ITEM = {"spec_tokens": 3, "prefix_cache": 4, "fork()": 5}
 
 
 def _not_ported(name: str) -> NotImplementedError:
@@ -59,19 +65,26 @@ def _not_ported(name: str) -> NotImplementedError:
 
 def _apply_cache_dtype(cfg, choice: str):
     """Resolve the engine-level KV storage choice onto the model config:
-    "" inherits, "f32"/"bf16" set the pool dtype; "int8" is not ported."""
+    "" inherits, "f32"/"bf16" set the storage dtype, "int8" turns on KV
+    quantization (values plus per-(token, head) scales)."""
     if not choice:
         return cfg
     if choice == "int8":
-        raise _not_ported("cache_dtype='int8'")
+        return cfg.replace(kv_quant=True)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}.get(choice)
     if dt is None:
         raise ValueError(f"cache_dtype must be '', 'f32', 'bf16' or 'int8', got {choice!r}")
     return cfg.replace(kv_quant=False, kv_cache_dtype=dt)
 
 
+def _kv_dtype_name(cfg) -> str:
+    """The KV-cache storage dtype as telemetry sees it."""
+    return "int8" if cfg.kv_quant else dtype_name(cfg.kv_dtype)
+
+
 def _kv_bytes_per_token(cfg, cache, token_slots: int) -> float:
-    """KV-cache bytes per cached-token slot across every attention layer."""
+    """KV-cache bytes per cached-token slot across every attention layer,
+    values plus scales for int8."""
     total = 0
     for i, kind in enumerate(cfg.block_pattern):
         if kind != "attn":
@@ -175,12 +188,19 @@ class _EngineBase:
         return 2 * self._chunk_tokens if self._chunk_tokens else self._len_cap
 
     # -- chunked prefill state machine -----------------------------------------
-    def _resolve_chunking(self, chunk_tokens: int, unit: int, cap: int) -> int:
-        """Snap the chunk size to a positive multiple of the page size,
-        capped at the length cap (tail overruns land on the null page)."""
+    def _resolve_chunking(self, chunk_tokens: int, unit: int, cap: int,
+                          require_divisible: bool) -> int:
+        """Snap the chunk size to a positive multiple of the bucket unit,
+        capped at the length cap. The dense engine requires the cap to be a
+        chunk multiple (its stripe writes would otherwise clamp at the
+        edge); the paged engine's tail overruns land on the null page."""
         if not chunk_tokens:
             return 0
-        return min(-(-chunk_tokens // unit) * unit, cap)
+        ct = min(-(-chunk_tokens // unit) * unit, cap)
+        if require_divisible and cap % ct != 0:
+            raise ValueError(f"chunk_tokens={ct} must divide the length cap {cap} "
+                             "(dense stripe writes cannot overrun the cache edge)")
+        return ct
 
     def _init_chunk_slots(self, B: int) -> None:
         self._chunking = [False] * B
@@ -345,6 +365,227 @@ class _EngineBase:
 
 
 @dataclass
+class EngineConfig:
+    max_slots: int = 4
+    max_len: int = 256
+    max_new_tokens: int = 32
+    eos_id: int = -1            # -1: never stop early
+    bucket_unit: int = 16       # prefill pad quantum (the dense "page unit")
+    bucket_prefill: bool = True # False: one prefill shape per distinct length
+    chunk_tokens: int = 0       # >0: chunked prefill, tokens per chunk (snapped
+                                # to a bucket_unit multiple; must divide max_len)
+    step_token_budget: int = 0  # 0 = auto: 2*chunk_tokens chunked, max_len not
+    spec_tokens: int = 0        # not ported yet
+    spec_ngram: int = 3
+    cache_dtype: str = ""       # "" inherit | "f32" | "bf16" | "int8"
+
+
+class InferenceEngine(_EngineBase):
+    """Continuous batching over a dense cache: ``max_slots`` stripes of
+    ``max_len`` positions, one per slot, reserved whole at admission.
+
+    ``params`` is the port's parameter tree (on ``device``); without it the
+    weights are drawn from ``torch.Generator(device).manual_seed(seed)``.
+    ``device=None`` means the card; pass ``device="cpu"`` to run the plain
+    versions of the kernels on the CPU. A prefill writes in place into its
+    slot's stripe of the stacked cache (the JAX engine builds a one-slot
+    cache and writes it back); positions past the prompt keep what an
+    earlier occupant left there, which the length masks hide."""
+
+    def __init__(self, cfg, ecfg: EngineConfig, params=None, seed: int = 0, device=None):
+        if ecfg.spec_tokens:
+            raise _not_ported("spec_tokens")
+        cfg = _apply_cache_dtype(cfg, ecfg.cache_dtype)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.model = get_model(cfg)
+        if params is None:
+            params = self.model.init(torch.Generator(self.device).manual_seed(seed))
+        self.params = params
+        self._max_new, self._eos, self._len_cap = ecfg.max_new_tokens, ecfg.eos_id, ecfg.max_len
+        self._bucket_unit, self._bucket_on = ecfg.bucket_unit, ecfg.bucket_prefill
+        self._chunk_tokens = self._resolve_chunking(ecfg.chunk_tokens, ecfg.bucket_unit,
+                                                    ecfg.max_len, require_divisible=True)
+        self._spec_tokens = 0
+        self._init_spec()
+        self._step_budget = ecfg.step_token_budget
+        self._prefill_shapes = set()
+        self._compile_ema_s: Optional[float] = None
+        self.lock = threading.RLock()  # locklint: blocking-ok one stepper owns the cache
+        B, L = ecfg.max_slots, ecfg.max_len
+        self.cache = self.model.init_cache(B, L, self.device)
+        self._kv_bytes_per_token = _kv_bytes_per_token(cfg, self.cache, B * L)
+        self.slot_len = np.zeros(B, np.int32)        # tokens in cache per slot
+        self.slot_seq: List[Optional[Sequence]] = [None] * B
+        self.waiting: Deque[Sequence] = deque()
+        self._sid = 0
+        self._just_finished: List[Sequence] = []
+        self._init_chunk_slots(B)
+        self._stamp = np.zeros(B, np.int64)   # admission order (chunk FIFO)
+        self._stamp_next = 1
+        self._last = np.zeros(B, np.int64)
+
+    # -- device steps -----------------------------------------------------------
+    def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    def _slot_view(self, slot: int) -> dict:
+        """One slot's stripe of every cache leaf, as a B = 1 cache of views:
+        writes through it land in the stacked cache."""
+        return {"blocks": {key: {name: leaf[:, slot:slot + 1] for name, leaf in leaves.items()}
+                           for key, leaves in self.cache["blocks"].items()}}
+
+    def _prefill(self, toks, slot: int, n_valid: int) -> torch.Tensor:
+        """Prefill one bucket-padded prompt into ``slot``'s stripe from
+        position 0. Returns the next token (0-dim)."""
+        batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": n_valid}
+        nxt, _ = self.model.prefill(self.params, batch, self._slot_view(slot))
+        return nxt[0]
+
+    def _run_chunk_device(self, slot: int, toks, offset: int, n: int) -> torch.Tensor:
+        batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": n, "offset": offset}
+        nxt, _, self._chunk_carry[slot] = self.model.prefill_chunk(
+            self.params, batch, self._slot_view(slot), self._chunk_carry[slot])
+        return nxt[0]
+
+    def _decode(self) -> np.ndarray:
+        """One decode step for every slot; per-slot lengths drive the cache
+        writes, the masks and the positions (dead slots write at 0)."""
+        batch = {"token": self._tensor(self._last, torch.long)[:, None],
+                 "lengths": self._tensor(self.slot_len)}
+        nxt, self.cache = self.model.decode(self.params, self.cache, batch)
+        return nxt.cpu().numpy()
+
+    # -- capacity telemetry ------------------------------------------------------
+    def capacity_now(self) -> Dict[str, int]:
+        """Live capacity snapshot for the placer; the dense engine reserves
+        max_len cache tokens per admitted slot."""
+        free = self.free_slots()
+        return {
+            "free_slots": free,
+            "num_slots": self.ecfg.max_slots,
+            "free_cache_tokens": free * self.ecfg.max_len,
+            "cache_tokens": self.ecfg.max_slots * self.ecfg.max_len,
+            "kv_cache_dtype": _kv_dtype_name(self.cfg),
+            "kv_bytes_per_token": self._kv_bytes_per_token,
+            "waiting": len(self.waiting),
+            "compile_events": self.compile_events,
+            "total_buckets": self.total_buckets,
+            "compile_ema_s": self.compile_ema_s,
+            "prefilling_slots": sum(self._chunking),
+            "prefill_backlog_tokens": self.prefill_backlog_tokens(),
+            "chunk_tokens": self._chunk_tokens,
+            "spec_tokens": self._spec_tokens,
+            "tokens_emitted": self.tokens_emitted,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+        }
+
+    def admission_capacity(self, est_tokens: int = 0) -> int:
+        """How many more requests this engine can admit right now."""
+        return self.free_slots()
+
+    # -- public API -------------------------------------------------------------
+    def _prewarm_shape(self, Lp: int, slot: int) -> None:
+        """Run a prefill at shape ``Lp`` into a free slot's stripe (the
+        chunk path when chunking is on). The stray writes are harmless: the
+        slot's next occupant overwrites positions from 0 and the length
+        masks hide the rest."""
+        toks = np.zeros(Lp, np.int64)
+        if self._chunk_tokens:
+            batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": 1, "offset": 0}
+            nxt, _, _ = self.model.prefill_chunk(self.params, batch, self._slot_view(slot),
+                                                 self.model.init_chunk_state())
+        else:
+            nxt = self._prefill(toks, slot, 1)
+        _sync(nxt)
+
+    def _release_slot(self, slot: int) -> None:
+        self.slot_seq[slot] = None
+        self.slot_len[slot] = 0
+        self._clear_chunk_slot(slot)
+        self._stamp[slot] = 0
+
+    def _admit(self, spent: int = 0, budget: int = 0) -> int:
+        """Budget-gated admission. Chunked: free slots become PREFILLING at
+        no device cost. Unchunked: the first prefill of a step is always
+        admitted, every further one must fit ``budget``. Returns the updated
+        spend."""
+        budget = budget or self.step_budget
+        admitted = False
+        for i in range(self.ecfg.max_slots):
+            if self.slot_seq[i] is not None or not self.waiting:
+                continue
+            if self._chunk_tokens:
+                self._begin_chunked(i, self.waiting.popleft())
+                continue
+            Lp = self._bucket_len(len(self.waiting[0].prompt))
+            if admitted and spent + Lp > budget:
+                break                        # over budget: stays queued
+            seq = self.waiting.popleft()
+            toks, n, _, fresh = self._pad_context(seq.prompt)
+            tr = seq.trace
+            tr0 = time.monotonic() if tr is not None else 0.0
+            t0 = time.perf_counter()
+            nxt = int(self._prefill(toks, i, n))
+            if fresh:
+                self._note_compile(time.perf_counter() - t0)
+            if tr is not None:
+                tr.add_span("prefill", tr0, time.monotonic(), lane=seq.lane,
+                            slot=i, tokens=n, fresh_compile=fresh)
+            spent += Lp
+            admitted = True
+            self.slot_seq[i] = seq
+            self.slot_len[i] = n
+            self._last[i] = nxt
+            seq.out.append(nxt)
+            seq.token_times.append(time.monotonic())
+            self.tokens_emitted += 1
+            if self._stop_hit(seq, nxt, int(self.slot_len[i])):
+                seq.done = True
+                self._just_finished.append(seq)
+                self._release_slot(i)
+        return spent
+
+    def step(self) -> List[Sequence]:
+        """Admit (budget-gated) + chunk work + one decode step; returns the
+        sequences finished. The batched decode sweeps every slot: PREFILLING
+        slots' writes land on the chunk cursor (rewritten by the next chunk),
+        idle slots' at position 0 of their stripe."""
+        with self.lock:
+            budget = self.step_budget
+            self.spec_runs = []
+            spent = sum(
+                1 for i, s in enumerate(self.slot_seq)
+                if s is not None and not self._chunking[i]
+            )
+            spent = self._admit(spent, budget)
+            if self._chunk_tokens:
+                spent = self._run_chunks(spent, budget)
+            active = [
+                i for i in range(self.ecfg.max_slots)
+                if self.slot_seq[i] is not None and not self._chunking[i]
+            ]
+            finished, self._just_finished = self._just_finished, []
+            if active:
+                nxt = self._decode()
+                tok_t = time.monotonic()      # one stamp per batched decode step
+                for i in active:
+                    seq = self.slot_seq[i]
+                    self.slot_len[i] += 1
+                    self._last[i] = nxt[i]
+                    seq.out.append(int(nxt[i]))
+                    seq.token_times.append(tok_t)
+                    self.tokens_emitted += 1
+                    if self._stop_hit(seq, int(nxt[i]), int(self.slot_len[i])):
+                        seq.done = True
+                        finished.append(seq)
+                        self._release_slot(i)
+            return finished
+
+
+@dataclass
 class PagedEngineConfig:
     page_size: int = 16
     num_pages: int = 64          # pool size, incl. the reserved null page 0
@@ -357,8 +598,9 @@ class PagedEngineConfig:
     step_token_budget: int = 0   # 0 = auto: 2*chunk_tokens chunked, cap not
     prefix_cache: bool = False   # not ported yet
     spec_tokens: int = 0         # not ported yet
-    cache_dtype: str = ""        # "" inherit | "f32" | "bf16" ("int8" not ported)
-    chained_tables: bool = False # not ported yet
+    cache_dtype: str = ""        # "" inherit | "f32" | "bf16" | "int8"
+    chained_tables: bool = False # two-level block tables: lifts num_pages >= table_width
+    table_page_entries: int = 0  # chained: physical pages per second-level row (0 = page_size)
 
     @property
     def table_width(self) -> int:
@@ -379,15 +621,16 @@ class PagedInferenceEngine(_EngineBase):
     versions of the kernels on the CPU."""
 
     def __init__(self, cfg, pcfg: PagedEngineConfig, params=None, seed: int = 0, device=None):
-        for name, on in (("spec_tokens", pcfg.spec_tokens), ("prefix_cache", pcfg.prefix_cache),
-                         ("chained_tables", pcfg.chained_tables)):
+        for name, on in (("spec_tokens", pcfg.spec_tokens), ("prefix_cache", pcfg.prefix_cache)):
             if on:
                 raise _not_ported(name)
         cfg = _apply_cache_dtype(cfg, pcfg.cache_dtype)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.pcfg = pcfg
-        if pcfg.num_pages - 1 < pcfg.table_width:
+        if not pcfg.chained_tables and pcfg.num_pages - 1 < pcfg.table_width:
+            # chained tables drop this coupling: their length cap is what
+            # the pool can hold (see _len_cap below)
             raise ValueError(
                 f"num_pages={pcfg.num_pages} cannot hold one max_seq_len={pcfg.max_seq_len} "
                 f"sequence ({pcfg.table_width} pages + reserved null page)"
@@ -397,9 +640,11 @@ class PagedInferenceEngine(_EngineBase):
             params = self.model.init(torch.Generator(self.device).manual_seed(seed))
         self.params = params
         self._max_new, self._eos = pcfg.max_new_tokens, pcfg.eos_id
-        self._len_cap = pcfg.max_seq_len
+        self._len_cap = (min(pcfg.max_seq_len, pcfg.cache_tokens) if pcfg.chained_tables
+                         else pcfg.max_seq_len)
         self._bucket_unit, self._bucket_on = pcfg.page_size, pcfg.bucket_prefill
-        self._chunk_tokens = self._resolve_chunking(pcfg.chunk_tokens, pcfg.page_size, self._len_cap)
+        self._chunk_tokens = self._resolve_chunking(pcfg.chunk_tokens, pcfg.page_size,
+                                                    self._len_cap, require_divisible=False)
         self._spec_tokens = 0
         self._init_spec()
         self._step_budget = pcfg.step_token_budget
@@ -407,7 +652,18 @@ class PagedInferenceEngine(_EngineBase):
         self._compile_ema_s: Optional[float] = None
         self.lock = threading.RLock()  # locklint: blocking-ok one stepper owns the pools
         B = pcfg.max_slots
-        self._row_width = pcfg.table_width
+        if pcfg.chained_tables:
+            # a sequence holds at most min(table_width, num_pages - 1) data
+            # pages: the flat row a chain encodes is that many entries
+            # rounded up to whole table pages. The flat block_tab is still
+            # kept for the write side; only the batched decode walks the chain.
+            tpp = pcfg.table_page_entries or pcfg.page_size
+            max_pages = min(pcfg.table_width, pcfg.num_pages - 1)
+            self.chain: Optional[ChainedTables] = ChainedTables(B, -(-max_pages // tpp), tpp)
+            self._row_width = self.chain.width1 * tpp
+        else:
+            self.chain = None
+            self._row_width = pcfg.table_width
         self.cache = self.model.init_paged_cache(pcfg.num_pages, pcfg.page_size, self.device)
         self._kv_bytes_per_token = _kv_bytes_per_token(
             cfg, self.cache, pcfg.num_pages * pcfg.page_size
@@ -449,7 +705,12 @@ class PagedInferenceEngine(_EngineBase):
 
     def _decode(self) -> np.ndarray:
         batch = {"token": self._tensor(self._last, torch.long)[:, None],
-                 "lengths": self._tensor(self.slot_len), "block_tab": self._tensor(self.block_tab)}
+                 "lengths": self._tensor(self.slot_len)}
+        if self.chain is not None:
+            batch["block_tab"] = self._tensor(self.chain.l1)
+            batch["l2_tab"] = self._tensor(self.chain.l2)
+        else:
+            batch["block_tab"] = self._tensor(self.block_tab)
         nxt, self.cache = self.model.decode(self.params, self.cache, batch)
         return nxt.cpu().numpy()
 
@@ -466,7 +727,7 @@ class PagedInferenceEngine(_EngineBase):
             "num_pages": self.pcfg.num_pages - 1,
             "free_cache_tokens": self.allocator.free_pages * self.pcfg.page_size,
             "cache_tokens": self.pcfg.cache_tokens,
-            "kv_cache_dtype": dtype_name(self.cfg.kv_dtype),
+            "kv_cache_dtype": _kv_dtype_name(self.cfg),
             "kv_bytes_per_token": self._kv_bytes_per_token,
             "waiting": len(self.waiting),
             "compile_events": self.compile_events,
@@ -507,7 +768,8 @@ class PagedInferenceEngine(_EngineBase):
         if len(prompt) + self.pcfg.max_new_tokens > self._len_cap:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens exceeds the length "
-                f"cap {self._len_cap} (max_seq_len={self.pcfg.max_seq_len})"
+                f"cap {self._len_cap} (max_seq_len={self.pcfg.max_seq_len}, "
+                f"pool={self.pcfg.cache_tokens} tokens)"
             )
         return super().submit(prompt, trace=trace)
 
@@ -518,11 +780,14 @@ class PagedInferenceEngine(_EngineBase):
         return None
 
     def _sync_row(self, slot: int) -> None:
-        """Single owner of the host block-table row after any page-list
-        change."""
+        """Single owner of the host block-table views after any page-list
+        change: rewrites the slot's flat row and, with chained tables, its
+        first- and second-level entries, so the two views never disagree."""
         table = self.tables[slot]
         pages = table.pages if table is not None else []
         self.block_tab[slot, :] = table.row(self._row_width) if pages else NULL_PAGE
+        if self.chain is not None:
+            self.chain.set_row(slot, pages)
 
     def _install(self, slot: int, seq: Sequence, table: PageTable) -> int:
         """Prefill seq's full context (bucket-padded) through ``table`` into

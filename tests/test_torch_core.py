@@ -1,8 +1,9 @@
-"""The port's scheduler core and end-to-end example on the CPU: Algorithm 1
+"""The port's scheduler core and entry points on the CPU: Algorithm 1
 (``StraightLinePolicy``) decides as the JAX package's does on a seeded
 request stream; ``launch/serve_hybrid.main(device="cpu", smoke=True)``
-passes its own asserts; and importing the port loads neither JAX nor any
-module of the JAX package."""
+passes its own asserts; the launcher ``launch/serve.main`` serves its burst
+on dense engines with 0 failures in each of its modes; and importing the
+port loads neither JAX nor any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -18,7 +19,7 @@ from repro.core import placing as j_placing  # noqa: E402
 from repro.core import request as j_request  # noqa: E402
 from repro_torch.core import placing as t_placing  # noqa: E402
 from repro_torch.core import request as t_request  # noqa: E402
-from repro_torch.launch import serve_hybrid  # noqa: E402
+from repro_torch.launch import serve, serve_hybrid  # noqa: E402
 from repro_torch.serving.engine import PagedInferenceEngine  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -98,6 +99,29 @@ def test_serve_hybrid_main_passes_its_asserts(tmp_path, monkeypatch):
     assert {"flask", "docker"} <= set(r["sampler_tiers"])
 
 
+@pytest.mark.parametrize("extra", [[], ["--serialized"], ["--chunk-tokens", "0"]],
+                         ids=["loops", "serialized", "whole_prompt"])
+def test_launcher_serves_every_request(extra, tmp_path):
+    """The launcher twin on the CPU at smoke size: 8 requests through the
+    router's workers onto the dense tiers, each with 8 new tokens, 0
+    failures, traces and the metrics registry written."""
+    trace, prom = tmp_path / "trace.json", tmp_path / "metrics.prom"
+    r = serve.main(["--smoke", "--device", "cpu", "--requests", "8", "--workers", "2",
+                    "--prewarm", "--trace-out", str(trace), "--metrics-interval", "0.02",
+                    "--metrics-out", str(prom), *extra])
+    m = r["metrics"]
+    assert m.total == 8 and m.failure_rate == 0.0, m.summary()
+    assert sorted(r["results"]) == list(range(8))
+    assert all(len(out) == 8 for out in r["results"].values())
+    assert sum(r["by_tier"].values()) == 8
+    assert trace.stat().st_size > 0 and "router_requests_total" in prom.read_text()
+
+
+def test_launcher_weights_int8_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        serve.main(["--smoke", "--device", "cpu", "--weights-int8"])
+
+
 def test_import_loads_no_jax():
     """``import repro_torch`` and every submodule, in a fresh interpreter:
     neither ``jax`` nor any module of the JAX package ``repro`` is loaded."""
@@ -110,7 +134,8 @@ def test_import_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "sys.exit(1 if bad or len(names) < 25 or 'repro_torch.launch.serve' not in names\n"
+        "         or 'repro_torch.models.quant' not in names else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

@@ -12,16 +12,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref, paged_prefill_write_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref,
+    paged_prefill_write_quant_ref,
+    paged_prefill_write_ref,
+)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # tests/test_kernels.py:17
-WRAPPERS = (rms_ops.rmsnorm, pa_ops.paged_prefill_write, pa_ops.paged_attention,
-            fa_ops.flash_attention_bhsd)
+WRAPPERS = (rms_ops.rmsnorm, pa_ops.paged_prefill_write, pa_ops.paged_prefill_write_quant,
+            pa_ops.paged_attention, fa_ops.flash_attention_bhsd, da_ops.decode_attention)
 
 
 @pytest.fixture
@@ -45,6 +51,13 @@ def test_cpu_tensors_take_the_plain_versions():
     q = torch.randn(1, 2, 5, 8, generator=g)
     assert torch.equal(fa_ops.flash_attention_bhsd(q, q[:, :1], q[:, :1]),
                        attention_ref(q, q[:, :1], q[:, :1]))
+    qk, qv = torch.zeros(4, 1, 2, 8, dtype=torch.int8), torch.zeros(4, 1, 2, 8, dtype=torch.int8)
+    sk, sv = torch.zeros(4, 1, 2, 1, dtype=torch.bfloat16), torch.zeros(4, 1, 2, 1, dtype=torch.bfloat16)
+    pa_ops.paged_prefill_write_quant(qk, qv, sk, sv, k, k, torch.tensor([2, 3], dtype=torch.int32))
+    assert qk[2].abs().amax() == 127 and sk[2].float().gt(0).all()
+    kc = torch.randn(2, 6, 1, 8, generator=g)
+    out = da_ops.decode_attention(q[:, :1, :1].reshape(1, 1, 1, 8).expand(2, 1, 1, 8), kc, kc, 4)
+    assert out.shape == (2, 1, 1, 8)
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -80,6 +93,129 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         assert (fa_ops.flash_attention_bhsd(q, k, v).float()
                 - attention_ref(q, k, v).float()).abs().max() < tol
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_matches_plain_version(cuda_device):
+    """The dense decode kernel at the launcher's widths: T = 96 (no multiple
+    of the tile) and 128, lengths 1, 16, 95 and 96 (and 0, which must be
+    finite), the cache read as stored through its strides, with a softcap."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(2)
+    for dt in (torch.float32, torch.bfloat16):
+        for T, cap in ((96, 0.0), (128, 0.0), (96, 30.0)):
+            q = torch.randn(5, 1, 15, 64, generator=g, device=dev).to(dt)
+            cache = torch.randn(2, 5, T, 5, 64, generator=g, device=dev).to(dt)
+            k, v = cache[0], cache[1]                    # views of one stacked tensor
+            lens = torch.tensor([1, 16, 95, 96, 0], dtype=torch.int32, device=dev)
+            out = da_ops.decode_attention(q, k, v, lens, softcap=cap)
+            ref = decode_attention_ref(q[:, 0].reshape(5, 5, 3, 64), k.transpose(1, 2),
+                                       v.transpose(1, 2), lens, softcap=cap)
+            assert torch.isfinite(out.float()).all()
+            assert out[4].float().abs().max() == 0                # length 0 -> 0
+            err = (out.reshape(5, 5, 3, 64)[:4].float() - ref[:4].float()).abs().max()
+            assert err < TOL[dt], (dt, T, cap, float(err))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_int8_and_chained_legs_match_plain_versions(cuda_device):
+    """The quantized write's int8 bits against quantize_kv (a difference only
+    at a rounding tie, by 1), untouched pages kept; the int8, chained and
+    int8 + chained decode legs against their plain versions, with a dead
+    slot and page-boundary lengths; chained bit for bit equal to flat."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(3)
+    NP, KV, ps, hd = 12, 5, 16, 64
+    for dt in (torch.float32, torch.bfloat16):
+        k = torch.randn(1, 40, KV, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(1, 40, KV, hd, generator=g, device=dev).to(dt)
+        pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(NP, KV, ps, 1, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+        row = torch.tensor([3, 8, 1, 0], dtype=torch.int32, device=dev)
+        got = pa_ops.paged_prefill_write_quant(*(t.clone() for t in pools + scales), k, v, row)
+        want = paged_prefill_write_quant_ref(*(t.clone() for t in pools + scales), k, v, row)
+        t = torch.arange(40, device=dev)
+        at = (row.long()[t // ps][:, None], torch.arange(KV, device=dev)[None, :], (t % ps)[:, None])
+        for x, a, b in ((k, got[0], want[0]), (v, got[1], want[1])):
+            xd = x[0].double()          # x * 127 / amax is exact in f64: ties are exact halves
+            r = xd * 127 / xd.abs().amax(-1, keepdim=True)
+            tie = (r - torch.floor(r)) == 0.5
+            d = (a[at].float() - b[at].float()).abs()
+            assert d.max() <= 1 and not bool((d > 0)[~tie].any())
+            b[at] = a[at]
+        for a, b, before in zip(got, want, pools + scales):
+            assert torch.equal(a[1:], b[1:])
+            assert torch.equal(a[2], before[2]) and torch.equal(a[4:8], before[4:8])
+    pk, pv = pools
+    ks, vs = scales
+    q = torch.randn(4, 1, 15, 64, generator=g, device=dev).to(torch.bfloat16)
+    tab = torch.tensor([[0, 0, 0, 0], [1, 2, 3, 0], [4, 5, 6, 7], [9, 10, 11, 1]],
+                       dtype=torch.int32, device=dev)
+    lens = torch.tensor([1, 16, 49, 64], dtype=torch.int32, device=dev)
+    l2 = torch.tensor([[0, 0], [1, 2], [3, 0], [4, 5], [6, 7], [9, 10], [11, 1]],
+                      dtype=torch.int32, device=dev)
+    l1 = torch.tensor([[0, 0], [1, 2], [3, 4], [5, 6]], dtype=torch.int32, device=dev)
+    qg = q[:, 0].reshape(4, 5, 3, 64)
+    pf = torch.randn(NP, KV, ps, hd, generator=g, device=dev).to(torch.bfloat16)
+    flat_bf = pa_ops.paged_attention(q, pf, pf, tab, lens)
+    chain_bf = pa_ops.paged_attention(q, pf, pf, l1, lens, l2_tab=l2)
+    assert torch.equal(flat_bf, chain_bf)
+    flat = pa_ops.paged_attention(q, pk, pv, tab, lens, pool_ks=ks, pool_vs=vs)
+    chain = pa_ops.paged_attention(q, pk, pv, l1, lens, pool_ks=ks, pool_vs=vs, l2_tab=l2)
+    assert torch.equal(flat, chain)
+    ref = paged_attention_ref(qg, pk, pv, tab, lens, pool_ks=ks, pool_vs=vs)
+    assert (flat.reshape(4, 5, 3, 64).float() - ref.float()).abs().max() < TOL[torch.bfloat16]
+    assert torch.isfinite(flat.float()).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_dense_engine_matches_cpu_engine(cuda_device):
+    """The dense engine on the card (the decode and flash kernels) and on the
+    CPU, smollm-360m SMOKE in f32 on the same weights, whole-prompt and
+    chunked prefill: identical greedy streams."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = get_config("smollm-360m", smoke=True).replace(attn_chunk=64)
+    cpu_params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    gpu_params = _map(cpu_params, lambda t: t.to(cuda_device))
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 19, 30, 8)]
+    for chunk in (0, 16):
+        kw = dict(max_slots=3, max_len=64, max_new_tokens=6, chunk_tokens=chunk)
+        want = [s.out for s in InferenceEngine(cfg, EngineConfig(**kw), params=cpu_params,
+                                               device="cpu").generate(prompts)]
+        got = [s.out for s in InferenceEngine(cfg, EngineConfig(**kw), params=gpu_params,
+                                              device=cuda_device).generate(prompts)]
+        assert got == want, (chunk, want, got)
+
+
+@pytest.mark.cuda
+def test_cuda_chained_and_flat_int8_paged_engines_match(cuda_device):
+    """An int8 pool served through chained and through flat tables on the
+    card gives identical greedy streams (the chained leg reads the same
+    pages in the same order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config("smollm-360m", smoke=True).replace(attn_chunk=64)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (50, 19, 70)]
+    streams = []
+    params = None
+    for chained in (False, True):
+        eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+            page_size=8, num_pages=41, max_slots=3, max_seq_len=96, max_new_tokens=6,
+            cache_dtype="int8", chained_tables=chained, table_page_entries=4),
+            params=params, device=cuda_device)
+        params = eng.params
+        streams.append([s.out for s in eng.generate(prompts)])
+    assert streams[0] == streams[1]
 
 
 @pytest.mark.cuda
