@@ -28,11 +28,24 @@ result line:
                 pool and chained tables, 8 prompts of 120-200 tokens; again
                 with flat tables (identical streams) and with a bf16 pool on
                 chained tables; bytes per cached token of each pool
-  7. parity   — served requests re-run teacher-forced through the port's
+  7. xlstm    — xlstm-350m FULL in bf16 (random weights from a seeded
+                generator): launch/serve.main(["--arch", "xlstm-350m"]),
+                32 requests on dense engines, chunked and whole-prompt; a
+                paged engine serving the pools phase's 8 prompts of 120-200
+                tokens whole-prompt (chunks of L = 64 in the mLSTM kernel)
+                and in 32-token chunks (the carry crosses calls), 21 mLSTM
+                launches per prefill or chunk call; a batch-8 decode step's
+                time and the device's busy share; then the same weights in
+                f32 on a dense engine at the launcher's shapes and on the
+                paged engine, both prefill modes
+  8. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights: the
-                whole-sequence forward (phase 4), the dense cache (phase 5)
-                and the paged int8 pool (phase 6)
-  8. summary  — the kernels JSON line, then the result line.
+                whole-sequence forward (phases 4 and 7), the dense cache
+                (phase 5) and the paged int8 pool (phase 6). Every flip's
+                CPU lead must stay within FLIP_BOUND, except on the bf16
+                xLSTM legs, whose leads are recorded beside the CPU's own
+                bf16 forward (bf16 alone moves that model's logits by more)
+  9. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -93,6 +106,28 @@ def device_ms(fn, n: int = 50):
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in device_events(prof))
     return us / n / 1e3 if us > 0 else None
+
+
+def stalled_device_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Device time of one call by CUDA events around ``n`` calls queued
+    behind a device-side stall (``torch.cuda._sleep``): the host enqueues the
+    calls while the card sleeps, so the host's gaps between launches fall
+    inside the stall and not between the calls. Median over ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)           # tens of ms: longer than issuing n calls
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
 
 
 def device_events(prof):
@@ -210,6 +245,42 @@ def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
         if not torch.equal(a[untouched], before[untouched]):
             raise AssertionError(f"paged_prefill_write_quant Lp={Lp}: touched a page outside the row")
     return ties, diffs
+
+
+def mlstm_inputs(torch, g, dev, BH, S, DH, dt):
+    """q (scaled by DH^-1/2 as the model scales it), k, v in ``dt``; i and
+    lf = log_sigmoid(f) in f32."""
+    q = (torch.randn(BH, S, DH, generator=g, device=dev) * DH ** -0.5).to(dt)
+    k = torch.randn(BH, S, DH, generator=g, device=dev).to(dt)
+    v = torch.randn(BH, S, DH, generator=g, device=dev).to(dt)
+    i = torch.randn(BH, S, generator=g, device=dev)
+    lf = torch.nn.functional.logsigmoid(torch.randn(BH, S, generator=g, device=dev) + 2.0)
+    return q, k, v, i, lf
+
+
+def mlstm_zero(torch, BH, DH, dev):
+    return (torch.zeros(BH, DH, DH, device=dev), torch.zeros(BH, DH, device=dev),
+            torch.zeros(BH, device=dev))
+
+
+def mlstm_bytes(BH, S, DH, elem: int) -> int:
+    """q, k, v read and h written in the input dtype, i and lf read, the
+    carry C, n, m read and written in f32."""
+    return 4 * BH * S * DH * elem + 2 * BH * S * 4 + 2 * 4 * BH * (DH * DH + DH + 1)
+
+
+def mlstm_ops(BH, S, DH, L) -> int:
+    """Operations (2 per multiply-add) of S / L chunks per head: the causal
+    q k^T and s v (L (L + 1) / 2 pairs each), q C and the carry update k^T v
+    (L DH^2 each), q . n and the n update (L DH each)."""
+    return BH * (S // L) * (2 * DH * L * (L + 1) + 4 * L * DH * DH + 4 * L * DH)
+
+
+def scaled_err(a, b) -> float:
+    """Largest difference, over the reference's largest magnitude where that
+    is above 1 (absolute below it)."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
 def phase_kernels(torch, dev):
@@ -518,17 +589,105 @@ def phase_kernels(torch, dev):
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         })
 
+    # -- chunkwise mLSTM: xlstm-350m FULL's head width (DH = 512), one and
+    #    four sequences of 4 heads, every chunk length the serving paths give
+    #    it (S 8, 16, 32, 96 with L = S; S 256 with L = 64; a ragged S 200,
+    #    L = S), bf16 and f32, from zero and from a non-zero carry; then an
+    #    all-pad tail must leave (C, n, m) bit-identical ------------------------
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.kernels.mlstm_chunk.ref import NEG, chunk_len, mlstm_chunkwise_bh_ref
+
+    DH = 512
+    h_errs, state_errs, raw = [], [], []
+    for BH in (4, 16):
+        zero = mlstm_zero(torch, BH, DH, dev)
+        pre = mlstm_inputs(torch, g, dev, BH, 24, DH, f32)
+        carried = mlstm_chunkwise_bh_ref(*pre, *zero, chunk=64)[1:]
+        for dt in (bf16, f32):
+            for S in (8, 16, 32, 96, 256, 200):
+                x = mlstm_inputs(torch, g, dev, BH, S, DH, dt)
+                worst_h = worst_s = 0.0
+                for cname, carry in (("zero", zero), ("carried", carried)):
+                    got = mk_ops.mlstm_chunkwise_bh(*x, *carry, chunk=64)
+                    want = mlstm_chunkwise_bh_ref(*x, *carry, chunk=64)
+                    torch.cuda.synchronize()
+                    if not bool(torch.isfinite(got[0].float()).all()):
+                        raise AssertionError(f"mlstm_chunkwise BH={BH} S={S}: non-finite h")
+                    e_h = scaled_err(got[0], want[0])
+                    e_s = max(float((got[1] - want[1]).abs().max()) / float(want[1].abs().max()),
+                              float((got[2] - want[2]).abs().max()) / float(want[2].abs().max()),
+                              scaled_err(got[3], want[3]))
+                    tol = TOL[str(dt).replace("torch.", "")]
+                    if not (e_h <= tol and e_s <= TOL["float32"]):
+                        raise AssertionError(f"mlstm_chunkwise BH={BH} S={S} {cname} carry {dt}: "
+                                             f"h {e_h}, state {e_s}")
+                    worst_h, worst_s = max(worst_h, e_h), max(worst_s, e_s)
+                    state_errs.append(e_s)
+                    if dt == bf16:
+                        h_errs.append(e_h)
+                        raw.append(err(got[0], want[0]))
+                log(f"  mlstm_chunkwise BH={BH} S={S} L={chunk_len(S, 64)} {dt}, zero and carried: "
+                    f"h err {worst_h:.3e} (tol {tol:g}), C/n/m err {worst_s:.3e} (tol 2e-05)")
+    x = mlstm_inputs(torch, g, dev, 4, 64, DH, bf16)
+    i, lf = x[3].clone(), x[4].clone()
+    i[:, 32:], lf[:, 32:] = NEG, 0.0                   # a whole chunk of pad steps
+    carry = [t[:4].contiguous() for t in carried]
+    padded = mk_ops.mlstm_chunkwise_bh(*x[:3], i, lf, *carry, chunk=32)
+    head = mk_ops.mlstm_chunkwise_bh(*(t[:, :32].contiguous() for t in (*x[:3], i, lf)), *carry,
+                                     chunk=32)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(padded[1:], head[1:])):
+        raise AssertionError("mlstm_chunkwise: an all-pad tail changed (C, n, m)")
+    log("  mlstm_chunkwise: an all-pad chunk leaves (C, n, m) bit-identical")
+    # timed at every shape of the xLSTM paths, 4 heads of one sequence, bf16
+    # (S 16: an 8-token prompt's bucket in the launcher; 32: a chunk; 96: the
+    # launcher's length cap; 256: a long prompt's bucket, 4 chunks of 64)
+    by_shape = {}
+    zero4 = mlstm_zero(torch, 4, DH, dev)
+    for S in (8, 16, 32, 96, 256):
+        xs = mlstm_inputs(torch, g, dev, 4, S, DH, bf16)
+        L = chunk_len(S, 64)
+        kfn = (lambda a=(*xs, *zero4): mk_ops.mlstm_chunkwise_bh(*a, chunk=64))
+        pfn = (lambda a=(*xs, *zero4): mlstm_chunkwise_bh_ref(*a, chunk=64))
+        b_ms, b_by = bound(mlstm_bytes(4, S, DH, 2), mlstm_ops(4, S, DH, L), F32_FLOPS_S)
+        by_shape[S] = {"L": L, "ms": time_ms(kfn), "device_ms": device_ms(kfn),
+                       "plain_ms": time_ms(pfn), "plain_device_ms": device_ms(pfn),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes": mlstm_bytes(4, S, DH, 2), "ops": mlstm_ops(4, S, DH, L)}
+        log(f"  time mlstm_chunkwise [q/k/v (4, {S}, {DH}) bf16, L={L}]: kernel "
+            f"{by_shape[S]['ms']:.5f} ms (device {by_shape[S]['device_ms']}), plain "
+            f"{by_shape[S]['plain_ms']:.5f} ms (device {by_shape[S]['plain_device_ms']}), "
+            f"bound {b_ms:.6f} ms ({b_by}; {by_shape[S]['ops']:.3e} operations, "
+            f"{by_shape[S]['bytes']:.3e} bytes)")
+    S = 16
+    xs = mlstm_inputs(torch, g, dev, 4, S, DH, bf16)
+    rows.append({
+        "name": "mlstm_chunkwise", "route": "cuda", "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:101",
+        "shape": f"q/k/v (4, {S}, {DH}) bf16, L={S}, zero carry", "max_abs_err": max(raw),
+        "max_scaled_err_h_bf16": max(h_errs), "max_rel_err_state": max(state_errs),
+        "fns": (lambda a=(*xs, *zero4): mk_ops.mlstm_chunkwise_bh(*a, chunk=64),
+                lambda a=(*xs, *zero4): mlstm_chunkwise_bh_ref(*a, chunk=64)),
+        "library_ms": None, "bound_ms": by_shape[S]["bound_ms"], "bound_by": by_shape[S]["bound_by"],
+        "by_shape": by_shape,
+    })
+
     for r in rows:
         kernel, plain = r.pop("fns")
         r["ms"], r["plain_ms"] = time_ms(kernel), time_ms(plain)
         r["device_ms"], r["plain_device_ms"] = device_ms(kernel), device_ms(plain)
+        r["stalled_ms"] = stalled_device_ms(kernel)
+        r["device_source"] = "profiler"
+        if r["device_ms"] is None:           # the profiler recorded no device time
+            r["device_ms"], r["device_source"] = r["stalled_ms"], "stalled events"
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
         twin = ""
         if "twin" in r:
             name, fn = r.pop("twin")
             r["twin"] = {"leg": name, "ms": time_ms(fn), "device_ms": device_ms(fn)}
             twin = f", {name} leg at the same shape {r['twin']['ms']:.5f} ms (device {r['twin']['device_ms']})"
-        log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.5f} ms (device {r['device_ms']}), "
+        log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.5f} ms (device {r['device_ms']}, "
+            f"{r['device_source']}; stalled events {r['stalled_ms']:.7f}), "
             f"plain {r['plain_ms']:.5f} ms (device {r['plain_device_ms']}), library {lib} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){twin}")
     return rows
@@ -537,13 +696,14 @@ def phase_kernels(torch, dev):
 def counters():
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
 
     return {"rmsnorm": rms_ops.rmsnorm, "paged_prefill_write": pa_ops.paged_prefill_write,
             "paged_prefill_write_quant": pa_ops.paged_prefill_write_quant,
             "paged_attention": pa_ops.paged_attention, "flash_attention": fa_ops.flash_attention_bhsd,
-            "decode_attention": da_ops.decode_attention}
+            "decode_attention": da_ops.decode_attention, "mlstm_chunkwise": mk_ops.mlstm_chunkwise_bh}
 
 
 def reset_counts() -> None:
@@ -633,7 +793,7 @@ def phase_step(torch, cfg, params, dev):
         top = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
         dev_us = sum(e.self_device_time_total for e in top)
     for k, v in per.items():
-        log(f"  launches per {k}: {v}")
+        log(f"  launches per {k}: { {n: c for n, c in v.items() if c} }")
     busy = (f"{dev_us / wall_us:.4f} ({dev_us:.1f} us of {wall_us:.1f} us over 5 steps, "
             f"{sum(e.count for e in top) / 5:g} device operations per step)"
             if dev_us > 0 else "not measured (the profiler saw no device time)")
@@ -642,15 +802,18 @@ def phase_step(torch, cfg, params, dev):
         f"synchronized, mean of {STEPS}); device busy share {busy}")
     for e in top[:10]:
         log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
+    return per
 
 
-def launcher_leg(torch, chunk_tokens: int, params):
-    """launch/serve.main() at FULL width in bf16 on dense engines."""
+def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
+                 need=("decode_attention",)):
+    """launch/serve.main() at FULL width in bf16 on dense engines; every
+    kernel in ``need`` must have been launched."""
     from repro_torch.launch import serve
 
-    out = OUT / f"launcher_chunk{chunk_tokens}"
+    out = OUT / f"launcher_{arch}_chunk{chunk_tokens}"
     out.mkdir(parents=True, exist_ok=True)
-    argv = ["--workers", "4", "--prewarm", "--chunk-tokens", str(chunk_tokens),
+    argv = ["--arch", arch, "--workers", "4", "--prewarm", "--chunk-tokens", str(chunk_tokens),
             "--trace-out", str(out / "trace.json"), "--metrics-interval", "0.05",
             "--metrics-out", str(out / "metrics.prom")]
     reset_counts()
@@ -660,14 +823,15 @@ def launcher_leg(torch, chunk_tokens: int, params):
     wall = time.perf_counter() - t0
     counts = read_counts()
     m = r["metrics"].summary()
-    log(f"  launcher chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
+    log(f"  launcher {arch} chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
         f"serve {r['wall_s']:.3f} s (wall {wall:.3f} s incl. tier set-up and prewarm), "
         f"placement {r['by_tier']}, median response {m['median_response_s']} s, "
         f"p99 {m['p99_response_s']} s; launches {counts}")
     if m["total"] != 32 or m["failed"] != 0:
-        raise AssertionError(f"launcher chunk_tokens={chunk_tokens}: {m}")
-    if counts["decode_attention"] <= 0:
-        raise AssertionError(f"decode_attention was not launched by the launcher (chunk {chunk_tokens})")
+        raise AssertionError(f"launcher {arch} chunk_tokens={chunk_tokens}: {m}")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the launcher ({arch}, chunk {chunk_tokens})")
     return r, counts
 
 
@@ -727,6 +891,112 @@ def phase_pools(torch, cfg, params, dev):
     return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
 
 
+def xlstm_paged_run(torch, cfg, params, dev, chunk_tokens: int):
+    """A FULL xLSTM paged engine under an EngineLoop serving the pools
+    phase's 8 prompts of 120-200 tokens, 16-token pages; every prefill or
+    chunk call launches the mLSTM kernel once per mLSTM layer."""
+    import numpy as np
+
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+    from repro_torch.serving.scheduler import EngineLoop
+
+    prompts = [[int(t) for t in np.random.default_rng(1000 + i).integers(1, cfg.vocab_size, n)]
+               for i, n in enumerate(POOL_PROMPTS)]
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=16, num_pages=129, max_slots=8, max_seq_len=256, max_new_tokens=8,
+        chunk_tokens=chunk_tokens), params=params, device=dev)
+    eng.prewarm()
+    reset_counts()
+    t0 = time.perf_counter()
+    with EngineLoop(eng, name=f"xlstm-chunk{chunk_tokens}") as loop:
+        sids = [loop.submit(p) for p in prompts]
+        outs = [loop.wait(sid, 300).out for sid in sids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    calls = sum(-(-n // chunk_tokens) for n in POOL_PROMPTS) if chunk_tokens else len(prompts)
+    n_mlstm = sum(1 for kind in cfg.block_pattern if kind == "mlstm") * cfg.n_superblocks
+    log(f"  xlstm paged {str(cfg.compute_dtype).replace('torch.', '')} chunk_tokens={chunk_tokens}: "
+        f"{len(outs)} requests in {wall:.3f} s, "
+        f"{eng.preemptions} preemptions, {calls} prefill calls; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    if eng.preemptions or any(len(o) != 8 for o in outs):
+        raise AssertionError(f"xlstm paged chunk {chunk_tokens}: {eng.preemptions} preemptions, {outs}")
+    if counts["mlstm_chunkwise"] != n_mlstm * calls or counts["rmsnorm"] <= 0:
+        raise AssertionError(f"xlstm paged chunk {chunk_tokens}: {counts['mlstm_chunkwise']} mLSTM "
+                             f"launches, expected {n_mlstm} x {calls}")
+    return {"prompts": prompts, "outs": outs, "counts": counts, "wall_s": wall}
+
+
+def xlstm_dense_run(torch, cfg, params, dev, chunk_tokens: int):
+    """A dense engine at the launcher's shapes (4 slots, max_len 96, the
+    launcher's 8-token prompts of requests 0-7), generate()."""
+    import numpy as np
+
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    prompts = [[int(t) for t in np.random.default_rng(rid).integers(1, cfg.vocab_size, 8)]
+               for rid in range(8)]
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=4, max_len=96, max_new_tokens=8,
+                                            chunk_tokens=chunk_tokens), params=params, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [s.out for s in eng.generate(prompts)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  xlstm dense {str(cfg.compute_dtype).replace('torch.', '')} chunk_tokens={chunk_tokens}: "
+        f"{len(outs)} requests in {time.perf_counter() - t0:.3f} s; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    if any(len(o) != 8 for o in outs) or counts["mlstm_chunkwise"] <= 0:
+        raise AssertionError(f"xlstm dense chunk {chunk_tokens}: {outs}, {counts}")
+    return {"prompts": prompts, "outs": outs, "counts": counts}
+
+
+def phase_xlstm(torch, dev):
+    """xlstm-350m FULL in bf16: the launcher's 32 requests (chunked and
+    whole-prompt), the long prompts on a paged engine (whole-prompt and
+    chunked), launches per prefill and a decode step's time."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config("xlstm-350m")
+    params = get_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_mlstm = sum(1 for kind in cfg.block_pattern if kind == "mlstm") * cfg.n_superblocks
+    log(f"  xlstm-350m FULL: {cfg.n_layers} layers ({n_mlstm} mLSTM), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {n_params} parameters in bf16")
+    need = ("mlstm_chunkwise", "rmsnorm")
+    l_chunk, lc_counts = launcher_leg(torch, 32, params, "xlstm-350m", need)
+    l_whole, lw_counts = launcher_leg(torch, 0, params, "xlstm-350m", need)
+    p_whole = xlstm_paged_run(torch, cfg, params, dev, 0)
+    p_chunk = xlstm_paged_run(torch, cfg, params, dev, 32)
+    same = sum(a == b for a, b in zip(p_whole["outs"], p_chunk["outs"]))
+    log(f"  xlstm paged whole-prompt and chunked: {same} of {len(p_whole['outs'])} streams identical")
+    per = phase_step(torch, cfg, params, dev)
+    for k, v in per.items():
+        if k.startswith("prefill") and v["mlstm_chunkwise"] != n_mlstm:
+            raise AssertionError(f"xlstm {k}: {v['mlstm_chunkwise']} mLSTM launches, expected {n_mlstm}")
+    # f32 legs on the card, the same weights upcast: there rounding moves the
+    # logits by about 1e-4, so the parity bound tells a fault from noise
+    cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    params32 = _map(params, lambda t: t.float())
+    f32 = {"dense": [xlstm_dense_run(torch, cfg32, params32, dev, c) for c in (32, 0)],
+           "paged": [xlstm_paged_run(torch, cfg32, params32, dev, c) for c in (0, 32)]}
+    return {"cfg": cfg, "params": params, "launcher": [l_chunk, l_whole],
+            "paged": [p_whole, p_chunk], "f32": f32,
+            "counts": {"xlstm_launcher_chunk32": lc_counts, "xlstm_launcher_whole_prompt": lw_counts,
+                       "xlstm_paged_whole_prompt": p_whole["counts"],
+                       "xlstm_paged_chunk32": p_chunk["counts"]}}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def teacher_forced_rows(torch, cfg, params, prompt, out, layout: str):
     """Logit rows of the port's plain path on the CPU for the prompt and
     every served token but the last, fed one decode step at a time: a dense
@@ -759,55 +1029,119 @@ def teacher_forced_rows(torch, cfg, params, prompt, out, layout: str):
     return rows
 
 
-def phase_parity(torch, legs, launcher, pools):
+class Parity:
     """Teacher-forced parity of served tokens against the port's plain paths
-    on the CPU in f32 on the same weights: the whole-sequence forward for
-    the paged serves, the dense cache for the launcher, the paged int8 pool
-    for the compact-pool phase."""
-    from repro_torch.models import get_model
+    on the CPU in f32 on the same weights: every flip's CPU lead must stay
+    within FLIP_BOUND. Tallies steps, flips and the largest lead per model."""
 
-    cfg = legs[0]["cfg"]
-    cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
-    params = legs[0]["params"]
+    def __init__(self, torch):
+        self.torch = torch
+        self.tally = {}
 
-    def to_cpu(t):
-        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.float().cpu()
+    def f32(self, cfg):
+        return cfg.replace(param_dtype=self.torch.float32, compute_dtype=self.torch.float32)
 
-    p32 = to_cpu(params)
-    model = get_model(cfg32)
-    tally = {"steps": 0, "flips": 0, "worst": 0.0}
+    def to_cpu(self, t):
+        return _map(t, lambda x: x.float().cpu())
 
-    def check(name, rid, rows, out):
+    def check(self, name, rid, rows, out, bound=True):
+        """Rows of CPU logits against the served tokens; with ``bound`` False
+        the leads are recorded and not held to FLIP_BOUND."""
+        t = self.tally.setdefault(name.split()[0], {"steps": 0, "flips": 0, "worst": 0.0,
+                                                    "bound": bound})
         for j, tok in enumerate(out):
             row = rows[j]
-            top = int(torch.argmax(row))
-            tally["steps"] += 1
+            top = int(self.torch.argmax(row))
+            t["steps"] += 1
             if top != tok:
                 lead = float(row[top] - row[tok])
-                tally["flips"] += 1
-                tally["worst"] = max(tally["worst"], lead)
-                log(f"  flip {name} rid={rid} step={j}: gpu {tok} cpu {top}, cpu lead {lead:.4f}")
-                if lead > FLIP_BOUND:
+                t["flips"] += 1
+                t["worst"] = max(t["worst"], lead)
+                log(f"  flip {name} rid={rid} step={j}: served {tok} cpu {top}, cpu lead {lead:.4f}")
+                if bound and lead > FLIP_BOUND:
                     raise AssertionError(f"{name} rid {rid} step {j}: CPU lead {lead} above {FLIP_BOUND}")
 
+    def rows(self, model, params, prompt, out):
+        """CPU logit rows of the whole-sequence forward over the prompt and
+        every served token but the last, one per served token."""
+        return model.logits(params, model.hidden(params, [prompt + out[:-1]]))[0, len(prompt) - 1:]
+
+    def forced(self, model, p32, name, rid, prompt, out, bound=True):
+        self.check(name, rid, self.rows(model, p32, prompt, out), out, bound)
+
+    def report(self):
+        for name, t in self.tally.items():
+            held = f"bound {FLIP_BOUND}" if t["bound"] else "recorded, no bound"
+            log(f"  {name}: {t['steps']} teacher-forced steps, {t['flips']} flips, largest CPU lead "
+                f"{t['worst']:.4f} ({held})")
+
+
+def parity_smollm(torch, par, legs, launcher, pools):
+    """The whole-sequence forward for the paged serves, the dense cache for
+    the launcher, the paged int8 pool for the compact-pool phase."""
+    from repro_torch.models import get_model
+
+    cfg32 = par.f32(legs[0]["cfg"])
+    p32 = par.to_cpu(legs[0]["params"])
+    model = get_model(cfg32)
     with torch.no_grad():
         for r, rids in zip(legs, ([0, 1, 5, 12, 23], [3, 18])):
             for rid in rids:
-                prompt, out = r["prompts"][rid], r["results"][rid]
-                lg = model.logits(p32, model.hidden(p32, [prompt + out[:-1]]))[0]
-                check("serve_hybrid", rid, lg[len(prompt) - 1:], out)
+                par.forced(model, p32, "smollm serve_hybrid", rid, r["prompts"][rid], r["results"][rid])
         for r, rids in zip(launcher, ([0, 7, 19], [2, 30])):
             for rid in rids:
                 prompt, out = r["prompts"][rid], r["results"][rid]
-                check("launcher", rid, teacher_forced_rows(torch, cfg32, p32, prompt, out, "dense"),
-                      out)
+                par.check("smollm launcher", rid,
+                          teacher_forced_rows(torch, cfg32, p32, prompt, out, "dense"), out)
         cfg8 = cfg32.replace(kv_quant=True)
         run = pools["int8_chained"]
         for i in (0, 7):
             prompt, out = run["prompts"][i], run["outs"][i]
-            check("pools int8", i, teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
-    log(f"  {tally['steps']} teacher-forced steps, {tally['flips']} flips, largest CPU lead "
-        f"{tally['worst']:.4f} (bound {FLIP_BOUND})")
+            par.check("smollm pools int8", i,
+                      teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
+
+
+def parity_xlstm(torch, par, xlstm):
+    """xlstm-350m against the CPU f32 whole-sequence forward (chunkwise mLSTM
+    from zero state). The f32 legs on the card are held to FLIP_BOUND. The
+    bf16 legs' leads are recorded: bf16 alone moves this model's logits by
+    tenths (its exponential gates and head-wise norms amplify rounding, in
+    the JAX package alike), which the CPU's own bf16 forward over the
+    launcher's requests measures here beside them."""
+    from repro_torch.models import get_model
+
+    model = get_model(par.f32(xlstm["cfg"]))
+    model16 = get_model(xlstm["cfg"])
+    p32 = par.to_cpu(xlstm["params"])
+    p16 = _map(xlstm["params"], lambda t: t.cpu())
+    with torch.no_grad():
+        for run, name in zip(xlstm["f32"]["dense"], ("chunked", "whole-prompt")):
+            for i, (prompt, out) in enumerate(zip(run["prompts"], run["outs"])):
+                par.forced(model, p32, f"xlstm-f32 dense {name}", i, prompt, out)
+        for run, name in zip(xlstm["f32"]["paged"], ("whole-prompt", "chunked")):
+            for i in (0, 3, 7):
+                par.forced(model, p32, f"xlstm-f32 paged {name}", i, run["prompts"][i], run["outs"][i])
+        gaps = []
+        for r, rids in zip(xlstm["launcher"], ([0, 7, 19], [2, 30])):
+            for rid in rids:
+                prompt, out = r["prompts"][rid], r["results"][rid]
+                rows = par.rows(model, p32, prompt, out)
+                par.check("xlstm-bf16 launcher", rid, rows, out, bound=False)
+                rows16 = par.rows(model16, p16, prompt, out).float()
+                gaps.append((rows16 - rows).abs())
+                par.check("cpu-bf16 launcher", rid, rows, [int(t) for t in rows16.argmax(-1)],
+                          bound=False)
+        for run, name in zip(xlstm["paged"], ("whole-prompt", "chunked")):
+            for i in (0, 7):
+                par.forced(model, p32, f"xlstm-bf16 paged {name}", i, run["prompts"][i],
+                           run["outs"][i], bound=False)
+    g = torch.cat([x.flatten() for x in gaps])
+    log(f"  xlstm CPU bf16 vs CPU f32 logits over the launcher's requests ({len(gaps)} requests, "
+        f"{g.numel()} logits): max |d| {float(g.max()):.4f}, mean |d| {float(g.mean()):.4f}")
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
 def main() -> int:
@@ -865,20 +1199,28 @@ def main() -> int:
     log("phase 6 pools: FULL bf16 paged engine, int8 pool and chained tables, prompts of 120-200 tokens")
     pools = phase_pools(torch, chunked["cfg"], chunked["params"], dev)
 
-    # 7. parity
-    log("phase 7 parity: teacher-forced CPU f32 plain paths on the same weights")
-    phase_parity(torch, [chunked, whole], [l_chunk, l_whole], pools)
+    # 7. xlstm
+    log("phase 7 xlstm: xlstm-350m FULL bf16, the launcher's 32 requests and 8 long prompts on a paged engine")
+    xlstm = phase_xlstm(torch, dev)
 
-    # 8. summary
+    # 8. parity
+    log("phase 8 parity: teacher-forced CPU f32 plain paths on the same weights")
+    par = Parity(torch)
+    parity_smollm(torch, par, [chunked, whole], [l_chunk, l_whole], pools)
+    parity_xlstm(torch, par, xlstm)
+    par.report()
+
+    # 9. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
-            "pools_bf16_chained": pools["bf16_chained"]["counts"]}
+            "pools_bf16_chained": pools["bf16_chained"]["counts"], **xlstm["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
                 "paged_attention[int8]": "pools_int8_flat", "paged_attention[chained]": "pools_bf16_chained",
-                "paged_attention[int8+chained]": "pools_int8_chained"}
+                "paged_attention[int8+chained]": "pools_int8_chained",
+                "mlstm_chunkwise": "xlstm_launcher_chunk32"}
     for r in rows:
         key = "paged_attention[flat]" if r["name"] == "paged_attention" else r["name"]
         r["launches"] = runs[main_run[r["name"]]][key]
@@ -886,13 +1228,15 @@ def main() -> int:
         r["launches_by_run"] = {run: c[key] for run, c in runs.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("shape", "device_ms", "plain_device_ms", "main_run", "launches_by_run")
+    extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms", "main_run",
+             "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})
         table[-1].update({k: r[k] for k in ("library_call", "rounding_ties", "int8_values_differing",
-                                            "twin") if k in r})
+                                            "twin", "max_scaled_err_h_bf16", "max_rel_err_state",
+                                            "by_shape") if k in r})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

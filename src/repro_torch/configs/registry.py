@@ -5,11 +5,12 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import smollm_360m, xlstm_350m
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "smollm-360m": smollm_360m,
+    "xlstm-350m": xlstm_350m,
 }
 
 

@@ -6,7 +6,7 @@
     params = model.init(torch.Generator(device).manual_seed(0))
     cache = model.init_cache(batch, cap, device)            # dense stripes
     tok, cache = model.prefill(params, batch, cache)         # one slot's view
-    pool = model.init_paged_cache(num_pages, page_size, device)
+    pool = model.init_paged_cache(num_pages, page_size, device, batch)
     tok, pool = model.prefill_paged(params, batch, pool)
     tok, cache = model.decode(params, cache, batch)          # either layout
 
@@ -62,8 +62,10 @@ class DecoderLM:
     def init_cache(self, batch: int, cap: int, device):
         return tf.init_cache(self.cfg, batch, cap, device)
 
-    def init_paged_cache(self, num_pages: int, page_size: int, device):
-        return tf.init_paged_cache(self.cfg, num_pages, page_size, device)
+    def init_paged_cache(self, num_pages: int, page_size: int, device, batch: int = 1):
+        """The page pools of the attention layers and the state of ``batch``
+        slots of the recurrent ones."""
+        return tf.init_paged_cache(self.cfg, num_pages, page_size, device, batch)
 
     # -- steps ---------------------------------------------------------------
     def hidden(self, params, tokens) -> torch.Tensor:
@@ -80,26 +82,34 @@ class DecoderLM:
 
     def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
         """Dense whole-prompt prefill. batch: tokens (B, Lp) right-padded,
-        n_valid (B,) optional (the token comes from the last valid
-        position). ``cache`` (B-slot leaves, e.g. one slot's view of an
-        engine's stacked cache) is written IN PLACE from position 0; without
-        it a fresh cache of capacity ``cap`` (default Lp) is made. Returns
-        (next_token (B,), cache)."""
+        n_valid (B,) optional (pad positions are identity for every
+        recurrent update, and the token comes from the last valid position).
+        ``cache`` (B-slot leaves, e.g. one slot's view of an engine's stacked
+        cache) is written IN PLACE from position 0, and its recurrent state
+        is zeroed first, as the fresh cache the JAX package builds starts;
+        without it a fresh cache of capacity ``cap`` (default Lp) is made.
+        Returns (next_token (B,), cache)."""
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
         if cache is None:
             cache = self.init_cache(B, cap or S, dev)
+        else:
+            for key in tf.recurrent_keys(self.cfg):
+                for leaf in cache["blocks"][key].values():
+                    leaf.zero_()
+        n_valid = batch.get("n_valid")
         h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev),
-                              mode="prefill", cache=cache, cache_index=0)
-        return next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid"))), cache
+                              mode="prefill", cache=cache, cache_index=0, n_valid=n_valid)
+        return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache
 
     def prefill_paged(self, params, batch: Mapping, cache):
         """Paged prefill of ONE sequence straight into the shared page pool.
 
         batch: tokens (1, Lp) right-padded to a bucket length, n_valid (1,),
-        tab_row (P,) block-table row, slot (the decode slot). Returns
-        (next_token (1,), cache)."""
+        tab_row (P,) block-table row, slot (the decode slot). Recurrent
+        mixers run from zero state and land their final state at ``slot``.
+        Returns (next_token (1,), cache)."""
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -109,20 +119,24 @@ class DecoderLM:
             tab_row=torch.as_tensor(batch["tab_row"], dtype=torch.int32, device=dev),
             slot=int(batch["slot"]),
         )
+        n_valid = batch.get("n_valid")
         h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev),
-                              mode="prefill", cache=cache, cache_index=pidx)
-        return next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid"))), cache
+                              mode="prefill", cache=cache, cache_index=pidx, n_valid=n_valid)
+        return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache
 
-    def init_chunk_state(self):
-        """The chunked-prefill recurrent carry: empty for attention-only
-        models (their chunks live in the pool)."""
-        return {"blocks": {}}
+    def init_chunk_state(self, device):
+        """Zero recurrent carry (B = 1) for the first chunk of a chunked
+        prefill: one entry per recurrent mixer, an empty tree for
+        attention-only models (their chunks live in the cache or pool)."""
+        return tf.init_chunk_state(self.cfg, device)
 
     def install_chunk_state(self, cache, chunk_state, slot):
-        """Install a finished chunked prefill's recurrent carry at ``slot``:
-        nothing to do for attention-only models."""
-        if chunk_state["blocks"]:
-            raise NotImplementedError("recurrent chunk state is not ported yet")
+        """Write a finished chunked prefill's recurrent carry into the decode
+        cache at ``slot``, in place (cache leaves are (n_sb, B, ...), the
+        carry's (n_sb, 1, ...))."""
+        for key, leaves in chunk_state["blocks"].items():
+            for name, part in leaves.items():
+                cache["blocks"][key][name][:, slot:slot + 1].copy_(part)
         return cache
 
     def prefill_chunk(self, params, batch: Mapping, cache, chunk_state):
@@ -132,26 +146,29 @@ class DecoderLM:
         tokens in this chunk; offset tokens already in the stripe. cache: the
         slot's view (B = 1 leaves, full capacity), written IN PLACE at
         ``offset``; the chunk attends over the whole stripe by absolute
-        position. Returns (next_token (1,), cache, chunk_state); only the
-        final chunk's token is meaningful."""
+        position; recurrent mixers resume from ``chunk_state`` (the carry of
+        the previous chunk, ``init_chunk_state`` for the first) and leave the
+        cache's state as it is. Returns (next_token (1,), cache, the new
+        chunk_state); only the final chunk's token is meaningful."""
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
         offset = int(batch["offset"])
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
-                              mode="prefill", cache=cache,
-                              cache_index=attn_mod.ChunkPrefillIndex(offset))
-        tok = next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid")))
-        return tok, cache, chunk_state
+        n_valid = batch.get("n_valid")
+        h, cache, chunk_state = tf.forward(
+            self.cfg, params, tokens, positions_for(B, S, offset, device=dev), mode="prefill",
+            cache=cache, cache_index=attn_mod.ChunkPrefillIndex(offset), n_valid=n_valid,
+            chunk_state=chunk_state)
+        return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
 
     def prefill_chunk_paged(self, params, batch: Mapping, cache, chunk_state):
         """Paged resumable partial-context prefill of ONE sequence.
 
         batch: tokens (1, Cp) one right-padded chunk; n_valid (1,) valid
         tokens in this chunk; offset (a page multiple) tokens already in the
-        pool; tab_row (P,) the FULL block-table row; slot. Returns
-        (next_token (1,), cache, chunk_state); only the final chunk's token
-        is meaningful."""
+        pool; tab_row (P,) the FULL block-table row; slot. Recurrent mixers
+        resume from ``chunk_state``. Returns (next_token (1,), cache, the new
+        chunk_state); only the final chunk's token is meaningful."""
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -163,10 +180,11 @@ class DecoderLM:
             slot=int(batch["slot"]),
             offset=offset,
         )
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
-                              mode="prefill", cache=cache, cache_index=cidx)
-        tok = next_tokens(self.cfg, params, _last_valid(h, batch.get("n_valid")))
-        return tok, cache, chunk_state
+        n_valid = batch.get("n_valid")
+        h, cache, chunk_state = tf.forward(
+            self.cfg, params, tokens, positions_for(B, S, offset, device=dev), mode="prefill",
+            cache=cache, cache_index=cidx, n_valid=n_valid, chunk_state=chunk_state)
+        return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
 
     def decode(self, params, cache, batch: Mapping):
         """One batched decode step. Paged (batch has ``block_tab``): token

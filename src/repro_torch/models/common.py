@@ -1,6 +1,7 @@
 """Shared model substrate: config, parameter definitions, norms, embeddings.
 
-The torch twin of ``repro/models/common.py`` for the attention-only decoder.
+The torch twin of ``repro/models/common.py`` for the families ported so far:
+the attention-only decoder and xLSTM.
 Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes and
 init rules from one source of truth, as in the JAX package.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,9 +21,16 @@ import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
+class XLSTMCfg:
+    chunk: int = 64             # mLSTM chunk length of the chunkwise prefill
+    proj_factor: float = 2.0    # mLSTM up-projection factor
+    conv: int = 4               # causal conv width ahead of q and k
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,6 +52,7 @@ class ModelConfig:
     kv_quant: bool = False      # int8 KV cache (values + per-(token, head) bf16 scales)
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0
+    xlstm: Optional[XLSTMCfg] = None
 
     @property
     def hd(self) -> int:

@@ -222,7 +222,7 @@ class _EngineBase:
         self._chunking[slot] = True
         self._chunk_pos[slot] = start
         self._chunk_ctx[slot] = seq.context_tokens()
-        self._chunk_carry[slot] = self.model.init_chunk_state()
+        self._chunk_carry[slot] = self.model.init_chunk_state(self.device)
         self._stamp[slot] = self._stamp_next
         self._stamp_next += 1
         if seq.trace is not None:
@@ -389,8 +389,10 @@ class InferenceEngine(_EngineBase):
     ``device=None`` means the card; pass ``device="cpu"`` to run the plain
     versions of the kernels on the CPU. A prefill writes in place into its
     slot's stripe of the stacked cache (the JAX engine builds a one-slot
-    cache and writes it back); positions past the prompt keep what an
-    earlier occupant left there, which the length masks hide."""
+    cache and writes it back): recurrent mixers start from zero state, as in
+    the JAX engine's fresh cache, and attention positions past the prompt
+    keep what an earlier occupant left there, which the length masks
+    hide."""
 
     def __init__(self, cfg, ecfg: EngineConfig, params=None, seed: int = 0, device=None):
         if ecfg.spec_tokens:
@@ -490,13 +492,14 @@ class InferenceEngine(_EngineBase):
     def _prewarm_shape(self, Lp: int, slot: int) -> None:
         """Run a prefill at shape ``Lp`` into a free slot's stripe (the
         chunk path when chunking is on). The stray writes are harmless: the
-        slot's next occupant overwrites positions from 0 and the length
-        masks hide the rest."""
+        slot's next occupant overwrites positions from 0, the length masks
+        hide the rest, and its prefill zeroes (or its last chunk installs)
+        the recurrent state."""
         toks = np.zeros(Lp, np.int64)
         if self._chunk_tokens:
             batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": 1, "offset": 0}
             nxt, _, _ = self.model.prefill_chunk(self.params, batch, self._slot_view(slot),
-                                                 self.model.init_chunk_state())
+                                                 self.model.init_chunk_state(self.device))
         else:
             nxt = self._prefill(toks, slot, 1)
         _sync(nxt)
@@ -664,7 +667,7 @@ class PagedInferenceEngine(_EngineBase):
         else:
             self.chain = None
             self._row_width = pcfg.table_width
-        self.cache = self.model.init_paged_cache(pcfg.num_pages, pcfg.page_size, self.device)
+        self.cache = self.model.init_paged_cache(pcfg.num_pages, pcfg.page_size, self.device, B)
         self._kv_bytes_per_token = _kv_bytes_per_token(
             cfg, self.cache, pcfg.num_pages * pcfg.page_size
         )
@@ -759,7 +762,7 @@ class PagedInferenceEngine(_EngineBase):
             batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": 1,
                      "tab_row": self._tensor(row), "slot": slot, "offset": 0}
             nxt, self.cache, _ = self.model.prefill_chunk_paged(
-                self.params, batch, self.cache, self.model.init_chunk_state())
+                self.params, batch, self.cache, self.model.init_chunk_state(self.device))
         else:
             nxt = self._prefill(toks, row, slot, 1)
         _sync(nxt)

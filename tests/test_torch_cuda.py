@@ -272,3 +272,99 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):                          # hd past the kernel's limit
         q = torch.zeros(1, 2, 8, 256, device=dev)
         fa_ops.flash_attention_bhsd(q, q, q)
+
+
+def _mlstm_inputs(g, dev, BH, S, DH, dt):
+    """q (scaled by DH^-1/2 as the model scales it), k, v in ``dt``; i and
+    lf = log_sigmoid(f) in f32."""
+    q = (torch.randn(BH, S, DH, generator=g, device=dev) * DH ** -0.5).to(dt)
+    k = torch.randn(BH, S, DH, generator=g, device=dev).to(dt)
+    v = torch.randn(BH, S, DH, generator=g, device=dev).to(dt)
+    i = torch.randn(BH, S, generator=g, device=dev)
+    lf = torch.nn.functional.logsigmoid(torch.randn(BH, S, generator=g, device=dev) + 2.0)
+    return q, k, v, i, lf
+
+
+def _scaled_err(a, b) -> float:
+    """Largest difference, over the reference's largest magnitude where that
+    is above 1."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_chunkwise_matches_plain_version(cuda_device):
+    """The chunkwise mLSTM kernel at xlstm-350m FULL's head width (DH = 512)
+    for one and four sequences of 4 heads, every chunk length the serving
+    paths give it (S 8, 32, 96, L = S; S 256, L = 64; a ragged S 200, L =
+    S), bf16 and f32, from zero and from a non-zero carry; then a tail of
+    all-pad chunks leaves (C, n, m) bit-identical."""
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.kernels.mlstm_chunk.ref import NEG, mlstm_chunkwise_bh_ref
+
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(6)
+    DH = 512
+    for BH in (4, 16):
+        zero = (torch.zeros(BH, DH, DH, device=dev), torch.zeros(BH, DH, device=dev),
+                torch.zeros(BH, device=dev))
+        pre = _mlstm_inputs(g, dev, BH, 24, DH, torch.float32)
+        carried = mlstm_chunkwise_bh_ref(*pre, *zero, chunk=64)[1:]
+        for dt in (torch.float32, torch.bfloat16):
+            for S in (8, 32, 96, 256, 200):
+                x = _mlstm_inputs(g, dev, BH, S, DH, dt)
+                for carry in (zero, carried):
+                    got = mk_ops.mlstm_chunkwise_bh(*x, *carry, chunk=64)
+                    want = mlstm_chunkwise_bh_ref(*x, *carry, chunk=64)
+                    assert got[0].dtype == dt and got[0].shape == (BH, S, DH)
+                    assert torch.isfinite(got[0].float()).all()
+                    tol = TOL[dt]
+                    assert _scaled_err(got[0], want[0]) < tol, (BH, S, dt, "h")
+                    for name, a, b in zip("Cnm", got[1:], want[1:]):
+                        e = _scaled_err(a, b) if name == "m" else \
+                            float((a - b).abs().max()) / float(b.abs().max())
+                        assert e < TOL[torch.float32], (BH, S, dt, name, e)
+    x = _mlstm_inputs(g, dev, 4, 64, DH, torch.bfloat16)
+    i = x[3].clone()
+    lf = x[4].clone()
+    i[:, 32:] = NEG
+    lf[:, 32:] = 0.0
+    carry = [t[:4].contiguous() for t in carried]
+    padded = mk_ops.mlstm_chunkwise_bh(*x[:3], i, lf, *carry, chunk=32)
+    head = mk_ops.mlstm_chunkwise_bh(*(t[:, :32].contiguous() for t in (*x[:3], i, lf)), *carry,
+                                     chunk=32)
+    for a, b in zip(padded[1:], head[1:]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):                          # DH not a multiple of 32
+        q = torch.zeros(1, 8, 48, device=dev)
+        mk_ops.mlstm_chunkwise_bh(q, q, q, q[..., 0], q[..., 0], torch.zeros(1, 48, 48, device=dev),
+                                  torch.zeros(1, 48, device=dev), torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_tokens", [0, 16], ids=["whole_prompt", "chunked"])
+def test_cuda_xlstm_engine_matches_cpu_engine(cuda_device, chunk_tokens):
+    """The paged engine serving xlstm-350m SMOKE in f32 on the card (the
+    mLSTM and rmsnorm kernels) and on the CPU, on the same weights:
+    identical greedy streams, prompts across chunks so the carry crosses
+    calls."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config("xlstm-350m", smoke=True)
+    cpu_params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    gpu_params = _map(cpu_params, lambda t: t.to(cuda_device))
+    kw = dict(page_size=8, num_pages=33, max_slots=3, max_seq_len=64, max_new_tokens=6,
+              chunk_tokens=chunk_tokens)
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 19, 30, 8)]
+    want = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=cpu_params,
+                                                device="cpu").generate(prompts)]
+    before = mk_ops.mlstm_chunkwise_bh.launches
+    got = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=gpu_params,
+                                               device=cuda_device).generate(prompts)]
+    assert mk_ops.mlstm_chunkwise_bh.launches > before
+    assert got == want, (want, got)
