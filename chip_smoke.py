@@ -13,17 +13,20 @@ result line:
                 beside the plain version, the one PyTorch call that computes
                 the same function (where there is one) and the card's bound
                 for the work; device-only times from torch.profiler beside
-                the CUDA-event times
+                the CUDA-event times, for the kernel and the library call;
+                the dense decode also at a long cache split across blocks
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
                 then again with whole-prompt prefill. Launch counts are read
-                per run. Then launches per prefill and per decode step, a
-                batch-8 decode step's time and the device's busy share.
-  5. launcher — launch/serve.main() at FULL width in bf16: 32 requests onto
-                dense engines (the decode_attention kernel), 4 router workers,
-                prewarm, traces and metrics; chunked prefill, then
-                whole-prompt prefill
+                per run. Then launches per prefill and per decode step (65
+                rmsnorm and 32 paged decode), a batch-8 decode step's time
+                and the device's busy share.
+  5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
+                and time; launch/serve.main() at FULL width in bf16: 32
+                requests onto dense engines (the decode_attention kernel), 4
+                router workers, prewarm, traces and metrics; chunked
+                prefill, then whole-prompt prefill
   6. pools    — a FULL bf16 paged engine under an EngineLoop with an int8
                 pool and chained tables, 8 prompts of 120-200 tokens; again
                 with flat tables (identical streams) and with a bf16 pool on
@@ -306,15 +309,22 @@ def phase_kernels(torch, dev):
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=g, device=dev, dtype=f32).to(dtype)
 
-    # -- rmsnorm: every norm of the path (D = 960), plus a ragged D ----------
+    # -- rmsnorm: every norm of the path (D = 960) on the one-warp path (also
+    #    D = 2048 bf16 and 1024 f32, its widest), the general path (a ragged
+    #    D, D = 4096, an unaligned row), rows 1 to 4096 -----------------------
     errs = []
-    for (R, D, dt) in [(8, 960, bf16), (32, 960, bf16), (1, 960, bf16), (5, 997, bf16),
-                       (3, 997, f32), (8, 960, f32)]:
-        x = randn(R, D, dtype=dt)
+    for (R, D, dt, aligned) in [(8, 960, bf16, True), (32, 960, bf16, True), (1, 960, bf16, True),
+                                (4096, 960, bf16, True), (8, 2048, bf16, True), (8, 960, f32, True),
+                                (3, 1024, f32, True), (5, 997, bf16, True), (3, 997, f32, True),
+                                (4096, 997, bf16, True), (1, 4096, bf16, True), (8, 4096, f32, True),
+                                (8, 960, bf16, False), (8, 960, f32, False)]:
+        x = randn(R, D, dtype=dt) if aligned else randn(R * D + 1, dtype=dt)[1:].view(R, D)
         w = torch.linspace(0.5, 1.5, D, device=dev).to(dt)
         e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
         torch.cuda.synchronize()
-        check_tol(f"rmsnorm R={R} D={D} {dt}", e, dt)
+        vec = 16 // x.element_size()
+        path = "one-warp" if aligned and D % vec == 0 and D // vec <= 256 else "general"
+        check_tol(f"rmsnorm R={R} D={D} {dt}{'' if aligned else ' unaligned'} ({path} path)", e, dt)
         errs.append(e)
     R, D = 8, 960
     x = randn(R, D)
@@ -325,7 +335,7 @@ def phase_kernels(torch, dev):
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:25",
         "shape": f"x ({R}, {D}) bf16", "max_abs_err": max(errs),
         "fns": (lambda x=x, w=w: rms_ops.rmsnorm(x, w), lambda x=x, w=w: rmsnorm_ref(x, w)),
-        "library_ms": time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
+        "library_fn": lambda x=x, w=w: F.rms_norm(x, (D,), w, 1e-6), "library_call": "F.rms_norm",
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
@@ -355,7 +365,7 @@ def phase_kernels(torch, dev):
     t = torch.arange(Lp, device=dev)
     at = (row.long()[t // ps][:, None], torch.arange(KV, device=dev)[None, :], (t % ps)[:, None])
 
-    def index_put():
+    def index_put(pool_k=pool_k, pool_v=pool_v, at=at, k=k, v=v):
         pool_k.index_put_(at, k[0])
         pool_v.index_put_(at, v[0])
 
@@ -368,7 +378,7 @@ def phase_kernels(torch, dev):
         "max_abs_err": 0.0,
         "fns": (lambda a=(pool_k, pool_v, k, v, row): pa_ops.paged_prefill_write(*a),
                 lambda a=(pool_k, pool_v, k, v, row): paged_prefill_write_ref(*a)),
-        "library_ms": time_ms(index_put), "library_call": "index_put_ (k and v)",
+        "library_fn": index_put, "library_call": "index_put_ (k and v)",
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
@@ -406,7 +416,7 @@ def phase_kernels(torch, dev):
         "max_abs_err": max(errs),
         "fns": (lambda a=(q, pk, pv, tab, lens_t): pa_ops.paged_attention(*a),
                 lambda a=(qg, pk, pv, tab, lens_t): paged_attention_ref(*a)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
     })
 
     # -- flash attention: the prompt buckets, a ragged S, f32 ---------------
@@ -429,52 +439,104 @@ def phase_kernels(torch, dev):
         "max_abs_err": max(errs),
         "fns": (lambda a=(q, k, v): fa_ops.flash_attention_bhsd(*a),
                 lambda a=(q, k, v): attention_ref(*a)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+        "library_fn": lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        "library_call": "scaled_dot_product_attention (causal, enable_gqa)",
         "bound_ms": b_ms, "bound_by": b_by,
     })
-    # -- dense decode: the launcher's shapes, T = 96 masked in place -------
-    B, T = 4, 96
-    errs = []
-    for (dt, cap, TT, lens_l) in [(bf16, 0.0, 96, [1, 9, 57, 96]), (f32, 0.0, 96, [1, 16, 95, 96]),
-                                  (bf16, 30.0, 96, [1, 9, 57, 96]), (bf16, 0.0, 128, [1, 16, 95, 128])]:
+    # -- dense decode: the launcher's shapes (T = 96 and 128: one split), then
+    #    a T split across blocks: lengths 0, 1, split - 1, split, split + 1
+    #    and T at T = 4096 and at a T that is no multiple of 32 (B = 6), every
+    #    split boundary's neighbours at B = 1, the long timed shape; f32 and
+    #    bf16, with and without the softcap. Every case: two calls
+    #    bit-identical (the splits are combined in a fixed order), a length
+    #    of 0 gives 0 ----------------------------------------------------------
+    def dense_case(B, TT, lens_l, dt, cap):
         q = randn(B, 1, G * KV, hd, dtype=dt)
         cache = randn(2, B, TT, KV, hd, dtype=dt)
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
         out = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
+        again = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
         ref = decode_attention_ref(q[:, 0].reshape(B, KV, G, hd), cache[0].transpose(1, 2),
                                    cache[1].transpose(1, 2), lens, softcap=cap)
         torch.cuda.synchronize()
+        name = (f"decode_attention B={B} T={TT} ({da_ops.plan_splits(B, KV, TT)} splits) "
+                f"lens={lens_l} softcap={cap} {dt}")
         if not bool(torch.isfinite(out).all()):
-            raise AssertionError("decode_attention: non-finite output")
-        e = err(out.reshape(B, KV, G, hd), ref)
-        check_tol(f"decode_attention T={TT} lens={lens_l} softcap={cap} {dt}", e, dt)
-        errs.append(e)
-    zero = da_ops.decode_attention(q, cache[0], cache[1], torch.zeros(B, dtype=torch.int32, device=dev))
-    if not (bool(torch.isfinite(zero).all()) and float(zero.float().abs().max()) == 0.0):
-        raise AssertionError("decode_attention: a length of 0 must give 0")
-    lens_d = torch.tensor([1, 9, 57, 96], dtype=torch.int32, device=dev)
-    q = randn(B, 1, G * KV, hd)
-    cache = randn(2, B, T, KV, hd)
-    k_c, v_c = cache[0], cache[1]
-    qg = q[:, 0].reshape(B, KV, G, hd)
-    n_live = int(lens_d.sum())
-    nbytes = 2 * 2 * n_live * KV * hd + 2 * 2 * B * KV * G * hd + 4 * B
-    b_ms, b_by = bound(nbytes, 4 * KV * G * hd * n_live, F32_FLOPS_S)
-    sdpa_mask = (torch.arange(T, device=dev)[None, None, None, :] < lens_d[:, None, None, None])
-    q_t, k_t, v_t = q.transpose(1, 2), k_c.transpose(1, 2), v_c.transpose(1, 2)
+            raise AssertionError(f"{name}: non-finite output")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: two calls differ")
+        live = lens > 0
+        if bool((~live).any()) and float(out[~live].float().abs().max()) != 0.0:
+            raise AssertionError(f"{name}: a length of 0 must give 0")
+        e = err(out.reshape(B, KV, G, hd)[live], ref[live]) if bool(live.any()) else 0.0
+        check_tol(name + ", two calls bit-identical", e, dt)
+        return e
+
+    cases = [(4, 96, [1, 9, 57, 96], bf16, 0.0), (4, 96, [1, 16, 95, 96], f32, 0.0),
+             (4, 96, [1, 9, 57, 96], bf16, 30.0), (4, 128, [1, 16, 95, 128], bf16, 0.0),
+             (4, 96, [0, 0, 0, 0], bf16, 0.0)]
+    for dt in (bf16, f32):
+        for cap in (0.0, 30.0):
+            for TT in (4096, 1000):
+                s = da_ops.split_bounds(TT, da_ops.plan_splits(6, KV, TT))[1][0]
+                cases.append((6, TT, [0, 1, s - 1, s, s + 1, TT], dt, cap))
+        s = da_ops.split_bounds(4096, da_ops.plan_splits(1, KV, 4096))[1][0]
+        cases += [(1, 4096, [L], dt, 0.0) for L in (1, s - 1, s, s + 1, 4096)]
+        cases.append((4, 4096, [1024, 2048, 3072, 4096], dt, 0.0))
+    errs = [dense_case(*c) for c in cases]
+
+    def dense_bytes(lens, B):
+        """Live K and V rows, q in and out, the lengths (bf16)."""
+        return 2 * 2 * sum(lens) * KV * hd + 2 * 2 * B * KV * G * hd + 4 * B
+
+    def dense_timed(B, T, lens_l):
+        """Kernel, plain version, SDPA with a length mask, bound: one shape."""
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        q = randn(B, 1, G * KV, hd)
+        cache = randn(2, B, T, KV, hd)
+        qg = q[:, 0].reshape(B, KV, G, hd)
+        k_t, v_t = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        mask = torch.arange(T, device=dev)[None, None, None, :] < lens[:, None, None, None]
+        b_ms, b_by = bound(dense_bytes(lens_l, B), 4 * KV * G * hd * sum(lens_l), F32_FLOPS_S)
+        return {
+            "kernel": lambda: da_ops.decode_attention(q, cache[0], cache[1], lens),
+            "plain": lambda: decode_attention_ref(qg, k_t, v_t, lens),
+            "library": lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_t, v_t,
+                                                              attn_mask=mask, enable_gqa=True),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": dense_bytes(lens_l, B),
+            "splits": da_ops.plan_splits(B, KV, T),
+        }
+
+    # timed beside its bound at a long cache, where the T axis is split
+    B, T, lens_l = 4, 4096, [1024, 2048, 3072, 4096]
+    t_long = dense_timed(B, T, lens_l)
+    lr = {"shape": f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), lengths {lens_l}",
+          "splits": t_long["splits"], "bytes": t_long["bytes"], "bound_ms": t_long["bound_ms"],
+          "bound_by": t_long["bound_by"], "ms": time_ms(t_long["kernel"]),
+          "device_ms": device_ms(t_long["kernel"]) or stalled_device_ms(t_long["kernel"]),
+          "stalled_ms": stalled_device_ms(t_long["kernel"]),
+          "plain_ms": time_ms(t_long["plain"]), "plain_device_ms": device_ms(t_long["plain"]),
+          "library_ms": time_ms(t_long["library"]),
+          "library_device_ms": device_ms(t_long["library"]) or stalled_device_ms(t_long["library"])}
+    log(f"  time decode_attention [{lr['shape']}, {lr['splits']} splits]: kernel {lr['ms']:.5f} ms "
+        f"(device {lr['device_ms']:.7f}; stalled events {lr['stalled_ms']:.7f}), plain "
+        f"{lr['plain_ms']:.5f} ms (device {lr['plain_device_ms']}), library {lr['library_ms']:.5f} "
+        f"(device {lr['library_device_ms']:.7f}), bound {lr['bound_ms']:.6f} ms ({lr['bound_by']}, "
+        f"{lr['bytes']} bytes): {lr['device_ms'] / lr['bound_ms']:.2f}x the bound")
+    B, T, lens_l = 4, 96, [1, 9, 57, 96]                  # the launcher's shape
+    t_short = dense_timed(B, T, lens_l)
     rows.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:94",
-        "shape": f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), lengths {lens_d.tolist()}",
+        "shape": f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), lengths {lens_l}",
         "max_abs_err": max(errs),
-        "fns": (lambda a=(q, k_c, v_c, lens_d): da_ops.decode_attention(*a),
-                lambda a=(qg, k_t, v_t, lens_d): decode_attention_ref(*a)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q_t, k_t, v_t, attn_mask=sdpa_mask, enable_gqa=True)),
+        "fns": (t_short["kernel"], t_short["plain"]),
+        "library_fn": t_short["library"],
         "library_call": "scaled_dot_product_attention (boolean length mask, enable_gqa)",
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": t_short["bound_ms"], "bound_by": t_short["bound_by"],
+        "by_shape": {"T=4096": lr},
     })
 
     # -- quantized prefill write: int8 bits against quantize_kv, ties counted;
@@ -509,7 +571,7 @@ def phase_kernels(torch, dev):
         "max_abs_err": 0.0, "rounding_ties": ties_total, "int8_values_differing": diffs_total,
         "fns": (lambda a=(*qpools, *qscales, k, v, row): pa_ops.paged_prefill_write_quant(*a),
                 lambda a=(*qpools, *qscales, k, v, row): paged_prefill_write_quant_ref(*a)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
     })
 
     # -- paged decode legs: int8 pools, chained tables, both; dead slots and
@@ -586,7 +648,7 @@ def phase_kernels(torch, dev):
             "fns": (lambda a=(q, *kv, t_, lens_t), kw=kw: pa_ops.paged_attention(*a, **kw),
                     lambda a=(qg, *kv, t_, lens_t), kw=kw: paged_attention_ref(*a, **kw)),
             "twin": (twin, flat_fns[twin == "int8"]),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
         })
 
     # -- chunkwise mLSTM: xlstm-350m FULL's head width (DH = 512), one and
@@ -668,7 +730,7 @@ def phase_kernels(torch, dev):
         "max_scaled_err_h_bf16": max(h_errs), "max_rel_err_state": max(state_errs),
         "fns": (lambda a=(*xs, *zero4): mk_ops.mlstm_chunkwise_bh(*a, chunk=64),
                 lambda a=(*xs, *zero4): mlstm_chunkwise_bh_ref(*a, chunk=64)),
-        "library_ms": None, "bound_ms": by_shape[S]["bound_ms"], "bound_by": by_shape[S]["bound_by"],
+        "library_fn": None, "bound_ms": by_shape[S]["bound_ms"], "bound_by": by_shape[S]["bound_by"],
         "by_shape": by_shape,
     })
 
@@ -680,7 +742,13 @@ def phase_kernels(torch, dev):
         r["device_source"] = "profiler"
         if r["device_ms"] is None:           # the profiler recorded no device time
             r["device_ms"], r["device_source"] = r["stalled_ms"], "stalled events"
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        library = r.pop("library_fn")
+        r["library_ms"] = r["library_device_ms"] = None
+        lib = "null"
+        if library is not None:              # the yardstick on both clocks
+            r["library_ms"] = time_ms(library)
+            r["library_device_ms"] = device_ms(library) or stalled_device_ms(library)
+            lib = f"{r['library_ms']:.5f} (device {r['library_device_ms']:.7f})"
         twin = ""
         if "twin" in r:
             name, fn = r.pop("twin")
@@ -803,6 +871,37 @@ def phase_step(torch, cfg, params, dev):
     for e in top[:10]:
         log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
     return per
+
+
+def dense_step(torch, cfg, params, dev):
+    """The launcher's dense engine shape (4 slots, max_len 96): launches per
+    decode step, one decode_attention per layer, and a batch-4 decode step's
+    time on the host clock (synchronized, mean of 20)."""
+    from repro_torch.launch.serve_hybrid import prompt_for
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    B, STEPS = 4, 20
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=B, max_len=96, max_new_tokens=64),
+                          params=params, device=dev)
+    for i in range(B):
+        eng.submit(prompt_for(i, cfg.vocab_size))
+    while eng.waiting or any(eng._chunking):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    a = read_counts()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    per = {n: (c - a[n]) / STEPS for n, c in read_counts().items()}
+    log(f"  dense decode step, batch {B}, {cfg.name} {cfg.n_layers}L: {step_ms:.3f} ms (host clock, "
+        f"synchronized, mean of {STEPS}); launches per step { {n: c for n, c in per.items() if c} }")
+    if per["decode_attention"] != cfg.n_layers:
+        raise AssertionError(f"dense decode step: {per['decode_attention']} decode_attention launches, "
+                             f"expected {cfg.n_layers}")
+    return step_ms, per
 
 
 def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
@@ -1186,10 +1285,15 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched in the chunked serve")
     if w_counts["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched in the whole-prompt serve")
-    phase_step(torch, chunked["cfg"], chunked["params"], dev)
+    step = phase_step(torch, chunked["cfg"], chunked["params"], dev)["decode step"]
+    n_layers = chunked["cfg"].n_layers
+    if step["rmsnorm"] != 2 * n_layers + 1 or step["paged_attention"] != n_layers:
+        raise AssertionError(f"smollm paged decode step: {step['rmsnorm']} rmsnorm and "
+                             f"{step['paged_attention']} paged decode launches, expected 65 and 32")
 
     # 5. launcher
     log("phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines")
+    dense_step(torch, chunked["cfg"], chunked["params"], dev)
     l_chunk, lc_counts = launcher_leg(torch, 32, chunked["params"])
     l_whole, lw_counts = launcher_leg(torch, 0, chunked["params"])
     if lw_counts["flash_attention"] <= 0:
@@ -1228,8 +1332,8 @@ def main() -> int:
         r["launches_by_run"] = {run: c[key] for run, c in runs.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms", "main_run",
-             "launches_by_run")
+    extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
+             "library_device_ms", "main_run", "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s")
     table = []
     for r in rows:

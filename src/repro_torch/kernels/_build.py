@@ -35,7 +35,6 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_fns: Dict[str, object] = {}
 _count_lock = threading.Lock()
 build_info: Dict[str, object] = {}   # seconds and compiler output of this process's build
 
@@ -110,24 +109,35 @@ def library() -> ctypes.CDLL:
                 build_info.update(seconds=time.perf_counter() - t0, log=log)
             else:
                 build_info.update(seconds=0.0, log="(library up to date)")
-            lib = ctypes.CDLL(str(lib_path))
+            # PyDLL: a call keeps the interpreter lock, as a torch operator
+            # does, so a launch of a few microseconds does not hand the lock
+            # to another thread and wait to get it back
+            lib = ctypes.PyDLL(str(lib_path))
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
-def function(name: str, argtypes: list):
-    """A C entry point of the library with its argument types declared
-    (``ctypes.c_void_p`` for every pointer and the stream)."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = library()
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+class Entry:
+    """A C entry point of the library, resolved once: ``fn`` is None until
+    the first ``resolve()``, which builds or loads the library and declares
+    the argument types (``ctypes.c_void_p`` for every pointer and the
+    stream). A wrapper calls ``(entry.fn or entry.resolve())(...)``, so a
+    launch costs one attribute read and no lookup."""
+
+    __slots__ = ("name", "argtypes", "fn")
+
+    def __init__(self, name: str, argtypes: list):
+        self.name, self.argtypes, self.fn = name, argtypes, None
+
+    def resolve(self):
+        if self.fn is None:
+            fn = getattr(library(), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self.fn = fn
+        return self.fn
 
 
 def check(err: int, name: str) -> None:
@@ -138,9 +148,11 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-def stream_ptr(t: torch.Tensor) -> int:
-    """The current stream of the thread, on the tensor's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_ptr(device_index: int) -> int:
+    """The calling thread's current stream on that device, as a raw
+    pointer: no ``torch.cuda.Stream`` object is built (the call Inductor's
+    generated code makes)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def count_launch(wrapper, leg: Optional[str] = None) -> None:
@@ -161,12 +173,14 @@ def reset_launches(wrapper) -> None:
             wrapper.leg_launches[leg] = 0
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+def require_cuda(name: str, *tensors: torch.Tensor) -> int:
     """The wrapper's checks common to every kernel: CUDA, one device,
-    contiguous."""
-    dev = tensors[0].device
+    contiguous. Returns the device's index (for ``stream_ptr``)."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on {dev}, got {t.device}")
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name}: every tensor must be on one CUDA device, got "
+                             f"{[str(u.device) for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return index

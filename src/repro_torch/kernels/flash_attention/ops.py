@@ -13,7 +13,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_RT = _build.Entry("rt_flash_attention",
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 _MAX_HD = 128                                   # csrc/flash_attention.cu
 
 
@@ -29,11 +30,11 @@ def flash_attention_bhsd(q, k, v):
         raise ValueError("flash_attention: q, k and v must share one f32 or bf16 dtype")
     if hd > _MAX_HD:
         raise ValueError(f"flash_attention: head_dim {hd} > {_MAX_HD}")
-    _build.require_cuda("flash_attention", q, k, v)
+    dev = _build.require_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    fn = _build.function("rt_flash_attention", _ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, hd,
-             1.0 / hd ** 0.5, _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    err = (_RT.fn or _RT.resolve())(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+                                    KV, S, hd, 1.0 / hd ** 0.5, _build.DTYPE_CODE[q.dtype],
+                                    _build.stream_ptr(dev))
     _build.count_launch(flash_attention_bhsd)
     _build.check(err, "flash_attention")
     return out

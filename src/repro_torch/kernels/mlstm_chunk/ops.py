@@ -13,7 +13,7 @@ from repro_torch.kernels.mlstm_chunk import ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 13 + [_I, _I, _I, _I, _I, _P]
+_RT = _build.Entry("rt_mlstm_chunkwise", [_P] * 13 + [_I, _I, _I, _I, _I, _P])
 TC = 32                 # columns of C per block (csrc/mlstm_chunk.cu)
 MAX_DH = 1024           # the block's shared memory holds DH x TC and 16 x DH floats
 
@@ -37,7 +37,7 @@ def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     if DH % TC or DH > MAX_DH or S < 1:
         raise ValueError(f"mlstm_chunkwise: DH must be a multiple of {TC} up to {MAX_DH}, "
                          f"and S >= 1 (DH {DH}, S {S})")
-    _build.require_cuda("mlstm_chunkwise", q, k, v, i, lf, C0, n0, m0)
+    dev = _build.require_cuda("mlstm_chunkwise", q, k, v, i, lf, C0, n0, m0)
     L = ref.chunk_len(S, chunk)
     h = torch.empty_like(q)
     C = torch.empty_like(C0)
@@ -46,11 +46,11 @@ def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     # per block: the chunk's cumulative log-forget, row stabilisers and
     # carry weights, L floats each
     scratch = torch.empty(BH * (DH // TC) * 3 * L, dtype=torch.float32, device=q.device)
-    fn = _build.function("rt_mlstm_chunkwise", _ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(), lf.data_ptr(),
-             C0.data_ptr(), n0.data_ptr(), m0.data_ptr(), h.data_ptr(), C.data_ptr(),
-             n.data_ptr(), m.data_ptr(), scratch.data_ptr(), BH, S, DH, L, _build.DTYPE_CODE[q.dtype],
-             _build.stream_ptr(q))
+    err = (_RT.fn or _RT.resolve())(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(), lf.data_ptr(),
+        C0.data_ptr(), n0.data_ptr(), m0.data_ptr(), h.data_ptr(), C.data_ptr(),
+        n.data_ptr(), m.data_ptr(), scratch.data_ptr(), BH, S, DH, L, _build.DTYPE_CODE[q.dtype],
+        _build.stream_ptr(dev))
     _build.count_launch(mlstm_chunkwise_bh)
     _build.check(err, "mlstm_chunkwise")
     return h, C, n, m

@@ -27,10 +27,11 @@ from repro_torch.models.quant import dequantize_kv
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_WRITE_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_WRITE_QUANT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                _F, _F, _I, _I, _P]
+_WRITE = _build.Entry("rt_paged_prefill_write", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+_WRITE_QUANT = _build.Entry("rt_paged_prefill_write_quant",
+                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+_DECODE = _build.Entry("rt_paged_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                              _I, _I, _I, _I, _F, _F, _I, _I, _P])
 _DECODE_THREADS, _DECODE_MAX_PER_THREAD = 128, 4     # csrc/decode_tile.cuh
 _SMEM_LIMIT = 48 * 1024
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -80,10 +81,10 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     if pool_k.dtype not in _build.DTYPE_CODE or not (
             pool_v.dtype == k.dtype == v.dtype == pool_k.dtype) or pool_v.shape != pool_k.shape:
         raise ValueError("paged_prefill_write: pools and k/v must share one f32 or bf16 dtype and shape")
-    _build.require_cuda("paged_prefill_write", pool_k, pool_v, k, v, tab)
-    fn = _build.function("rt_paged_prefill_write", _WRITE_ARGS)
-    err = fn(k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-             k.shape[1], KV, ps, hd, pool_k.element_size(), num_pages, _build.stream_ptr(pool_k))
+    dev = _build.require_cuda("paged_prefill_write", pool_k, pool_v, k, v, tab)
+    err = (_WRITE.fn or _WRITE.resolve())(
+        k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
+        k.shape[1], KV, ps, hd, pool_k.element_size(), num_pages, _build.stream_ptr(dev))
     _build.count_launch(paged_prefill_write)
     _build.check(err, "paged_prefill_write")
     return pool_k, pool_v
@@ -108,11 +109,11 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
         raise ValueError(f"paged_prefill_write_quant: scale pools must be bf16 ({num_pages}, {KV}, {ps}, 1)")
     if k.dtype not in _build.DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError("paged_prefill_write_quant: k/v must share one f32 or bf16 dtype")
-    _build.require_cuda("paged_prefill_write_quant", pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
-    fn = _build.function("rt_paged_prefill_write_quant", _WRITE_QUANT_ARGS)
-    err = fn(k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
-             pool_vs.data_ptr(), tab.data_ptr(), k.shape[1], KV, ps, hd, _build.DTYPE_CODE[k.dtype],
-             num_pages, _build.stream_ptr(pool_k))
+    dev = _build.require_cuda("paged_prefill_write_quant", pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
+    err = (_WRITE_QUANT.fn or _WRITE_QUANT.resolve())(
+        k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+        pool_vs.data_ptr(), tab.data_ptr(), k.shape[1], KV, ps, hd, _build.DTYPE_CODE[k.dtype],
+        num_pages, _build.stream_ptr(dev))
     _build.count_launch(paged_prefill_write_quant)
     _build.check(err, "paged_prefill_write_quant")
     return pool_k, pool_v, pool_ks, pool_vs
@@ -181,16 +182,16 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention: a page needs {smem} bytes of shared memory")
     qg = qg.contiguous()
-    _build.require_cuda("paged_attention", qg, pool_k, pool_v, tab, lens, *scales,
-                        *(() if l2 is None else (l2,)))
+    index = _build.require_cuda("paged_attention", qg, pool_k, pool_v, tab, lens, *scales,
+                                *(() if l2 is None else (l2,)))
     out = torch.empty_like(qg)
-    fn = _build.function("rt_paged_attention", _DECODE_ARGS)
-    err = fn(qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-             pool_ks.data_ptr() if quant else None, pool_vs.data_ptr() if quant else None,
-             tab.data_ptr(), None if l2 is None else l2.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), B, KV, G, hd, ps, P, num_pages, tpp, n_rows, 1.0 / hd ** 0.5,
-             float(softcap), _build.DTYPE_CODE[q.dtype], _KV_CODE[pool_k.dtype],
-             _build.stream_ptr(q))
+    err = (_DECODE.fn or _DECODE.resolve())(
+        qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        pool_ks.data_ptr() if quant else None, pool_vs.data_ptr() if quant else None,
+        tab.data_ptr(), None if l2 is None else l2.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, KV, G, hd, ps, P, num_pages, tpp, n_rows, 1.0 / hd ** 0.5,
+        float(softcap), _build.DTYPE_CODE[q.dtype], _KV_CODE[pool_k.dtype],
+        _build.stream_ptr(index))
     _build.count_launch(paged_attention, _leg(quant, l2 is not None))
     _build.check(err, "paged_attention")
     return out.reshape(B, 1, H, hd)

@@ -8,6 +8,8 @@ card; on a machine with one run
 This file imports torch only, so it runs on a machine without JAX. One test
 runs everywhere: on a CPU tensor a wrapper takes its plain version and
 neither builds nor counts a kernel launch."""
+import threading
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -368,3 +370,143 @@ def test_cuda_xlstm_engine_matches_cpu_engine(cuda_device, chunk_tokens):
                                                device=cuda_device).generate(prompts)]
     assert mk_ops.mlstm_chunkwise_bh.launches > before
     assert got == want, (want, got)
+
+
+def _decode_case(dev, g, dt, B, T, lens, cap=0.0):
+    """decode_attention over a (B, T, 5, 64) cache stacked with its twin (so
+    k and v are strided views), against the plain version; returns (out,
+    error over the rows of nonzero length)."""
+    q = torch.randn(B, 1, 15, 64, generator=g, device=dev).to(dt)
+    cache = torch.randn(2, B, T, 5, 64, generator=g, device=dev).to(dt)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
+    ref = decode_attention_ref(q[:, 0].reshape(B, 5, 3, 64), cache[0].transpose(1, 2),
+                               cache[1].transpose(1, 2), lens, softcap=cap)
+    assert torch.isfinite(out.float()).all()
+    live = lens > 0
+    if bool((~live).any()):
+        assert out[~live].float().abs().max() == 0                  # length 0 -> 0
+    if not bool(live.any()):
+        return q, cache, lens, out, 0.0
+    err = (out.reshape(B, 5, 3, 64)[live].float() - ref[live].float()).abs().max()
+    return q, cache, lens, out, float(err)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_split_boundaries(cuda_device):
+    """The dense decode kernel where the T axis is split across blocks:
+    lengths 0, 1, split - 1, split, split + 1 and T at T = 4096 (B = 6 and
+    4), every length of a B = 1 cache of 4096, a T that is no multiple of 32,
+    f32 and bf16, with and without the softcap; two calls are bit-identical
+    (the splits are combined in a fixed order)."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, T, cap in ((6, 4096, 0.0), (4, 4096, 30.0), (6, 1000, 0.0)):
+            n = da_ops.plan_splits(B, 5, T)
+            assert n > 1
+            s = da_ops.split_bounds(T, n)[1][0]
+            lens = [0, 1, s - 1, s, s + 1, T][:B] if B == 6 else [s - 1, s + 1, T, 0]
+            q, cache, lens_t, out, err = _decode_case(dev, g, dt, B, T, lens, cap)
+            assert err < TOL[dt], (dt, B, T, cap, lens, err)
+            again = da_ops.decode_attention(q, cache[0], cache[1], lens_t, softcap=cap)
+            assert torch.equal(out, again)
+        n = da_ops.plan_splits(1, 5, 4096)
+        bounds = da_ops.split_bounds(4096, n)
+        for L in (0, 1, bounds[0][1] - 1, bounds[0][1], bounds[0][1] + 1, 2049, 4096):
+            err = _decode_case(dev, g, dt, 1, 4096, [L])[4]
+            assert err < TOL[dt], (dt, L, err)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_one_warp_and_general_paths(cuda_device):
+    """rmsnorm's one-warp path (D = 960 in bf16 and f32, D = 2048 bf16) and
+    its general path (D = 997 and 4096, and an unaligned row), rows 1, 8 and
+    4096, f32 and bf16."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(9)
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (960, 997, 2048, 4096):
+            for R in (1, 8, 4096):
+                x = torch.randn(R, D, generator=g, device=dev).to(dt)
+                w = torch.linspace(0.5, 1.5, D, device=dev).to(dt)
+                err = (rms_ops.rmsnorm(x, w).float() - rmsnorm_ref(x, w).float()).abs().max()
+                assert err < TOL[dt], (dt, D, R, float(err))
+        buf = torch.randn(8 * 960 + 1, generator=g, device=dev).to(dt)
+        x = buf[1:].view(8, 960)                          # contiguous, not 16-byte aligned
+        w = torch.linspace(0.5, 1.5, 960, device=dev).to(dt)
+        assert (rms_ops.rmsnorm(x, w).float() - rmsnorm_ref(x, w).float()).abs().max() < TOL[dt]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_the_current_stream(cuda_device):
+    """A kernel launched under ``torch.cuda.stream(s)``, and from a second
+    thread with a stream of its own, runs on that stream: it reads inputs
+    that a copy queued on s behind a device sleep writes, so on any other
+    stream it would read zeros."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(10)
+    x = torch.randn(4096, 960, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.linspace(0.5, 1.5, 960, device=dev).to(torch.bfloat16)
+    q = torch.randn(4, 1, 15, 64, generator=g, device=dev).to(torch.bfloat16)
+    cache = torch.randn(2, 4, 4096, 5, 64, generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([1024, 2048, 3072, 4096], dtype=torch.int32, device=dev)
+    want = rmsnorm_ref(x, w)
+    want_d = da_ops.decode_attention(q, cache[0], cache[1], lens)
+    torch.cuda.synchronize()
+    results = {}
+
+    def run(name):
+        xs, qs = torch.zeros_like(x), torch.zeros_like(q)
+        torch.cuda.synchronize()
+        s = torch.cuda.Stream(device=dev)
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            xs.copy_(x)
+            qs.copy_(q)
+            out = rms_ops.rmsnorm(xs, w)
+            out_d = da_ops.decode_attention(qs, cache[0], cache[1], lens)
+        s.synchronize()
+        results[name] = (out, out_d)
+
+    run("main thread")
+    t = threading.Thread(target=run, args=("second thread",))
+    t.start()
+    t.join()
+    assert set(results) == {"main thread", "second thread"}
+    for name, (out, out_d) in results.items():
+        assert (out.float() - want.float()).abs().max() < TOL[torch.bfloat16], name
+        assert torch.equal(out_d, want_d), name
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counts_exact_under_threads(cuda_device):
+    """4 threads x 100 calls of two wrappers: every launch is counted once."""
+    from repro_torch.kernels import _build
+
+    dev = cuda_device
+    x = torch.randn(8, 960, device=dev).to(torch.bfloat16)
+    w = torch.ones(960, device=dev).to(torch.bfloat16)
+    q = torch.randn(4, 1, 15, 64, device=dev).to(torch.bfloat16)
+    cache = torch.randn(2, 4, 96, 5, 64, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([1, 9, 57, 96], dtype=torch.int32, device=dev)
+    rms_ops.rmsnorm(x, w)
+    da_ops.decode_attention(q, cache[0], cache[1], lens)
+    _build.reset_launches(rms_ops.rmsnorm)
+    _build.reset_launches(da_ops.decode_attention)
+
+    def work():
+        for _ in range(100):
+            rms_ops.rmsnorm(x, w)
+            da_ops.decode_attention(q, cache[0], cache[1], lens)
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm.launches == 400
+    assert da_ops.decode_attention.launches == 400
