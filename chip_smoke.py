@@ -6,7 +6,8 @@
 Phases, one line (or a few) each; any failure exits non-zero before the
 result line:
   1. device   — torch's device name; the card's name and power limit
-  2. build    — nvcc builds every kernel of kernels/csrc/ for sm_90a
+  2. build    — nvcc builds every kernel of kernels/csrc/ for sm_90a; the
+                bf16 flash kernel's SASS must hold tensor-core instructions
   3. kernels  — each kernel (and each leg of the paged decode) against its
                 plain PyTorch version on the card at the serving paths'
                 shapes (edge cases included), then timed with CUDA events
@@ -14,14 +15,19 @@ result line:
                 the same function (where there is one) and the card's bound
                 for the work; device-only times from torch.profiler beside
                 the CUDA-event times, for the kernel and the library call;
-                the dense decode also at a long cache split across blocks
+                the dense decode also at a long cache split across blocks,
+                the paged decode's four legs at long rows split across
+                blocks (split boundaries, determinism, chained == flat),
+                flash also at a 2048-token prompt beside SDPA
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
                 then again with whole-prompt prefill. Launch counts are read
                 per run. Then launches per prefill and per decode step (65
                 rmsnorm and 32 paged decode), a batch-8 decode step's time
-                and the device's busy share.
+                and the device's busy share; device operations per
+                whole-prompt prefill layer, against flash's earlier copying
+                composition.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
                 and time; launch/serve.main() at FULL width in bf16: 32
                 requests onto dense engines (the decode_attention kernel), 4
@@ -286,6 +292,48 @@ def scaled_err(a, b) -> float:
     return float((a.float() - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
+def time_shape(kernel, plain, library, b_ms: float, b_by: str, **extra) -> dict:
+    """A kernel at one shape beside its plain version, its library call (or
+    None) and its bound: CUDA events, profiler device time, stalled events."""
+    d = {"ms": time_ms(kernel), "device_ms": device_ms(kernel) or stalled_device_ms(kernel),
+         "stalled_ms": stalled_device_ms(kernel), "plain_ms": time_ms(plain),
+         "plain_device_ms": device_ms(plain), "library_ms": None, "library_device_ms": None,
+         "bound_ms": b_ms, "bound_by": b_by, **extra}
+    if library is not None:
+        d["library_ms"] = time_ms(library)
+        d["library_device_ms"] = device_ms(library) or stalled_device_ms(library)
+    return d
+
+
+def log_shape(name: str, shape: str, d: dict) -> None:
+    lib = ("null" if d["library_ms"] is None
+           else f"{d['library_ms']:.5f} (device {d['library_device_ms']:.7f})")
+    log(f"  time {name} [{shape}]: kernel {d['ms']:.5f} ms (device {d['device_ms']:.7f}; stalled "
+        f"events {d['stalled_ms']:.7f}), plain {d['plain_ms']:.5f} ms (device {d['plain_device_ms']}), "
+        f"library {lib} ms, bound {d['bound_ms']:.7f} ms ({d['bound_by']}): "
+        f"{d['device_ms'] / d['bound_ms']:.2f}x the bound")
+
+
+def flash_sass(lib_path) -> dict:
+    """Tensor-core (HMMA or HGMMA) instructions in each instance of the bf16
+    flash kernel, from ``cuobjdump -sass`` of the built library."""
+    import os
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts = {}
+    for section in out.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        if "flash_bf16_kernel" in name:
+            label = "hd<=64" if "ILi64E" in name else "hd<=128" if "ILi128E" in name else name
+            counts[label] = section.count("HMMA") + section.count("HGMMA")
+    return counts
+
+
 def phase_kernels(torch, dev):
     from torch.nn import functional as F
 
@@ -419,30 +467,55 @@ def phase_kernels(torch, dev):
         "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
     })
 
-    # -- flash attention: the prompt buckets, a ragged S, f32 ---------------
+    # -- flash attention: the prompt buckets, a ragged S, f32, a long S; each
+    #    on (B, H, S, hd) tensors and on the model's strided (B, S, H, hd)
+    #    layout (views of one fused projection) ----------------------------
     H = G * KV
     errs = []
-    for (S, dt) in [(16, bf16), (32, bf16), (40, bf16), (96, bf16), (40, f32), (96, f32)]:
+    for (S, dt) in [(16, bf16), (32, bf16), (40, bf16), (96, bf16), (40, f32), (96, f32),
+                    (200, f32), (2048, bf16)]:
         q, k, v = randn(1, H, S, hd, dtype=dt), randn(1, KV, S, hd, dtype=dt), randn(1, KV, S, hd, dtype=dt)
         e = err(fa_ops.flash_attention_bhsd(q, k, v), attention_ref(q, k, v))
+        qkv = randn(1, S, H + 2 * KV, hd, dtype=dt)
+        qm, km, vm = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+        want = attention_ref(qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)).transpose(1, 2)
+        e = max(e, err(fa_ops.flash_attention(qm, km, vm), want))
         torch.cuda.synchronize()
-        check_tol(f"flash_attention S={S} {dt}", e, dt)
+        check_tol(f"flash_attention S={S} {dt}, (B, H, S, hd) and strided (B, S, H, hd)", e, dt)
         errs.append(e)
-    S = 16
-    q, k, v = randn(1, H, S, hd), randn(1, KV, S, hd), randn(1, KV, S, hd)
-    b_ms, b_by = bound(2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2, BF16_FLOPS_S)
+
+    def flash_timed(S):
+        """The model's entry point on (1, S, H, hd) as attention.py gives it;
+        the plain version and SDPA on the (B, H, S, hd) views."""
+        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes, ops = 2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_S)
+        return {"kernel": lambda: fa_ops.flash_attention(q, k, v),
+                "plain": lambda: attention_ref(qt, kt, vt),
+                "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                  enable_gqa=True),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+
+    S = 2048                    # a long prompt: where the tensor cores show
+    f_long = flash_timed(S)
+    fl = time_shape(f_long["kernel"], f_long["plain"], f_long["library"], f_long["bound_ms"],
+                    f_long["bound_by"], shape=f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd})",
+                    bytes=f_long["bytes"], ops=f_long["ops"])
+    log_shape("flash_attention", fl["shape"], fl)
+    S = 16                      # an 8-token prompt's bucket, the serve whole-prompt path
+    f_short = flash_timed(S)
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-        "shape": f"q (1, {H}, {S}, {hd}) bf16, k/v (1, {KV}, {S}, {hd})",
+        "shape": f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd}) (the model's layout)",
         "max_abs_err": max(errs),
-        "fns": (lambda a=(q, k, v): fa_ops.flash_attention_bhsd(*a),
-                lambda a=(q, k, v): attention_ref(*a)),
-        "library_fn": lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True),
+        "fns": (f_short["kernel"], f_short["plain"]),
+        "library_fn": f_short["library"],
         "library_call": "scaled_dot_product_attention (causal, enable_gqa)",
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": f_short["bound_ms"], "bound_by": f_short["bound_by"],
+        "by_shape": {"S=2048": fl},
     })
     # -- dense decode: the launcher's shapes (T = 96 and 128: one split), then
     #    a T split across blocks: lengths 0, 1, split - 1, split, split + 1
@@ -511,19 +584,11 @@ def phase_kernels(torch, dev):
     # timed beside its bound at a long cache, where the T axis is split
     B, T, lens_l = 4, 4096, [1024, 2048, 3072, 4096]
     t_long = dense_timed(B, T, lens_l)
-    lr = {"shape": f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), lengths {lens_l}",
-          "splits": t_long["splits"], "bytes": t_long["bytes"], "bound_ms": t_long["bound_ms"],
-          "bound_by": t_long["bound_by"], "ms": time_ms(t_long["kernel"]),
-          "device_ms": device_ms(t_long["kernel"]) or stalled_device_ms(t_long["kernel"]),
-          "stalled_ms": stalled_device_ms(t_long["kernel"]),
-          "plain_ms": time_ms(t_long["plain"]), "plain_device_ms": device_ms(t_long["plain"]),
-          "library_ms": time_ms(t_long["library"]),
-          "library_device_ms": device_ms(t_long["library"]) or stalled_device_ms(t_long["library"])}
-    log(f"  time decode_attention [{lr['shape']}, {lr['splits']} splits]: kernel {lr['ms']:.5f} ms "
-        f"(device {lr['device_ms']:.7f}; stalled events {lr['stalled_ms']:.7f}), plain "
-        f"{lr['plain_ms']:.5f} ms (device {lr['plain_device_ms']}), library {lr['library_ms']:.5f} "
-        f"(device {lr['library_device_ms']:.7f}), bound {lr['bound_ms']:.6f} ms ({lr['bound_by']}, "
-        f"{lr['bytes']} bytes): {lr['device_ms'] / lr['bound_ms']:.2f}x the bound")
+    lr = time_shape(t_long["kernel"], t_long["plain"], t_long["library"], t_long["bound_ms"],
+                    t_long["bound_by"], shape=f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, "
+                    f"{hd}), lengths {lens_l}, {t_long['splits']} splits", splits=t_long["splits"],
+                    bytes=t_long["bytes"])
+    log_shape("decode_attention", lr["shape"], lr)
     B, T, lens_l = 4, 96, [1, 9, 57, 96]                  # the launcher's shape
     t_short = dense_timed(B, T, lens_l)
     rows.append({
@@ -650,6 +715,93 @@ def phase_kernels(torch, dev):
             "twin": (twin, flat_fns[twin == "int8"]),
             "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
         })
+
+    # -- paged decode with the row's pages split across blocks: every leg at
+    #    the split boundaries (lengths 0, 1 on the null page, split - 1,
+    #    split, split + 1 and a full row at B = 6; each boundary's neighbours
+    #    at B = 1) on 256-page rows, f32 and bf16, with and without the
+    #    softcap: two calls bit-identical, chained bit-identical to flat, a
+    #    length of 0 gives 0; then the four legs timed at B = 4, lengths
+    #    1024-4096 --------------------------------------------------------------
+    P_l, tpp_l = 256, 4
+
+    def paged_case(lens_l, dt, cap, quant, dead=()):
+        Bc = len(lens_l)
+        NPc = 1 + sum(-(-n // ps) for n in lens_l)
+        tab_c = pool_rows(torch, lens_l, NPc, ps, P_l, gen_tab)
+        for b in dead:
+            tab_c[b] = 0                                  # a dead slot on the null page
+        l1c, l2c = chain(torch, tab_c, tpp_l)
+        tab_c, l1c, l2c = tab_c.to(dev), l1c.to(dev), l2c.to(dev)
+        lens_c = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        q = randn(Bc, 1, G * KV, hd, dtype=dt)
+        if quant:
+            ik, iv, ks, vs = int8_pools(torch, g, dev, NPc, KV, ps, hd)
+            kv, kw = (ik, iv), {"pool_ks": ks, "pool_vs": vs}
+        else:
+            kv, kw = (randn(NPc, KV, ps, hd, dtype=dt), randn(NPc, KV, ps, hd, dtype=dt)), {}
+        out = pa_ops.paged_attention(q, *kv, tab_c, lens_c, softcap=cap, **kw)
+        again = pa_ops.paged_attention(q, *kv, tab_c, lens_c, softcap=cap, **kw)
+        chained = pa_ops.paged_attention(q, *kv, l1c, lens_c, softcap=cap, l2_tab=l2c, **kw)
+        ref = paged_attention_ref(q[:, 0].reshape(Bc, KV, G, hd), *kv, tab_c, lens_c, softcap=cap, **kw)
+        torch.cuda.synchronize()
+        name = (f"paged_attention[{'int8' if quant else 'flat'}, chained] B={Bc} P={P_l} "
+                f"({pa_ops.plan_page_splits(Bc, KV, P_l, ps)} splits) lens={lens_l} softcap={cap} {dt}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        if not (torch.equal(out, again) and torch.equal(out, chained)):
+            raise AssertionError(f"{name}: two calls, or chained and flat, differ")
+        live = lens_c > 0
+        if bool((~live).any()) and float(out[~live].float().abs().max()) != 0.0:
+            raise AssertionError(f"{name}: a length of 0 must give 0")
+        e = err(out.reshape(Bc, KV, G, hd)[live], ref[live])
+        check_tol(name + ", two calls and chained bit-identical to flat", e, dt)
+        return e
+
+    split_errs = {"flat": [], "int8": []}
+    for quant in (False, True):
+        for dt in (bf16, f32):
+            for cap in (0.0, 30.0):
+                bnd = pa_ops.page_split_bounds(P_l, pa_ops.plan_page_splits(6, KV, P_l, ps))
+                s = bnd[1][0] * ps
+                cases = [([0, 1, s - 1, s, s + 1, P_l * ps], (1,))]
+                bnd1 = pa_ops.page_split_bounds(P_l, pa_ops.plan_page_splits(1, KV, P_l, ps))
+                if dt == bf16 and cap == 0.0:
+                    cases += [([a_ * ps + d], ()) for a_, _ in bnd1[1:] for d in (-1, 0, 1)]
+                for lens_l, dead in cases:
+                    split_errs["int8" if quant else "flat"].append(paged_case(lens_l, dt, cap, quant, dead))
+    # (names of their own: the legs' timed lambdas above read q, pk, pv, ...)
+    B_l, lens_long = 4, [1024, 2048, 3072, 4096]
+    NPl = 1 + sum(-(-n // ps) for n in lens_long)
+    tab_l = pool_rows(torch, lens_long, NPl, ps, P_l, gen_tab)
+    l1_l, l2_l = chain(torch, tab_l, tpp_l)
+    tab_l, l1_l, l2_l = tab_l.to(dev), l1_l.to(dev), l2_l.to(dev)
+    lens_lt = torch.tensor(lens_long, dtype=torch.int32, device=dev)
+    q_l = randn(B_l, 1, G * KV, hd)
+    qg_l = q_l[:, 0].reshape(B_l, KV, G, hd)
+    pk_l, pv_l = randn(NPl, KV, ps, hd), randn(NPl, KV, ps, hd)
+    i8_l = int8_pools(torch, g, dev, NPl, KV, ps, hd)
+    nsplit_l = pa_ops.plan_page_splits(B_l, KV, P_l, ps)
+    for leg, quant, chained in [("flat", False, False), ("int8", True, False), ("chained", False, True),
+                                ("int8+chained", True, True)]:
+        kv = i8_l[:2] if quant else (pk_l, pv_l)
+        kw = {"pool_ks": i8_l[2], "pool_vs": i8_l[3]} if quant else {}
+        if chained:
+            kw["l2_tab"] = l2_l
+        t_ = l1_l if chained else tab_l
+        nbytes = paged_decode_bytes(lens_long, B_l, KV, G, hd, ps, quant, tpp_l if chained else 0)
+        b_ms, b_by = bound(nbytes, 4 * KV * G * hd * sum(lens_long), F32_FLOPS_S)
+        shape = (f"q ({B_l}, {KV}, {G}, {hd}) bf16, {'int8' if quant else 'bf16'} pool ({NPl}, {KV}, {ps}, "
+                 f"{hd}), {f'chained (tpp {tpp_l})' if chained else 'flat'} tables, lengths {lens_long}, "
+                 f"{nsplit_l} splits")
+        d = time_shape(lambda a=(q_l, *kv, t_, lens_lt), kw=kw: pa_ops.paged_attention(*a, **kw),
+                       lambda a=(qg_l, *kv, t_, lens_lt), kw=kw: paged_attention_ref(*a, **kw), None,
+                       b_ms, b_by, shape=shape, bytes=nbytes, splits=nsplit_l)
+        log_shape(f"paged_attention[{leg}]", shape, d)
+        row = next(r for r in rows if r["name"] == ("paged_attention" if leg == "flat"
+                                                     else f"paged_attention[{leg}]"))
+        row["by_shape"] = {"B=4 lengths 1024-4096": d}
+        row["max_abs_err"] = max(row["max_abs_err"], *split_errs["int8" if quant else "flat"])
 
     # -- chunkwise mLSTM: xlstm-350m FULL's head width (DH = 512), one and
     #    four sequences of 4 heads, every chunk length the serving paths give
@@ -871,6 +1023,51 @@ def phase_step(torch, cfg, params, dev):
     for e in top[:10]:
         log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
     return per
+
+
+def prefill_ops(torch, cfg, params, dev):
+    """Device operations of one whole-prompt prefill (a 16-token bucket on a
+    paged engine) per layer, from torch.profiler: through the flash wrapper
+    as it is, and through the earlier composition of it (q, k and v copied
+    to (B, H, S, hd) by .contiguous(), the output returned as a transposed
+    view that attention.py's reshape copies), on the same engine shape."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve_hybrid import MAXLEN, PS
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def count():
+        eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+            page_size=PS, num_pages=1 + MAXLEN // PS, max_slots=1, max_seq_len=MAXLEN,
+            max_new_tokens=8, chunk_tokens=0), params=params, device=dev)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            eng.prewarm([PS])
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+
+    def copying_flash(q, k, v):
+        return fa_ops.flash_attention_bhsd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                                           v.transpose(1, 2).contiguous()).transpose(1, 2)
+
+    count()                                     # warm-up
+    now = count()
+    strided = fa_ops.flash_attention
+    fa_ops.flash_attention = copying_flash
+    try:
+        before = count()
+    finally:
+        fa_ops.flash_attention = strided
+    n = cfg.n_layers
+    log(f"  device operations per whole-prompt prefill (16-token bucket, {n} layers): {now} "
+        f"({now / n:.2f} a layer) through the strided flash wrapper; {before} ({before / n:.2f} a "
+        f"layer) through the copying composition; {(before - now) / n:.2f} fewer a layer")
+    if now == 0 or (before - now) / n < 3:
+        raise AssertionError(f"prefill device operations: {now} against {before} over {n} layers")
+    return {"per_layer": now / n, "copying_per_layer": before / n}
 
 
 def dense_step(torch, cfg, params, dev):
@@ -1271,6 +1468,11 @@ def main() -> int:
            if "registers" in ln or "spill" in ln]
     log(f"phase 2 build: nvcc sm_90a, {_build.build_info['seconds']:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s); ptxas: {' | '.join(ptx)}")
+    hmma = flash_sass(_build.BUILD_DIR / _build.LIB_NAME)
+    log("  flash_attention bf16 kernel SASS (cuobjdump -sass): "
+        + ", ".join(f"{n}: {c} HMMA/HGMMA" for n, c in sorted(hmma.items())))
+    if not hmma or min(hmma.values()) == 0:
+        raise AssertionError(f"the bf16 flash kernel issues no tensor-core instruction: {hmma}")
 
     # 3. kernels
     log("phase 3 kernels:")
@@ -1290,6 +1492,7 @@ def main() -> int:
     if step["rmsnorm"] != 2 * n_layers + 1 or step["paged_attention"] != n_layers:
         raise AssertionError(f"smollm paged decode step: {step['rmsnorm']} rmsnorm and "
                              f"{step['paged_attention']} paged decode launches, expected 65 and 32")
+    prefill_ops(torch, chunked["cfg"], chunked["params"], dev)
 
     # 5. launcher
     log("phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines")

@@ -17,8 +17,6 @@ namespace rt {
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
-constexpr float kNegInf = -1e30f;  // the mask value of the JAX package
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }

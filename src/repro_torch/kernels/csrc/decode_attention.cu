@@ -11,158 +11,34 @@
 // sizes (a few hundred KB) what it costs is latency: how many loads are in
 // flight at once, and how many dependent steps each block takes.
 //
-// Design:
-// - Warps across keys, lanes across hd. A block of kWarps warps works on one
-//   (sequence b, KV head h, split of T). LPR lanes cover one cache row with
-//   16-byte loads (hd = 64: 8 lanes in bf16, 16 in f32; a row of another
-//   width up to 32 elements takes a warp, one element a lane), so a warp
-//   covers 32 / LPR rows per step, straight from device memory into
-//   registers, in the layout the cache is stored in, (B, T, KV, hd), through
-//   its strides: no transposed or padded copy, no staging in shared memory.
-//   Each warp takes chunks of kUnroll * (32 / LPR) consecutive rows,
-//   round-robin with the other warps, and loads the next chunk's K and V
-//   before it computes on the current one, so several loads per lane are in
-//   flight.
-// - The G query rows live in registers (each lane its VEC columns). A dot
-//   product is reduced with xor-shuffles among the LPR lanes of a row. Each
-//   group of LPR lanes keeps its own online softmax (m, l) and accumulator
-//   per query head, over the rows it reads, in registers, with scores in
-//   base 2 (times log2 e) so that each exponential is one exp2f; rows past
-//   the length are never read. The number of heads is a template width GM
-//   (3, 4 or 8; heads past G run on zero query rows and are not stored), so
-//   a chunk's heads and rows unroll into independent chains without
-//   branches: at these sizes the kernel waits on dependent arithmetic as
-//   much as on memory.
-// - One merge at the end: the row groups of a warp by xor-shuffles, then the
-//   warps through shared memory, in a fixed order.
+// Design (the warp-level machinery is decode_warp.cuh's, shared with the
+// paged decode):
+// - A block of four warps works on one (sequence b, KV head h, split of T).
+//   Warps go across keys and lanes across hd: LPR lanes cover one cache row
+//   with 16-byte loads (hd = 64: 8 lanes in bf16, 16 in f32; a row of
+//   another width up to 32 elements takes a warp, one element a lane),
+//   straight from device memory into registers, in the layout the cache is
+//   stored in, (B, T, KV, hd), through its strides: no transposed or padded
+//   copy, no staging in shared memory. Each warp keeps two chunks of rows
+//   in flight.
+// - The G query rows, the online softmax (base 2) and the accumulators live
+//   in registers; G is a template width (3, 4 or 8), so a chunk's heads and
+//   rows unroll into independent chains without branches: at these sizes
+//   the kernel waits on dependent arithmetic as much as on memory.
 // - The T axis is split across blocks when B * KV alone would leave most of
 //   the 132 SMs idle (the wrapper's plan_splits: at most two blocks per SM,
 //   so that all are resident at once, splits of at least 64 tokens; split s
-//   covers [s T / n, (s + 1) T / n)).
-//   Each split then writes its (m, l, acc) in f32 to a scratch, and a second
-//   kernel combines the splits in split order: the output is deterministic,
-//   with no float atomics. A split past its sequence's length writes
-//   m = -inf and l = 0. With one split the block writes the output itself.
+//   covers [s T / n, (s + 1) T / n)). Each split then writes its (m, l, acc)
+//   in f32 to a scratch, and the shared combine kernel merges the splits in
+//   split order: the output is deterministic, with no float atomics. A
+//   split past its sequence's length writes m = -inf and l = 0. With one
+//   split the block writes the output itself.
 // A length of 0 yields 0, as the TPU kernel's finalize.
-#include <string.h>
-
-#include "common.cuh"
+#include "decode_warp.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 2;  // row steps per chunk; two chunks' loads in flight
-constexpr int kCombineThreads = 256;  // >= G * hd at hd = 64 for G <= 4: one element a thread
-
-// One lane's vector of a row: a 16-byte load through the read-only path, or
-// a narrower one on the general path.
-template <typename P>
-__device__ __forceinline__ P load_vec(const void* p) {
-  if constexpr (sizeof(P) == 16) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    P out;
-    memcpy(&out, &r, sizeof(P));
-    return out;
-  } else {
-    return *reinterpret_cast<const P*>(p);
-  }
-}
-
-__device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
-
-// 2^(a - b) with 2^(-inf - anything) = 0, also when both are -inf. Scores
-// are kept in base 2 (scaled by log2 e), so every exponential is one exp2f.
-__device__ __forceinline__ float rescale(float a, float b) {
-  return a == neg_inf() ? 0.f : exp2f(a - b);
-}
-
-// The online-softmax state of one lane: its VEC columns of G query heads,
-// over the rows its group of LPR lanes has read.
-template <int GM, int VEC>
-struct Softmax {
-  float m[GM], l[GM], acc[GM][VEC];
-};
-
-// A lane holds VEC consecutive elements of a row at column col * VEC; a row
-// is LPR lanes (hd <= LPR * VEC; lanes past hd hold zeros).
-template <typename T, int VEC, int LPR, int GM>
-struct Tile {
-  static constexpr int RPW = 32 / LPR;             // rows a warp covers per step
-  static constexpr int CHUNK = kUnroll * RPW;      // rows per warp per chunk
-  using P = rt::Pack<T, VEC>;
-
-  P k[kUnroll] = {}, v[kUnroll] = {};
-
-  // Rows t + u * RPW + sub (u < kUnroll) of this lane's column; rows at or
-  // past ``end``, and columns past hd, are not read.
-  __device__ __forceinline__ void load(const T* kb, const T* vb, long long st, int t, int sub,
-                                       int end, bool active) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int row = t + u * RPW + sub;
-      if (active && row < end) {
-        k[u] = load_vec<P>(kb + row * st);
-        v[u] = load_vec<P>(vb + row * st);
-      }
-    }
-  }
-
-  // Scores (base 2) of the loaded rows for the GM heads, then one
-  // online-softmax update per head over the valid rows. Branch-free: the
-  // rows past ``end`` enter with weight 0 (their registers hold zeros or an
-  // earlier row, so every product is finite), and heads g >= G (zero query
-  // rows) are computed and never stored, so the heads and rows of a chunk
-  // are independent chains the scheduler can interleave.
-  __device__ __forceinline__ void step(const float (&qf)[GM][VEC], Softmax<GM, VEC>& s, int t,
-                                       int sub, int end, float scale, float softcap,
-                                       float log2e) const {
-    float sc[kUnroll][GM];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) d += qf[g][e] * rt::to_f(k[u].v[e]);
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        sc[u][g] = d * scale;
-      }
-    }
-    if (softcap != 0.f) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int g = 0; g < GM; ++g) sc[u][g] = tanhf(sc[u][g] / softcap) * softcap;
-      }
-    }
-    bool valid[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) valid[u] = t + u * RPW + sub < end;
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      float mx = s.m[g];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        sc[u][g] *= log2e;
-        mx = valid[u] ? fmaxf(mx, sc[u][g]) : mx;
-      }
-      const float corr = rescale(s.m[g], mx);     // 0 while no row has been seen
-      s.l[g] *= corr;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) s.acc[g][e] *= corr;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = valid[u] ? exp2f(sc[u][g] - mx) : 0.f;
-        s.l[g] += p;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s.acc[g][e] += p * rt::to_f(v[u].v[e]);
-      }
-      s.m[g] = mx;
-    }
-  }
-};
+using rt::dec::kThreads;
 
 // Grid: (B * KV) * nsplit blocks of kThreads. q, out: (B, KV, G, hd)
 // contiguous; k/v strided as stored. With nsplit > 1, ``part`` holds per
@@ -173,12 +49,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part, int T_len, int KV, int G, int hd, int nsplit,
                     long long sb, long long st, long long sh, float scale, float softcap) {
-  using Tl = Tile<T, VEC, LPR, GM>;
   constexpr int HD = LPR * VEC;                    // the widest hd this instance takes
-  using P = typename Tl::P;
-  constexpr float kLog2e = 1.4426950408889634f;
-  __shared__ float sm_m[kWarps][GM], sm_l[kWarps][GM];
-  __shared__ float sm_acc[kWarps][GM][HD];
+  using P = rt::Pack<T, VEC>;
+  __shared__ rt::dec::MergeSmem<GM, HD> sm;
 
   const int split = blockIdx.x % nsplit;
   const int bh = blockIdx.x / nsplit;
@@ -192,7 +65,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     if (g < G && active) {
-      const P pq = load_vec<P>(qb + g * hd);
+      const P pq = rt::dec::load_vec<P>(qb + g * hd);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qf[g][e] = rt::to_f(pq.v[e]);
     }
@@ -203,129 +76,18 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int t_stop = static_cast<int>(static_cast<long long>(split + 1) * T_len / nsplit);
   const int end = t_stop < len ? t_stop : len;
 
-  Softmax<GM, VEC> s;
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    s.m[g] = neg_inf();
-    s.l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) s.acc[g][e] = 0.f;
-  }
-
+  rt::dec::Softmax<GM, VEC> s;
+  s.init();
   const T* kb = k + b * sb + h * sh + col * VEC;
   const T* vb = v + b * sb + h * sh + col * VEC;
-  constexpr int stride = kWarps * Tl::CHUNK;
-  Tl a, c;
-  int t = t_begin + warp * Tl::CHUNK;
-  a.load(kb, vb, st, t, sub, end, active);
-  for (; t < end; t += 2 * stride) {
-    c.load(kb, vb, st, t + stride, sub, end, active);
-    a.step(qf, s, t, sub, end, scale, softcap, kLog2e);
-    a.load(kb, vb, st, t + 2 * stride, sub, end, active);
-    c.step(qf, s, t + stride, sub, end, scale, softcap, kLog2e);
-  }
-
-  // merge the row groups of the warp (lanes col, col + LPR, ...)
-#pragma unroll
-  for (int o = LPR; o < 32; o <<= 1) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, s.m[g], o);
-      const float lo = __shfl_xor_sync(0xffffffffu, s.l[g], o);
-      const float M = fmaxf(s.m[g], mo);
-      const float wa = rescale(s.m[g], M), wo = rescale(mo, M);
-      s.l[g] = s.l[g] * wa + lo * wo;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        s.acc[g][e] = s.acc[g][e] * wa + __shfl_xor_sync(0xffffffffu, s.acc[g][e], o) * wo;
-      }
-      s.m[g] = M;
-    }
-  }
-  if (sub == 0 && active) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g < G) {
-        if (col == 0) {
-          sm_m[warp][g] = s.m[g];
-          sm_l[warp][g] = s.l[g];
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) sm_acc[warp][g][col * VEC + e] = s.acc[g][e];
-      }
-    }
-  }
-  __syncthreads();
-
-  // merge the warps in warp order
-  const int GH = G * hd;
+  rt::dec::walk<T, VEC, LPR, GM>(qf, s, kb, vb, nullptr, nullptr, st,
+                                 [](int row) { return static_cast<long long>(row); }, t_begin,
+                                 end, warp, sub, active, scale, softcap);
   float* pb = nsplit > 1
                   ? part + (static_cast<size_t>(bh) * nsplit + split) * (G * (hd + 2))
                   : nullptr;
-  for (int e = threadIdx.x; e < GH; e += kThreads) {
-    const int g = e / hd, d = e % hd;
-    float M = neg_inf();
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float cw = rescale(sm_m[w][g], M);
-      num += sm_acc[w][g][d] * cw;
-      den += sm_l[w][g] * cw;
-    }
-    if (nsplit == 1) {
-      out[static_cast<size_t>(bh) * GH + e] = rt::from_f<T>(num / fmaxf(den, 1e-30f));
-    } else {
-      pb[2 * G + e] = num;
-      if (d == 0) {
-        pb[g] = M;
-        pb[G + g] = den;
-      }
-    }
-  }
-}
-
-// Grid: B * KV blocks of kCombineThreads. Combines the nsplit partials of
-// each (b, h) in split order: out = sum_s acc_s 2^(m_s - M) / sum_s l_s
-// 2^(m_s - M), M = max m_s. Warp g reduces head g's maxima and sums across
-// its lanes (a fixed tree: deterministic) and leaves the split weights in
-// shared memory (nsplit G + G floats); then each thread sums one output
-// element over the splits, its loads independent and unrolled.
-template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int G, int hd,
-                      int nsplit) {
-  extern __shared__ float sm[];
-  float* sm_w = sm;                      // [nsplit][G] weights
-  float* sm_den = sm_w + nsplit * G;     // [G] sums
-  const int bh = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int GH = G * hd, PS = G * (hd + 2);
-  const float* pb = part + static_cast<size_t>(bh) * nsplit * PS;
-  for (int g = warp; g < G; g += kCombineThreads / 32) {
-    float M = neg_inf();
-    for (int sp = lane; sp < nsplit; sp += 32) M = fmaxf(M, pb[sp * PS + g]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
-    float den = 0.f;
-    for (int sp = lane; sp < nsplit; sp += 32) {
-      const float c = rescale(pb[sp * PS + g], M);
-      sm_w[sp * G + g] = c;
-      den += pb[sp * PS + G + g] * c;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
-    if (lane == 0) sm_den[g] = den;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < GH; e += kCombineThreads) {
-    const int g = e / hd;
-    float num = 0.f;
-#pragma unroll 16
-    for (int sp = 0; sp < nsplit; ++sp) num += pb[sp * PS + 2 * G + e] * sm_w[sp * G + g];
-    out[static_cast<size_t>(bh) * GH + e] = rt::from_f<T>(num / fmaxf(sm_den[g], 1e-30f));
-  }
+  rt::dec::finish<T, VEC, LPR, GM, HD>(s, sm, warp, sub, col, active, G, hd,
+                                       out + static_cast<size_t>(bh) * G * hd, pb, nsplit);
 }
 
 template <typename T, int VEC, int LPR, int GM>
@@ -338,10 +100,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
       part, T_len, KV, G, hd, nsplit, sb, st, sh, scale, softcap);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && nsplit > 1) {
-    const size_t smem = sizeof(float) * (static_cast<size_t>(nsplit) * G + G);
-    if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-    decode_combine_kernel<T><<<B * KV, kCombineThreads, smem, s>>>(part, o, G, hd, nsplit);
-    err = cudaGetLastError();
+    err = rt::dec::launch_combine<T>(part, o, B * KV, G, hd, nsplit, s);
   }
   return static_cast<int>(err);
 }

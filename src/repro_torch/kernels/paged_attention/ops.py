@@ -7,6 +7,9 @@ two-level block tables.
 
 For a CPU tensor each wrapper runs its plain version (``ref.py``); for a
 CUDA tensor it launches the kernel of ``csrc/paged_attention.cu`` or raises.
+When B * KV blocks would leave the card's SMs idle, the decode splits each
+row's pages across blocks (``plan_page_splits``) and a second kernel
+combines the splits in a fixed order; the call counts one launch.
 ``paged_gather_context`` is plain PyTorch on every device, as its JAX twin
 is plain jnp."""
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ops import MIN_SPLIT, SMS
 from repro_torch.kernels.paged_attention.ref import (
     gather_kv,
     paged_attention_ref,
@@ -30,11 +34,27 @@ _F = ctypes.c_float
 _WRITE = _build.Entry("rt_paged_prefill_write", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _WRITE_QUANT = _build.Entry("rt_paged_prefill_write_quant",
                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-_DECODE = _build.Entry("rt_paged_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                              _I, _I, _I, _I, _F, _F, _I, _I, _P])
-_DECODE_THREADS, _DECODE_MAX_PER_THREAD = 128, 4     # csrc/decode_tile.cuh
-_SMEM_LIMIT = 48 * 1024
+_DECODE = _build.Entry("rt_paged_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                              _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P])
+_MAX_G, _MAX_HD = 8, 128    # csrc/paged_attention.cu: query heads and columns held in registers
+_MAX_SPLIT_PAGES = 8192     # one split's page ids, resolved into 32 KB of shared memory
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def plan_page_splits(B: int, KV: int, P: int, ps: int) -> int:
+    """Splits of a block-table row's P pages across blocks, from the shapes
+    alone (the lengths lie on the card), by ``decode_attention``'s rule: at
+    most two blocks per SM, all resident at once, where B * KV blocks would
+    leave SMs idle; each split a whole number of pages and at least
+    MIN_SPLIT tokens; one split for a short row."""
+    min_pages = max(1, -(-MIN_SPLIT // ps))
+    return max(1, min(2 * SMS // max(1, B * KV), P // min_pages))
+
+
+def page_split_bounds(P: int, nsplit: int) -> list:
+    """[start, stop) pages of each split, as the kernel computes them: split
+    s covers pages [s * P // n, (s + 1) * P // n)."""
+    return [(s * P // nsplit, (s + 1) * P // nsplit) for s in range(nsplit)]
 
 
 def _shift_row(tab: torch.Tensor, offset: int, ps: int) -> torch.Tensor:
@@ -176,22 +196,30 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
             raise ValueError("paged_attention: l2_tab must be (n_rows, tpp)")
         n_rows, tpp = l2.shape
         P = tab.shape[1] * tpp
-    if G * hd > _DECODE_THREADS * _DECODE_MAX_PER_THREAD:
-        raise ValueError(f"paged_attention: G*hd={G * hd} exceeds the kernel's register budget")
-    smem = 4 * (G * hd + ps * (hd + 1) + ps * hd + G * ps + G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: a page needs {smem} bytes of shared memory")
+    vec = 8 if quant else 16 // pool_k.element_size()     # elements per vector load
+    fast = hd % vec == 0 and (pool_k.data_ptr() | pool_v.data_ptr()) % (vec * pool_k.element_size()) == 0
+    if G > _MAX_G or hd > _MAX_HD or not (fast or hd <= 32):
+        raise ValueError(f"paged_attention: the kernel takes G <= {_MAX_G} query heads per KV head "
+                         f"and hd <= 32, or rows of whole vectors up to hd {_MAX_HD} in pools "
+                         f"aligned to a vector, got G={G}, hd={hd}")
+    nsplit = plan_page_splits(B, KV, P, ps)
+    if -(-P // nsplit) > _MAX_SPLIT_PAGES:
+        raise ValueError(f"paged_attention: {-(-P // nsplit)} pages in one split, more than the "
+                         f"kernel's {_MAX_SPLIT_PAGES}")
     qg = qg.contiguous()
     index = _build.require_cuda("paged_attention", qg, pool_k, pool_v, tab, lens, *scales,
                                 *(() if l2 is None else (l2,)))
     out = torch.empty_like(qg)
+    part = None
+    if nsplit > 1:       # per (b, h, split): G maxima, G sums, G x hd accumulators
+        part = torch.empty(B * KV * nsplit * G * (hd + 2), dtype=torch.float32, device=dev)
     err = (_DECODE.fn or _DECODE.resolve())(
         qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         pool_ks.data_ptr() if quant else None, pool_vs.data_ptr() if quant else None,
         tab.data_ptr(), None if l2 is None else l2.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, KV, G, hd, ps, P, num_pages, tpp, n_rows, 1.0 / hd ** 0.5,
-        float(softcap), _build.DTYPE_CODE[q.dtype], _KV_CODE[pool_k.dtype],
-        _build.stream_ptr(index))
+        out.data_ptr(), None if part is None else part.data_ptr(), B, KV, G, hd, ps, P, num_pages,
+        tpp, n_rows, nsplit, 1.0 / hd ** 0.5, float(softcap), _build.DTYPE_CODE[q.dtype],
+        _KV_CODE[pool_k.dtype], _build.stream_ptr(index))
     _build.count_launch(paged_attention, _leg(quant, l2 is not None))
     _build.check(err, "paged_attention")
     return out.reshape(B, 1, H, hd)

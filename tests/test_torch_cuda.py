@@ -419,6 +419,139 @@ def test_cuda_decode_attention_split_boundaries(cuda_device):
     torch.cuda.synchronize()
 
 
+def _flash_inputs(g, dev, dt, B, S, KV, G, hd):
+    """q, k, v in the model's strided layout: views of one fused
+    (B, S, H + 2 KV, hd) projection, as a fused QKV matmul would leave them."""
+    H = G * KV
+    qkv = torch.randn(B, S, H + 2 * KV, hd, generator=g, device=dev).to(dt)
+    return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_layouts_match_plain_version(cuda_device):
+    """The flash kernel, bf16 (tensor cores) and f32 (CUDA cores), at S 2 to
+    2048 (ragged S, one and many kv tiles), G 1, 3, 4 and 8, hd 64, 80 and
+    128 (and 20: the plain-load path), on the model's strided (B, S, H, hd)
+    views and on (B, H, S, hd) tensors, against attention_ref; one call is
+    one device operation (no copy of q, k or v) and its output contiguous."""
+    from torch.autograd import DeviceType
+
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(11)
+    KV = 2
+    for dt in (torch.bfloat16, torch.float32):
+        for S in (2, 16, 17, 40, 96, 128, 200, 2048):
+            for G in (1, 3, 4, 8):
+                for hd in (64, 80, 128, 20):
+                    B = 1 if S == 2048 else 2
+                    q, k, v = _flash_inputs(g, dev, dt, B, S, KV, G, hd)
+                    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2)).transpose(1, 2)
+                    out = fa_ops.flash_attention(q, k, v)
+                    assert out.is_contiguous() and out.shape == q.shape
+                    err = float((out.float() - want.float()).abs().max())
+                    assert err < TOL[dt], (dt, S, G, hd, "bshd", err)
+                    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                    out_h = fa_ops.flash_attention_bhsd(qh, kh, vh)
+                    err = float((out_h.float() - want.transpose(1, 2).float()).abs().max())
+                    assert err < TOL[dt], (dt, S, G, hd, "bhsd", err)
+    q, k, v = _flash_inputs(g, dev, torch.bfloat16, 1, 16, 5, 3, 64)
+    fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fa_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+    assert ops in (0, 1), ops                    # 0: the profiler saw no device activity
+    torch.cuda.synchronize()
+
+
+def _paged_setup(g, gen_tab, dev, B, KV, hd, ps, P, lens, dt, quant):
+    """A pool holding each row's live pages (distinct, in random order), its
+    flat table (dead rows on the null page 0) and chained tables encoding it
+    (4 entries a table page)."""
+    need = [-(-L // ps) for L in lens]
+    NP = 1 + sum(need)
+    perm = (torch.randperm(NP - 1, generator=gen_tab) + 1).tolist()
+    tab = torch.zeros(B, P, dtype=torch.int32)
+    for b, n in enumerate(need):
+        tab[b, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    tpp = 4
+    W1 = P // tpp
+    l1 = torch.zeros(B, W1, dtype=torch.int32)
+    rows = [torch.zeros(tpp, dtype=torch.int32)]
+    for b in range(B):
+        for j in range(W1):
+            piece = tab[b, j * tpp:(j + 1) * tpp]
+            if bool(piece.ne(0).any()):
+                l1[b, j] = len(rows)
+                rows.append(piece)
+    l2 = torch.stack(rows)
+    if quant:
+        pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+                 for _ in range(2)]
+        kw = {"pool_ks": (torch.rand(NP, KV, ps, 1, generator=g, device=dev) * 0.05).to(torch.bfloat16),
+              "pool_vs": (torch.rand(NP, KV, ps, 1, generator=g, device=dev) * 0.05).to(torch.bfloat16)}
+    else:
+        pools = [torch.randn(NP, KV, ps, hd, generator=g, device=dev).to(dt) for _ in range(2)]
+        kw = {}
+    return pools, kw, tab.to(dev), l1.to(dev), l2.to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_split_boundaries(cuda_device):
+    """The paged decode where a row's pages are split across blocks, on
+    every leg (flat and chained tables, f32, bf16 and int8 pools, with and
+    without the softcap), G 3, 4 and 8: lengths 0, 1 (a dead slot on the
+    null page), split - 1, split, split + 1 and a full row, then the
+    neighbours of three split boundaries and a full row at B = 1; against
+    paged_attention_ref, two
+    calls bit-identical, chained bit-identical to flat, a length of 0 gives
+    0, a dead slot is finite."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(12)
+    gen_tab = torch.Generator().manual_seed(12)
+    KV, hd, ps, P = 2, 64, 16, 64
+    for dt, quant in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True),
+                      (torch.float32, True)):
+        for G in (3, 4, 8):
+            for cap in (0.0, 30.0):
+                for B in (6, 1):
+                    n = pa_ops.plan_page_splits(B, KV, P, ps)
+                    assert n > 1
+                    bounds = pa_ops.page_split_bounds(P, n)
+                    s = bounds[1][0] * ps
+                    cases = ([[0, 1, s - 1, s, s + 1, P * ps]] if B == 6 else
+                             [[L] for i in (1, n // 2, n - 1)
+                              for L in (bounds[i][0] * ps - 1, bounds[i][0] * ps, bounds[i][0] * ps + 1)]
+                             + [[P * ps]])
+                    for lens_l in cases:
+                        pools, kw, tab, l1, l2 = _paged_setup(g, gen_tab, dev, B, KV, hd, ps, P,
+                                                              lens_l, dt, quant)
+                        if B == 6:
+                            tab[1] = 0                   # dead slot: length 1 over the null page
+                            l1[1] = 0
+                        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+                        q = torch.randn(B, 1, G * KV, hd, generator=g, device=dev).to(dt)
+                        out = pa_ops.paged_attention(q, *pools, tab, lens, softcap=cap, **kw)
+                        again = pa_ops.paged_attention(q, *pools, tab, lens, softcap=cap, **kw)
+                        chained = pa_ops.paged_attention(q, *pools, l1, lens, softcap=cap, l2_tab=l2, **kw)
+                        ref = paged_attention_ref(q[:, 0].reshape(B, KV, G, hd), *pools, tab, lens,
+                                                  softcap=cap, **kw)
+                        name = (dt, quant, G, cap, lens_l)
+                        assert torch.isfinite(out.float()).all(), name
+                        assert torch.equal(out, again), name
+                        assert torch.equal(out, chained), name
+                        live = lens > 0
+                        if bool((~live).any()):
+                            assert float(out[~live].float().abs().max()) == 0.0, name
+                        err = (out.reshape(B, KV, G, hd)[live].float() - ref[live].float()).abs().max()
+                        assert float(err) < TOL[dt], (name, float(err))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_rmsnorm_one_warp_and_general_paths(cuda_device):
     """rmsnorm's one-warp path (D = 960 in bf16 and f32, D = 2048 bf16) and
