@@ -7,7 +7,8 @@ Phases, one line (or a few) each; any failure exits non-zero before the
 result line:
   1. device   — torch's device name; the card's name and power limit
   2. build    — nvcc builds every kernel of kernels/csrc/ for sm_90a; the
-                bf16 flash kernel's SASS must hold tensor-core instructions
+                bf16 flash and mLSTM kernels' SASS must hold tensor-core
+                instructions
   3. kernels  — each kernel (and each leg of the paged decode) against its
                 plain PyTorch version on the card at the serving paths'
                 shapes (edge cases included), then timed with CUDA events
@@ -72,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_S = 989e12       # H100 SXM dense bf16 tensor cores
+TF32_FLOPS_S = 495e12       # H100 SXM dense TF32 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17
 FLIP_BOUND = 0.25           # max CPU-f32 logit lead over a GPU token that differs
 
@@ -149,7 +151,13 @@ def device_events(prof):
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return bound_mixed(nbytes, [(ops, peak_ops)])
+
+
+def bound_mixed(nbytes: float, ops_at: list):
+    """The larger of the bytes' time and the operations' time, where
+    ``ops_at`` lists (operations, peak rate) by the unit that runs them."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, sum(n / peak for n, peak in ops_at) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -282,7 +290,16 @@ def mlstm_ops(BH, S, DH, L) -> int:
     """Operations (2 per multiply-add) of S / L chunks per head: the causal
     q k^T and s v (L (L + 1) / 2 pairs each), q C and the carry update k^T v
     (L DH^2 each), q . n and the n update (L DH each)."""
-    return BH * (S // L) * (2 * DH * L * (L + 1) + 4 * L * DH * DH + 4 * L * DH)
+    return sum(n for n, _ in mlstm_ops_at(BH, S, DH, L))
+
+
+def mlstm_ops_at(BH, S, DH, L) -> list:
+    """``mlstm_ops`` by the unit the bf16 kernel runs them on: q k^T and s v
+    on the bf16 tensor cores, q C in TF32, the carry update, q . n and the n
+    update in f32 FMAs."""
+    c = BH * (S // L)
+    return [(c * 2 * DH * L * (L + 1), BF16_FLOPS_S), (c * 2 * L * DH * DH, TF32_FLOPS_S),
+            (c * (2 * L * DH * DH + 4 * L * DH), F32_FLOPS_S)]
 
 
 def scaled_err(a, b) -> float:
@@ -314,9 +331,11 @@ def log_shape(name: str, shape: str, d: dict) -> None:
         f"{d['device_ms'] / d['bound_ms']:.2f}x the bound")
 
 
-def flash_sass(lib_path) -> dict:
-    """Tensor-core (HMMA or HGMMA) instructions in each instance of the bf16
-    flash kernel, from ``cuobjdump -sass`` of the built library."""
+def kernel_sass(lib_path, kernel: str, labels: dict) -> dict:
+    """Tensor-core (HMMA or HGMMA) instructions in each instance of a kernel
+    (each function whose mangled name holds ``kernel``), from ``cuobjdump
+    -sass`` of the built library; ``labels`` maps a fragment of the mangled
+    name (the template argument) to the instance's label."""
     import os
     import shutil
 
@@ -328,8 +347,8 @@ def flash_sass(lib_path) -> dict:
     counts = {}
     for section in out.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
-        if "flash_bf16_kernel" in name:
-            label = "hd<=64" if "ILi64E" in name else "hd<=128" if "ILi128E" in name else name
+        if kernel in name:
+            label = next((v for k, v in labels.items() if k in name), name)
             counts[label] = section.count("HMMA") + section.count("HGMMA")
     return counts
 
@@ -812,6 +831,11 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.mlstm_chunk.ref import NEG, chunk_len, mlstm_chunkwise_bh_ref
 
     DH = 512
+    plan = {BH: mk_ops.plan_col_tile(BH, DH) for BH in (4, 16)}
+    log("  mlstm_chunkwise bf16 tile plan at DH 512: " + ", ".join(
+        f"BH {BH}: TC {tc}, {BH * DH // tc} blocks" for BH, tc in plan.items()))
+    if 4 * DH // plan[4] < 128:
+        raise AssertionError(f"mlstm_chunkwise: {4 * DH // plan[4]} blocks at BH 4, DH 512")
     h_errs, state_errs, raw = [], [], []
     for BH in (4, 16):
         zero = mlstm_zero(torch, BH, DH, dev)
@@ -864,15 +888,18 @@ def phase_kernels(torch, dev):
         kfn = (lambda a=(*xs, *zero4): mk_ops.mlstm_chunkwise_bh(*a, chunk=64))
         pfn = (lambda a=(*xs, *zero4): mlstm_chunkwise_bh_ref(*a, chunk=64))
         b_ms, b_by = bound(mlstm_bytes(4, S, DH, 2), mlstm_ops(4, S, DH, L), F32_FLOPS_S)
+        # the bound at the units the bf16 kernel runs each product on
+        k_ms, k_by = bound_mixed(mlstm_bytes(4, S, DH, 2), mlstm_ops_at(4, S, DH, L))
         by_shape[S] = {"L": L, "ms": time_ms(kfn), "device_ms": device_ms(kfn),
                        "plain_ms": time_ms(pfn), "plain_device_ms": device_ms(pfn),
                        "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_kernel_rates_ms": k_ms, "bound_kernel_rates_by": k_by,
                        "bytes": mlstm_bytes(4, S, DH, 2), "ops": mlstm_ops(4, S, DH, L)}
         log(f"  time mlstm_chunkwise [q/k/v (4, {S}, {DH}) bf16, L={L}]: kernel "
             f"{by_shape[S]['ms']:.5f} ms (device {by_shape[S]['device_ms']}), plain "
             f"{by_shape[S]['plain_ms']:.5f} ms (device {by_shape[S]['plain_device_ms']}), "
-            f"bound {b_ms:.6f} ms ({b_by}; {by_shape[S]['ops']:.3e} operations, "
-            f"{by_shape[S]['bytes']:.3e} bytes)")
+            f"bound {b_ms:.6f} ms ({b_by}, f32 rate; {by_shape[S]['ops']:.3e} operations, "
+            f"{by_shape[S]['bytes']:.3e} bytes), at the kernel's rates {k_ms:.6f} ms ({k_by})")
     S = 16
     xs = mlstm_inputs(torch, g, dev, 4, S, DH, bf16)
     rows.append({
@@ -883,7 +910,7 @@ def phase_kernels(torch, dev):
         "fns": (lambda a=(*xs, *zero4): mk_ops.mlstm_chunkwise_bh(*a, chunk=64),
                 lambda a=(*xs, *zero4): mlstm_chunkwise_bh_ref(*a, chunk=64)),
         "library_fn": None, "bound_ms": by_shape[S]["bound_ms"], "bound_by": by_shape[S]["bound_by"],
-        "by_shape": by_shape,
+        "by_shape": by_shape, "tile_plan": {f"BH {BH}, DH {DH}": tc for BH, tc in plan.items()},
     })
 
     for r in rows:
@@ -1468,11 +1495,15 @@ def main() -> int:
            if "registers" in ln or "spill" in ln]
     log(f"phase 2 build: nvcc sm_90a, {_build.build_info['seconds']:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s); ptxas: {' | '.join(ptx)}")
-    hmma = flash_sass(_build.BUILD_DIR / _build.LIB_NAME)
-    log("  flash_attention bf16 kernel SASS (cuobjdump -sass): "
-        + ", ".join(f"{n}: {c} HMMA/HGMMA" for n, c in sorted(hmma.items())))
-    if not hmma or min(hmma.values()) == 0:
-        raise AssertionError(f"the bf16 flash kernel issues no tensor-core instruction: {hmma}")
+    lib_path = _build.BUILD_DIR / _build.LIB_NAME
+    for name, kernel, labels in (
+            ("flash_attention", "flash_bf16_kernel", {"ILi64E": "hd<=64", "ILi128E": "hd<=128"}),
+            ("mlstm_chunkwise", "mlstm_tc_kernel", {"ILi16E": "TC 16", "ILi32E": "TC 32"})):
+        hmma = kernel_sass(lib_path, kernel, labels)
+        log(f"  {name} bf16 kernel SASS (cuobjdump -sass): "
+            + ", ".join(f"{n}: {c} HMMA/HGMMA" for n, c in sorted(hmma.items())))
+        if not hmma or min(hmma.values()) == 0:
+            raise AssertionError(f"the bf16 {name} kernel issues no tensor-core instruction: {hmma}")
 
     # 3. kernels
     log("phase 3 kernels:")
@@ -1543,7 +1574,7 @@ def main() -> int:
         table.append({k: r[k] for k in keys + extra})
         table[-1].update({k: r[k] for k in ("library_call", "rounding_ties", "int8_values_differing",
                                             "twin", "max_scaled_err_h_bf16", "max_rel_err_state",
-                                            "by_shape") if k in r})
+                                            "by_shape", "tile_plan") if k in r})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -345,6 +345,47 @@ def test_cuda_mlstm_chunkwise_matches_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_mlstm_bf16_tile_plan_and_chunk_lengths(cuda_device):
+    """The bf16 tensor-core instance across its column-tile plan (BH 1, 4,
+    8, 16, 33 at DH 512; DH 32, 64 and 1024, at TC 16 and 32) and chunk
+    lengths L 1, 8, 17, 64 and a ragged 200, from zero and from a carried
+    state, against the plain version at the tolerances above (h 2e-2, C/n/m
+    2e-5); two calls on the same inputs are bit-identical, one launch each."""
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.kernels.mlstm_chunk.ref import chunk_len, mlstm_chunkwise_bh_ref
+
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    plans = {(1, 512): 16, (4, 512): 16, (8, 512): 16, (16, 512): 32, (33, 512): 32,
+             (4, 32): 16, (4, 64): 16, (4, 1024): 16, (8, 1024): 32}
+    lengths = ((3, 1), (16, 8), (34, 17), (128, 64), (200, 64))     # (S, chunk): L 1 to 200
+    for (BH, DH), tc in plans.items():
+        assert mk_ops.plan_col_tile(BH, DH) == tc
+        zero = (torch.zeros(BH, DH, DH, device=dev), torch.zeros(BH, DH, device=dev),
+                torch.zeros(BH, device=dev))
+        carried = mlstm_chunkwise_bh_ref(*_mlstm_inputs(g, dev, BH, 24, DH, torch.float32), *zero,
+                                         chunk=64)[1:]
+        for S, chunk in lengths:
+            x = _mlstm_inputs(g, dev, BH, S, DH, bf16)
+            for carry in (zero, carried):
+                before = mk_ops.mlstm_chunkwise_bh.launches
+                got = mk_ops.mlstm_chunkwise_bh(*x, *carry, chunk=chunk)
+                again = mk_ops.mlstm_chunkwise_bh(*x, *carry, chunk=chunk)
+                want = mlstm_chunkwise_bh_ref(*x, *carry, chunk=chunk)
+                case = (BH, DH, tc, S, chunk_len(S, chunk))
+                assert mk_ops.mlstm_chunkwise_bh.launches == before + 2, case
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), case
+                assert got[0].dtype == bf16 and torch.isfinite(got[0].float()).all(), case
+                assert _scaled_err(got[0], want[0]) < TOL[bf16], (case, "h")
+                for name, a, b in zip("Cnm", got[1:], want[1:]):
+                    e = _scaled_err(a, b) if name == "m" else \
+                        float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    assert e < TOL[torch.float32], (case, name, e)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("chunk_tokens", [0, 16], ids=["whole_prompt", "chunked"])
 def test_cuda_xlstm_engine_matches_cpu_engine(cuda_device, chunk_tokens):
     """The paged engine serving xlstm-350m SMOKE in f32 on the card (the
