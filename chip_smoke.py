@@ -16,7 +16,10 @@ result line:
                 the same function (where there is one) and the card's bound
                 for the work; device-only times from torch.profiler beside
                 the CUDA-event times, for the kernel and the library call;
-                the dense decode also at a long cache split across blocks,
+                the writes also at offsets past the row's end and at long
+                prompts (Lp 256, 2048), and with an offset (one device
+                operation a call); the dense decode also at a long cache
+                split across blocks,
                 the paged decode's four legs at long rows split across
                 blocks (split boundaries, determinism, chained == flat),
                 flash also at a 2048-token prompt beside SDPA
@@ -28,7 +31,8 @@ result line:
                 rmsnorm and 32 paged decode), a batch-8 decode step's time
                 and the device's busy share; device operations per
                 whole-prompt prefill layer, against flash's earlier copying
-                composition.
+                composition; device operations per chunked prefill layer,
+                against the write through a row shifted beforehand.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
                 and time; launch/serve.main() at FULL width in bf16: 32
                 requests onto dense engines (the decode_attention kernel), 4
@@ -141,6 +145,20 @@ def stalled_device_ms(fn, n: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ops(fn, n: int = 20) -> float:
+    """Device operations (kernels, copies, sets) per call, from torch.profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof)) / n
+
+
 def device_events(prof):
     """The profiler's averaged events that ran on the card (kernels, copies,
     sets). The CPU ops that launched them report the same device time again,
@@ -222,12 +240,14 @@ def int8_pools(torch, g, dev, NP, KV, ps, hd):
 
 
 def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
-    """One quantizing write into random int8 pools against the plain write.
-    The int8 values may differ from quantize_kv only where x * 127 / amax is
-    exactly half-way between two integers (found in f64, where that quotient
-    is exact), and only by 1; every other byte of pages 1.. must match, and
-    pages outside the row must be untouched (page 0 absorbs pad writes and
-    is never compared). Returns (ties in the input, int8 values differing)."""
+    """One quantizing write at offset ``off`` into random int8 pools against
+    the plain write through the shifted row. The int8 values may differ from
+    quantize_kv only where x * 127 / amax is exactly half-way between two
+    integers (found in f64, where that quotient is exact), and only by 1;
+    every other byte of pages 1.. must match, and pages the chunk does not
+    reach must be untouched (page 0 absorbs pad writes and writes past the
+    row's end, and is never compared; ids outside the pool are dropped).
+    Returns (ties in the input, int8 values differing)."""
     KV, ps, hd = 5, 16, 64
     pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
              for _ in range(2)]
@@ -238,8 +258,8 @@ def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
     want = write_ref(*(t.clone() for t in pools + scales), k, v, shifted)
     torch.cuda.synchronize()
     t = torch.arange(Lp, device=dev)
-    pages, slot = shifted.long()[t // ps], t % ps
-    live = pages != 0
+    pages, slot = pa_ops.write_page_ids(row, off // ps, Lp, ps).long(), t % ps
+    live = (pages > 0) & (pages < NP)        # the null page and dropped ids aside
     at = (pages[live][:, None], torch.arange(KV, device=dev)[None, :], slot[live][:, None])
     ties = diffs = 0
     for x, a, b in ((k, got[0], want[0]), (v, got[1], want[1])):
@@ -247,14 +267,14 @@ def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
         r = xd * 127 / xd.abs().amax(-1, keepdim=True).clamp_min(1e-300)
         tie = (r - torch.floor(r)) == 0.5
         d = (a[at].float() - b[at].float()).abs()
-        if float(d.max()) > 1 or bool((d > 0)[~tie].any()):
+        if d.numel() and (float(d.max()) > 1 or bool((d > 0)[~tie].any())):
             raise AssertionError(f"paged_prefill_write_quant Lp={Lp} off={off}: int8 values "
                                  f"differ from quantize_kv away from a rounding tie")
         ties += int(tie.sum())
         diffs += int((d > 0).sum())
         b[at] = a[at]                        # the ties taken, every other byte must match
     untouched = torch.ones(NP, dtype=torch.bool, device=dev)
-    untouched[shifted[: -(-Lp // ps)].long()] = False
+    untouched[pages[live]] = False
     untouched[0] = False
     for a, b, before in zip(got, want, pools + scales):
         if not torch.equal(a[1:], b[1:]):
@@ -406,47 +426,70 @@ def phase_kernels(torch, dev):
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
-    # -- paged prefill write: exact, untouched pages preserved ---------------
+    # -- paged prefill write: exact, untouched pages preserved, at offsets
+    #    inside the row and past its end (the null page takes those tokens),
+    #    an id outside the pool (dropped), a ragged Lp, and the long shapes --
     NP, KV, ps, hd, P = 25, 5, 16, 64, 6
-    for (Lp, off, dt) in [(32, 0, bf16), (32, 32, bf16), (16, 64, bf16), (96, 0, f32),
-                          (20, 0, bf16), (64, 32, f32)]:
-        pool_k, pool_v = randn(NP, KV, ps, hd, dtype=dt), randn(NP, KV, ps, hd, dtype=dt)
+    NPp = 129
+    row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
+    row_long = (torch.randperm(NPp - 1, generator=torch.Generator().manual_seed(5)) + 1).to(
+        torch.int32).to(dev)                  # 128 pages: a 2048-token prompt
+    row_oob = torch.tensor([9, -4, 17, 31, 22, 0], dtype=torch.int32, device=dev)
+    for (np_, row, Lp, off, dt) in [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16),
+                                    (NP, row_small, 16, 64, bf16), (NP, row_small, 96, 0, f32),
+                                    (NP, row_small, 20, 0, bf16), (NP, row_small, 64, 32, f32),
+                                    (NP, row_small, 32, 80, f32), (NP, row_small, 16, 96, bf16),
+                                    (NP, row_oob, 64, 0, bf16), (NPp, row_long, 256, 0, bf16),
+                                    (NPp, row_long, 2048, 0, bf16)]:
+        pool_k, pool_v = randn(np_, KV, ps, hd, dtype=dt), randn(np_, KV, ps, hd, dtype=dt)
         k, v = randn(1, Lp, KV, hd, dtype=dt), randn(1, Lp, KV, hd, dtype=dt)
-        row = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
         ck, cv = pool_k.clone(), pool_v.clone()
         rk, rv = pool_k.clone(), pool_v.clone()
         pa_ops.paged_prefill_write(ck, cv, k, v, row, offset=off)
         paged_prefill_write_ref(rk, rv, k, v, pa_ops._shift_row(row, off, ps))
         torch.cuda.synchronize()
-        touched = {int(p) for p in pa_ops._shift_row(row, off, ps)[: -(-Lp // ps)]}
-        for p in range(1, NP):               # page 0 absorbs pad writes: never compared
-            if not (torch.equal(ck[p], rk[p]) and torch.equal(cv[p], rv[p])):
-                raise AssertionError(f"paged_prefill_write Lp={Lp} off={off}: page {p} differs")
-            if p not in touched and not (torch.equal(ck[p], pool_k[p]) and torch.equal(cv[p], pool_v[p])):
-                raise AssertionError(f"paged_prefill_write touched page {p} outside the row")
-        log(f"  paged_prefill_write Lp={Lp} offset={off} {dt}: exact, untouched pages preserved")
+        untouched = torch.ones(np_, dtype=torch.bool, device=dev)
+        ids = pa_ops.write_page_ids(row, off // ps, Lp, ps).long()
+        untouched[ids[(ids >= 0) & (ids < np_)]] = False
+        untouched[0] = False                 # page 0 absorbs pad writes: never compared
+        if not (torch.equal(ck[1:], rk[1:]) and torch.equal(cv[1:], rv[1:])):
+            raise AssertionError(f"paged_prefill_write Lp={Lp} off={off}: pages differ from the plain write")
+        if not (torch.equal(ck[untouched], pool_k[untouched]) and torch.equal(cv[untouched], pool_v[untouched])):
+            raise AssertionError(f"paged_prefill_write Lp={Lp} off={off}: touched a page outside the row")
+        log(f"  paged_prefill_write pool {np_} pages Lp={Lp} offset={off} {dt} row {row.tolist()[:6]}: "
+            f"exact, untouched pages preserved")
+
+    def write_timed(Lp, row, offset=None):
+        pool_k, pool_v = randn(NPp, KV, ps, hd), randn(NPp, KV, ps, hd)
+        k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
+        t = torch.arange(Lp, device=dev)
+        at = (row.long()[t // ps][:, None], torch.arange(KV, device=dev)[None, :], (t % ps)[:, None])
+
+        def index_put():
+            pool_k.index_put_(at, k[0])
+            pool_v.index_put_(at, v[0])
+
+        b_ms, b_by = bound(2 * 2 * 2 * Lp * KV * hd + 4 * -(-Lp // ps), 0, F32_FLOPS_S)
+        args = (pool_k, pool_v, k, v, row)
+        return (lambda: pa_ops.paged_prefill_write(*args, offset=offset),
+                lambda: paged_prefill_write_ref(*args), index_put, b_ms, b_by)
+
     Lp = 16                                 # an 8-token prompt's chunk, bucketed to a page
-    pool_k, pool_v = randn(NP, KV, ps, hd), randn(NP, KV, ps, hd)
-    k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
-    row = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
-    t = torch.arange(Lp, device=dev)
-    at = (row.long()[t // ps][:, None], torch.arange(KV, device=dev)[None, :], (t % ps)[:, None])
-
-    def index_put(pool_k=pool_k, pool_v=pool_v, at=at, k=k, v=v):
-        pool_k.index_put_(at, k[0])
-        pool_v.index_put_(at, v[0])
-
-    b_ms, b_by = bound(2 * 2 * 2 * Lp * KV * hd + 4 * -(-Lp // ps), 0, F32_FLOPS_S)
+    kernel, plain, index_put, b_ms, b_by = write_timed(Lp, row_small)
+    by_shape = {}
+    for Lp_long in (256, 2048):
+        kl, pl_, lib, bl, bb = write_timed(Lp_long, row_long)
+        by_shape[f"Lp={Lp_long}"] = d = time_shape(kl, pl_, lib, bl, bb)
+        log_shape("paged_prefill_write", f"k/v (1, {Lp_long}, {KV}, {hd}) bf16", d)
+    chunk = write_timed(Lp, row_small, 32)[0]          # a chunk two pages into the row
     rows.append({
         "name": "paged_prefill_write", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:233",
-        "shape": f"k/v (1, {Lp}, {KV}, {hd}) bf16 into ({NP}, {KV}, {ps}, {hd})",
-        "max_abs_err": 0.0,
-        "fns": (lambda a=(pool_k, pool_v, k, v, row): pa_ops.paged_prefill_write(*a),
-                lambda a=(pool_k, pool_v, k, v, row): paged_prefill_write_ref(*a)),
-        "library_fn": index_put, "library_call": "index_put_ (k and v)",
-        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"k/v (1, {Lp}, {KV}, {hd}) bf16 into ({NPp}, {KV}, {ps}, {hd})",
+        "max_abs_err": 0.0, "fns": (kernel, plain), "library_fn": index_put,
+        "library_call": "index_put_ (k and v)", "bound_ms": b_ms, "bound_by": b_by,
+        "by_shape": by_shape, "chunk_fn": chunk,
     })
 
     # -- paged decode: dead slots, page-boundary lengths, a full row, softcap -
@@ -624,38 +667,52 @@ def phase_kernels(torch, dev):
     })
 
     # -- quantized prefill write: int8 bits against quantize_kv, ties counted;
-    #    the small pool above, then the compact-pool phase's 129-page pool and
-    #    16-entry rows at its whole-prompt buckets (Lp 128 and 256) ----------
-    NPp, Pp, tpp_p = 129, 16, 4
+    #    the small pool above at offsets inside the row and past its end,
+    #    then the compact-pool phase's 129-page pool and 16-entry rows at its
+    #    whole-prompt buckets (Lp 128 and 256), and a 2048-token prompt ----
+    Pp, tpp_p = 16, 4
     lens_p = [120, 128, 129, 144, 161, 176, 193, 208]      # the pools phase's decode lengths
     tab_p = pool_rows(torch, lens_p, NPp, ps, Pp, gen_tab)
-    row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32)
     ties_total = diffs_total = 0
     for (np_, row, Lp, off, dt) in [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16),
                                     (NP, row_small, 16, 64, bf16), (NP, row_small, 20, 0, bf16),
                                     (NP, row_small, 96, 0, f32), (NP, row_small, 64, 32, f32),
-                                    (NPp, tab_p[0], 128, 0, bf16), (NPp, tab_p[7], 256, 0, bf16)]:
+                                    (NP, row_small, 32, 80, f32), (NP, row_small, 16, 96, bf16),
+                                    (NP, row_oob, 64, 0, bf16), (NPp, tab_p[0].to(dev), 128, 0, bf16),
+                                    (NPp, tab_p[7].to(dev), 256, 0, bf16), (NPp, row_long, 2048, 0, bf16)]:
         ties, diffs = check_quant_write(torch, pa_ops, paged_prefill_write_quant_ref, g, dev,
-                                        np_, row.to(dev), Lp, off, dt)
+                                        np_, row, Lp, off, dt)
         ties_total += ties
         diffs_total += diffs
         log(f"  paged_prefill_write_quant pool {np_} pages Lp={Lp} offset={off} {dt}: scales exact, "
             f"int8 values differing {diffs}, all at rounding ties (ties in the input {ties}), "
             f"untouched pages preserved")
+
+    def quant_timed(Lp, row, offset=None):
+        qpools = [torch.zeros(NPp, KV, ps, hd, dtype=torch.int8, device=dev) for _ in range(2)]
+        qscales = [torch.zeros(NPp, KV, ps, 1, dtype=bf16, device=dev) for _ in range(2)]
+        k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
+        b_ms, b_by = bound(2 * (2 * Lp * KV * hd + Lp * KV * (hd + 2)) + 4 * -(-Lp // ps), 0,
+                           F32_FLOPS_S)
+        args = (*qpools, *qscales, k, v, row)
+        return (lambda: pa_ops.paged_prefill_write_quant(*args, offset=offset),
+                lambda: paged_prefill_write_quant_ref(*args), b_ms, b_by)
+
     Lp, row = 256, tab_p[7].to(dev)                       # 7 of the 8 pool prompts bucket to 256
-    qpools = [torch.zeros(NPp, KV, ps, hd, dtype=torch.int8, device=dev) for _ in range(2)]
-    qscales = [torch.zeros(NPp, KV, ps, 1, dtype=bf16, device=dev) for _ in range(2)]
-    k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
-    b_ms, b_by = bound(2 * (2 * Lp * KV * hd + Lp * KV * (hd + 2)) + 4 * -(-Lp // ps), 0, F32_FLOPS_S)
+    kernel, plain, b_ms, b_by = quant_timed(Lp, row)
+    kl, pl_, bl, bb = quant_timed(2048, row_long)
+    by_shape = {"Lp=2048": time_shape(kl, pl_, None, bl, bb)}
+    log_shape("paged_prefill_write_quant", f"k/v (1, 2048, {KV}, {hd}) bf16", by_shape["Lp=2048"])
+    # a chunk two pages into an 18-entry row: the kernel resolves the offset
+    chunk = quant_timed(Lp, torch.cat([row, torch.zeros(2, dtype=torch.int32, device=dev)]), 32)[0]
     rows.append({
         "name": "paged_prefill_write_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:299",
         "shape": f"k/v (1, {Lp}, {KV}, {hd}) bf16 into int8 ({NPp}, {KV}, {ps}, {hd}) + bf16 scales",
         "max_abs_err": 0.0, "rounding_ties": ties_total, "int8_values_differing": diffs_total,
-        "fns": (lambda a=(*qpools, *qscales, k, v, row): pa_ops.paged_prefill_write_quant(*a),
-                lambda a=(*qpools, *qscales, k, v, row): paged_prefill_write_quant_ref(*a)),
-        "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
+        "fns": (kernel, plain), "library_fn": None, "bound_ms": b_ms, "bound_by": b_by,
+        "by_shape": by_shape, "chunk_fn": chunk,
     })
 
     # -- paged decode legs: int8 pools, chained tables, both; dead slots and
@@ -928,6 +985,16 @@ def phase_kernels(torch, dev):
             r["library_ms"] = time_ms(library)
             r["library_device_ms"] = device_ms(library) or stalled_device_ms(library)
             lib = f"{r['library_ms']:.5f} (device {r['library_device_ms']:.7f})"
+        chunk = ""
+        if "chunk_fn" in r:                  # the same call with offset 32: a chunked write
+            fn = r.pop("chunk_fn")
+            r["chunk"] = {"offset": 32, "ms": time_ms(fn), "device_ms": device_ms(fn),
+                          "device_ops_per_call": device_ops(fn)}
+            chunk = (f", with offset 32 {r['chunk']['ms']:.5f} ms (device {r['chunk']['device_ms']}, "
+                     f"{r['chunk']['device_ops_per_call']:g} device operations a call)")
+            if round(r["chunk"]["device_ops_per_call"]) != 1:     # the profiler may drop an event
+                raise AssertionError(f"{r['name']} with an offset: {r['chunk']['device_ops_per_call']} "
+                                     f"device operations a call, not the kernel alone")
         twin = ""
         if "twin" in r:
             name, fn = r.pop("twin")
@@ -936,7 +1003,7 @@ def phase_kernels(torch, dev):
         log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.5f} ms (device {r['device_ms']}, "
             f"{r['device_source']}; stalled events {r['stalled_ms']:.7f}), "
             f"plain {r['plain_ms']:.5f} ms (device {r['plain_device_ms']}), library {lib} ms, "
-            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){twin}")
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){chunk}{twin}")
     return rows
 
 
@@ -1052,29 +1119,35 @@ def phase_step(torch, cfg, params, dev):
     return per
 
 
+def prefill_device_ops(torch, cfg, params, dev, chunk_tokens: int) -> int:
+    """Device operations, from torch.profiler, of one prefill of a 16-token
+    bucket on a fresh one-slot paged engine (whole-prompt, or chunked)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.launch.serve_hybrid import MAXLEN, PS
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=PS, num_pages=1 + MAXLEN // PS, max_slots=1, max_seq_len=MAXLEN,
+        max_new_tokens=8, chunk_tokens=chunk_tokens), params=params, device=dev)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.prewarm([PS])
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+
+
 def prefill_ops(torch, cfg, params, dev):
     """Device operations of one whole-prompt prefill (a 16-token bucket on a
     paged engine) per layer, from torch.profiler: through the flash wrapper
     as it is, and through the earlier composition of it (q, k and v copied
     to (B, H, S, hd) by .contiguous(), the output returned as a transposed
     view that attention.py's reshape copies), on the same engine shape."""
-    from torch.autograd import DeviceType
-
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch.serve_hybrid import MAXLEN, PS
-    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     def count():
-        eng = PagedInferenceEngine(cfg, PagedEngineConfig(
-            page_size=PS, num_pages=1 + MAXLEN // PS, max_slots=1, max_seq_len=MAXLEN,
-            max_new_tokens=8, chunk_tokens=0), params=params, device=dev)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            eng.prewarm([PS])
-            torch.cuda.synchronize()
-        return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        return prefill_device_ops(torch, cfg, params, dev, 0)
 
     def copying_flash(q, k, v):
         return fa_ops.flash_attention_bhsd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -1095,6 +1168,42 @@ def prefill_ops(torch, cfg, params, dev):
     if now == 0 or (before - now) / n < 3:
         raise AssertionError(f"prefill device operations: {now} against {before} over {n} layers")
     return {"per_layer": now / n, "copying_per_layer": before / n}
+
+
+def chunked_write_ops(torch, cfg, params, dev):
+    """Device operations of one chunked prefill (a 16-token bucket on a
+    paged engine with 32-token chunks) per layer, from torch.profiler:
+    through the write wrapper as it is (the kernel resolves the chunk's
+    offset) and through the earlier composition (the row shifted by
+    ``_shift_row``'s seven device operations, then the kernel at shift 0),
+    substituted in the model's write on the same engine shape."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import attention as attn
+
+    def count():   # the most of three profiles: the profiler may drop an event, never add one
+        return max(prefill_device_ops(torch, cfg, params, dev, 32) for _ in range(3))
+
+    resolving = attn.paged_write_prompt
+
+    def shifting_write(cfg, cache, k, v, tab_row, offset=None):
+        if offset is not None:
+            tab_row = pa_ops._shift_row(tab_row, offset, cache["k"].shape[2])
+        return resolving(cfg, cache, k, v, tab_row)
+
+    count()                                     # warm-up
+    now = count()
+    attn.paged_write_prompt = shifting_write
+    try:
+        before = count()
+    finally:
+        attn.paged_write_prompt = resolving
+    n = cfg.n_layers
+    log(f"  device operations per chunked prefill (16-token bucket, 32-token chunks, {n} layers): "
+        f"{now} ({now / n:.2f} a layer) with the offset resolved in the write kernel; {before} "
+        f"({before / n:.2f} a layer) through the shifted row; {(before - now) / n:.2f} fewer a layer")
+    if now == 0 or (before - now) / n < 7:
+        raise AssertionError(f"chunked prefill device operations: {now} against {before} over {n} layers")
+    return {"per_layer": now / n, "shifted_row_per_layer": before / n}
 
 
 def dense_step(torch, cfg, params, dev):
@@ -1524,6 +1633,8 @@ def main() -> int:
         raise AssertionError(f"smollm paged decode step: {step['rmsnorm']} rmsnorm and "
                              f"{step['paged_attention']} paged decode launches, expected 65 and 32")
     prefill_ops(torch, chunked["cfg"], chunked["params"], dev)
+    next(r for r in rows if r["name"] == "paged_prefill_write")["chunked_prefill_ops"] = (
+        chunked_write_ops(torch, chunked["cfg"], chunked["params"], dev))
 
     # 5. launcher
     log("phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines")
@@ -1574,7 +1685,8 @@ def main() -> int:
         table.append({k: r[k] for k in keys + extra})
         table[-1].update({k: r[k] for k in ("library_call", "rounding_ties", "int8_values_differing",
                                             "twin", "max_scaled_err_h_bf16", "max_rel_err_state",
-                                            "by_shape", "tile_plan") if k in r})
+                                            "by_shape", "tile_plan", "chunk",
+                                            "chunked_prefill_ops") if k in r})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

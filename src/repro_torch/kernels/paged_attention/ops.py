@@ -9,7 +9,10 @@ For a CPU tensor each wrapper runs its plain version (``ref.py``); for a
 CUDA tensor it launches the kernel of ``csrc/paged_attention.cu`` or raises.
 When B * KV blocks would leave the card's SMs idle, the decode splits each
 row's pages across blocks (``plan_page_splits``) and a second kernel
-combines the splits in a fixed order; the call counts one launch.
+combines the splits in a fixed order; the call counts one launch. The
+prefill writes take a chunk's offset as a page count that the kernel
+resolves (``write_page_ids``), so a chunked write is one device operation,
+on a grid from ``plan_write_grid``.
 ``paged_gather_context`` is plain PyTorch on every device, as its JAX twin
 is plain jnp."""
 from __future__ import annotations
@@ -31,14 +34,16 @@ from repro_torch.models.quant import dequantize_kv
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_WRITE = _build.Entry("rt_paged_prefill_write", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+_WRITE = _build.Entry("rt_paged_prefill_write",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _WRITE_QUANT = _build.Entry("rt_paged_prefill_write_quant",
-                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _DECODE = _build.Entry("rt_paged_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P])
 _MAX_G, _MAX_HD = 8, 128    # csrc/paged_attention.cu: query heads and columns held in registers
 _MAX_SPLIT_PAGES = 8192     # one split's page ids, resolved into 32 KB of shared memory
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_WRITE_TOKENS = 16          # tokens per write block at most: a page's worth at 16-token pages
 
 
 def plan_page_splits(B: int, KV: int, P: int, ps: int) -> int:
@@ -60,28 +65,63 @@ def page_split_bounds(P: int, nsplit: int) -> list:
 def _shift_row(tab: torch.Tensor, offset: int, ps: int) -> torch.Tensor:
     """Shift a block-table row left by ``offset // ps`` pages (chunked
     prefill: chunk token t lands at absolute position offset + t). Entries
-    shifted past the row's end map to the reserved null page 0."""
+    shifted past the row's end map to the reserved null page 0. The plain
+    path's form of what the write kernels resolve themselves."""
     P = tab.shape[0]
     idx = int(offset) // ps + torch.arange(P, device=tab.device)
     inside = idx < P
     return torch.where(inside, tab[idx.clamp(0, P - 1)], torch.zeros_like(tab))
 
 
-def _write_row(name: str, pool_k, k, v, tab_row, offset):
-    """The (shifted) int32 row of a prefill write, after the checks the
-    kernels rely on when the pools lie on the card."""
+def write_page_ids(tab: torch.Tensor, shift_pages: int, Lp: int, ps: int) -> torch.Tensor:
+    """The page each of Lp chunk tokens lands in, by the write kernels' rule:
+    token t goes to ``tab[shift_pages + t // ps]`` while that index lies in
+    the row's P entries, else to the null page 0 (written, not dropped); an
+    id outside the pool is dropped later, by the scatter. Equal to
+    ``_shift_row(tab, shift_pages * ps, ps)[t // ps]``."""
+    P = tab.shape[0]
+    i = shift_pages + torch.arange(Lp, device=tab.device) // ps
+    return torch.where(i < P, tab[i.clamp(0, P - 1)], torch.zeros((), dtype=tab.dtype, device=tab.device))
+
+
+def plan_write_grid(Lp: int, KV: int, hd: int, elem_bytes: int, n_sms: int) -> tuple:
+    """Launch shape of the prefill writes: (tokens per block, blocks). Block
+    (x, h) takes tokens [x * tokens, (x + 1) * tokens) of KV head h, a row of
+    16-byte lanes per token (elem_bytes 2 for the quantizing write, whose
+    lanes take 8 values each). From 16 tokens a block (a page's worth at
+    16-token pages), halved while the grid leaves SMs idle and a block keeps
+    a warp's lanes; where even that cannot fill the card, 16 tokens a block,
+    the smallest grid."""
+    lanes = max(1, -(-hd * elem_bytes // 16))
+    tokens = _WRITE_TOKENS
+    while tokens > 1 and -(-Lp // tokens) * KV < n_sms and (tokens // 2) * lanes >= 32:
+        tokens //= 2
+    if -(-Lp // tokens) * KV < n_sms:
+        tokens = _WRITE_TOKENS
+    return tokens, -(-Lp // tokens) * KV
+
+
+def _write_args(name: str, pool_k, k, v, tab_row, offset):
+    """The int32 row of a prefill write and the chunk's shift in pages,
+    after the checks the kernels rely on when the pools lie on the card. On
+    the CPU the row comes back shifted (``_shift_row``) with shift 0."""
     num_pages, KV, ps, hd = pool_k.shape
     tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)
-    if offset is not None:
-        tab = _shift_row(tab, offset, ps)
     if pool_k.device.type == "cpu":
-        return tab
+        return (tab if offset is None else _shift_row(tab, offset, ps)), 0
     Lp = k.shape[1]
     if k.shape != (1, Lp, KV, hd) or v.shape != k.shape:
         raise ValueError(f"{name}: k/v must be (1, Lp, {KV}, {hd}), got {tuple(k.shape)}")
-    if -(-Lp // ps) > tab.shape[0]:
-        raise ValueError(f"{name}: {Lp} tokens need more than the row's {tab.shape[0]} pages")
-    return tab
+    if tab.dim() != 1:
+        raise ValueError(f"{name}: tab_row must be (P,), got {tuple(tab.shape)}")
+    P = tab.shape[0]
+    if -(-Lp // ps) > P:
+        raise ValueError(f"{name}: {Lp} tokens need more than the row's {P} pages")
+    if Lp * KV * hd * k.element_size() >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel indexes k/v in 32 bits; {Lp} tokens are too many")
+    # every shift at or past the row's end (or at or below its negative)
+    # gives the same pages, and the clamp keeps the int in 32 bits
+    return tab, 0 if offset is None else max(-P, min(P, int(offset) // ps))
 
 
 def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
@@ -91,10 +131,10 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     pool_k/pool_v: (num_pages, KV, ps, hd); k/v: (1, Lp, KV, hd); tab_row:
     (P,) int. Bucket padding past the sequence's pages maps to the null page
     0. ``offset`` (a page multiple) makes this the chunked write: chunk token
-    t lands at absolute position offset + t through the row shifted by
-    ``offset // ps`` pages. Lp need not be a page multiple: the kernel writes
-    the ragged tail itself. Returns (pool_k, pool_v)."""
-    tab = _write_row("paged_prefill_write", pool_k, k, v, tab_row, offset)
+    t lands at absolute position offset + t, in page ``tab_row[offset // ps
+    + t // ps]`` (``write_page_ids``). Lp need not be a page multiple: the
+    kernel writes the ragged tail itself. Returns (pool_k, pool_v)."""
+    tab, shift = _write_args("paged_prefill_write", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_ref(pool_k, pool_v, k, v, tab)
     num_pages, KV, ps, hd = pool_k.shape
@@ -102,9 +142,12 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
             pool_v.dtype == k.dtype == v.dtype == pool_k.dtype) or pool_v.shape != pool_k.shape:
         raise ValueError("paged_prefill_write: pools and k/v must share one f32 or bf16 dtype and shape")
     dev = _build.require_cuda("paged_prefill_write", pool_k, pool_v, k, v, tab)
+    Lp = k.shape[1]
+    tokens, _ = plan_write_grid(Lp, KV, hd, pool_k.element_size(), SMS)
     err = (_WRITE.fn or _WRITE.resolve())(
         k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-        k.shape[1], KV, ps, hd, pool_k.element_size(), num_pages, _build.stream_ptr(dev))
+        Lp, KV, ps, hd, pool_k.element_size(), num_pages, tab.shape[0], shift, tokens,
+        _build.stream_ptr(dev))
     _build.count_launch(paged_prefill_write)
     _build.check(err, "paged_prefill_write")
     return pool_k, pool_v
@@ -118,7 +161,7 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
     write time and land the int8 values in pool_k/pool_v (num_pages, KV, ps,
     hd) and the bf16 scales in pool_ks/pool_vs (num_pages, KV, ps, 1), all
     IN PLACE. k/v are f32 or bf16 activations. Returns the four pools."""
-    tab = _write_row("paged_prefill_write_quant", pool_k, k, v, tab_row, offset)
+    tab, shift = _write_args("paged_prefill_write_quant", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
     num_pages, KV, ps, hd = pool_k.shape
@@ -130,10 +173,12 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
     if k.dtype not in _build.DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError("paged_prefill_write_quant: k/v must share one f32 or bf16 dtype")
     dev = _build.require_cuda("paged_prefill_write_quant", pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
+    Lp = k.shape[1]
+    tokens, _ = plan_write_grid(Lp, KV, hd, 2, SMS)
     err = (_WRITE_QUANT.fn or _WRITE_QUANT.resolve())(
         k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
-        pool_vs.data_ptr(), tab.data_ptr(), k.shape[1], KV, ps, hd, _build.DTYPE_CODE[k.dtype],
-        num_pages, _build.stream_ptr(dev))
+        pool_vs.data_ptr(), tab.data_ptr(), Lp, KV, ps, hd, _build.DTYPE_CODE[k.dtype],
+        num_pages, tab.shape[0], shift, tokens, _build.stream_ptr(dev))
     _build.count_launch(paged_prefill_write_quant)
     _build.check(err, "paged_prefill_write_quant")
     return pool_k, pool_v, pool_ks, pool_vs

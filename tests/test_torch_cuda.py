@@ -276,6 +276,108 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         fa_ops.flash_attention_bhsd(q, q, q)
 
 
+def _write_case(dev, g, dt, quant, Lp, hd, shift, aligned=True):
+    """One write of Lp tokens (KV 5, 16-token pages) at offset shift * 16
+    through a row of ceil(Lp / 16) + 3 entries that holds a null entry and
+    two ids outside the pool, against the plain write on the same pools:
+    pages 1.. equal (int8 values within one, and only as many as the input
+    has rounding ties; scales exact), pages the chunk does not reach
+    untouched, two calls bit-identical."""
+    KV, ps = 5, 16
+    P = -(-Lp // ps) + 3
+    NP = P + 2
+    row = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(Lp + hd))[:P] + 1
+    row[1 % P], row[-1] = -3, NP + 5                # dropped: outside the pool
+    row[-2] = 0                                     # the null page
+    row = row.to(torch.int32).to(dev)
+
+    def act():
+        x = torch.randn(Lp * KV * hd + 1, generator=g, device=dev).to(dt)
+        return (x[1:] if not aligned else x[:-1]).view(1, Lp, KV, hd)
+
+    k, v = act(), act()
+    if quant:
+        pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(NP, KV, ps, 1, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+        kernel, plain = pa_ops.paged_prefill_write_quant, paged_prefill_write_quant_ref
+    else:
+        pools = [torch.randn(NP, KV, ps, hd, generator=g, device=dev).to(dt) for _ in range(2)]
+        kernel, plain = pa_ops.paged_prefill_write, paged_prefill_write_ref
+    got = kernel(*(p.clone() for p in pools), k, v, row, offset=shift * ps)
+    again = kernel(*(p.clone() for p in pools), k, v, row, offset=shift * ps)
+    want = plain(*(p.clone() for p in pools), k, v, pa_ops._shift_row(row, shift * ps, ps))
+    torch.cuda.synchronize()
+    ids = pa_ops.write_page_ids(row, shift, Lp, ps).long()
+    untouched = torch.ones(NP, dtype=torch.bool, device=dev)
+    untouched[ids[(ids >= 0) & (ids < NP)]] = False
+    untouched[0] = False
+    ties = 0
+    if quant:
+        for x in (k, v):
+            xd = x.double()
+            r = xd * 127 / xd.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+            ties += int(((r - torch.floor(r)) == 0.5).sum())
+    case = f"{'quant' if quant else 'write'} {dt} Lp {Lp} hd {hd} shift {shift} aligned {aligned}"
+    for a, b, c, before in zip(got, want, again, pools):
+        assert torch.equal(a[1:], c[1:]), case
+        if a.dtype == torch.int8:
+            d = (a[1:].int() - b[1:].int()).abs()
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= ties, case
+        else:
+            assert torch.equal(a[1:], b[1:]), case
+        assert torch.equal(a[untouched], before[untouched]), case
+
+
+@pytest.mark.cuda
+def test_cuda_paged_writes_match_plain_versions(cuda_device):
+    """Both writes at Lp 1, 16, 20, 256 and 2048, f32 and bf16, hd 20, 64
+    and 128, at offsets 0, one and two pages, on the row's last entry and
+    wholly past the row's end; unaligned k/v (the narrow unit paths and the
+    quantizing write's general path) at hd 64."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(11)
+    for quant in (False, True):
+        for dt in (torch.float32, torch.bfloat16):
+            for hd in (20, 64, 128):
+                for Lp in (1, 16, 20, 256, 2048):
+                    P = -(-Lp // 16) + 3
+                    for shift in (0, 1, 2, P - 1, P + 1):
+                        _write_case(dev, g, dt, quant, Lp, hd, shift)
+            for Lp in (16, 20, 256):
+                _write_case(dev, g, dt, quant, Lp, 64, 1, aligned=False)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_write_is_one_launch_and_one_device_operation(cuda_device):
+    """A write with an offset is one device operation, the kernel, and
+    counts one launch: the chunk's shift is resolved inside the kernel. Ten
+    calls are profiled, as the profiler may drop an event (never add one)."""
+    from torch.autograd import DeviceType
+
+    dev = cuda_device
+    pk, pv = torch.zeros(9, 5, 16, 64, device=dev), torch.zeros(9, 5, 16, 64, device=dev)
+    qk, qv = torch.zeros_like(pk, dtype=torch.int8), torch.zeros_like(pv, dtype=torch.int8)
+    qs = [torch.zeros(9, 5, 16, 1, device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    k = torch.randn(1, 16, 5, 64, device=dev)
+    row = torch.tensor([3, 8, 1, 0, 5, 2], dtype=torch.int32, device=dev)
+    calls = {pa_ops.paged_prefill_write: lambda: pa_ops.paged_prefill_write(pk, pv, k, k, row, offset=32),
+             pa_ops.paged_prefill_write_quant:
+                 lambda: pa_ops.paged_prefill_write_quant(qk, qv, *qs, k, k, row, offset=32)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for wrapper, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        before = wrapper.launches
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        assert round(ops / 10) == 1, (wrapper.__name__, [e.key for e in prof.key_averages()])
+        assert wrapper.launches == before + 10
+
+
 def _mlstm_inputs(g, dev, BH, S, DH, dt):
     """q (scaled by DH^-1/2 as the model scales it), k, v in ``dt``; i and
     lf = log_sigmoid(f) in f32."""
