@@ -42,7 +42,18 @@ result line:
                 pool and chained tables, 8 prompts of 120-200 tokens; again
                 with flat tables (identical streams) and with a bf16 pool on
                 chained tables; bytes per cached token of each pool
-  7. xlstm    — xlstm-350m FULL in bf16 (random weights from a seeded
+  7. options  — the engines' options at FULL width in bf16 on phase 4's
+                weights, each under an EngineLoop: speculative decoding (8
+                motif prompts of 64 tokens, 48 new tokens, spec_tokens 4) on
+                a paged engine (spec off, on, on over an int8 pool) and a
+                dense one (off, on; whole-prompt, so flash runs), every
+                verify pass 65 rmsnorm launches and no decode kernel; the
+                prefix cache (4 conversations of 3 turns over a shared
+                64-token system prefix: off, on whole-prompt, on in 32-token
+                chunks), a hit's suffix written at a page offset; fork() of
+                two mid-page sequences, each clone's stream equal to its
+                source's; every page reclaimed after each drain
+  8. xlstm    — xlstm-350m FULL in bf16 (random weights from a seeded
                 generator): launch/serve.main(["--arch", "xlstm-350m"]),
                 32 requests on dense engines, chunked and whole-prompt; a
                 paged engine serving the pools phase's 8 prompts of 120-200
@@ -52,14 +63,17 @@ result line:
                 time and the device's busy share; then the same weights in
                 f32 on a dense engine at the launcher's shapes and on the
                 paged engine, both prefill modes
-  8. parity   — served requests re-run teacher-forced through the port's
+  9. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights: the
-                whole-sequence forward (phases 4 and 7), the dense cache
-                (phase 5) and the paged int8 pool (phase 6). Every flip's
+                whole-sequence forward (phases 4, 7 and 8), the dense cache
+                (phase 5) and the paged int8 pool (phases 6 and 7); every
+                spec-on and warm stream of phase 7, with the first
+                divergence of spec on from off and of warm from cold and
+                the CPU's lead there. Every flip's
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more)
-  9. summary  — the kernels JSON line, then the result line.
+ 10. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -1323,6 +1337,260 @@ def phase_pools(torch, cfg, params, dev):
     return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
 
 
+OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 48     # the options phase's spec traffic
+
+
+def motif_prompts(vocab: int) -> list:
+    """8 prompts of 64 tokens, each a seeded 16-token motif repeated four
+    times (the n-gram proposer matches inside them)."""
+    import numpy as np
+
+    return [[int(t) for t in np.random.default_rng(2000 + i).integers(1, vocab, OPT_MOTIF)]
+            * (OPT_PROMPT // OPT_MOTIF) for i in range(8)]
+
+
+class CallCounts:
+    """Launches of every kernel during each call of an engine method (a
+    verify pass, a prefill chunk), read from the wrappers' counters around
+    the call, and the call's host time: (positional arguments, launches,
+    seconds) per call."""
+
+    def __init__(self, eng, method: str):
+        self.calls = []
+        fn = getattr(eng, method)
+
+        def counted(*args):
+            before = read_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            dt = time.perf_counter() - t0
+            after = read_counts()
+            self.calls.append((args, {n: after[n] - before[n] for n in after}, dt))
+            return out
+
+        setattr(eng, method, counted)
+
+
+def options_loop(torch, eng, name: str, next_turn):
+    """Serve turns of prompts through an EngineLoop on ``eng``: each turn's
+    prompts are submitted together and awaited; ``next_turn(turns)`` gives
+    the next turn's prompts from the turns so far (None: done). Returns
+    (turns of (prompts, sequences), steps, wall s, launches)."""
+    from repro_torch.serving.scheduler import EngineLoop
+
+    reset_counts()
+    turns = []
+    t0 = time.perf_counter()
+    with EngineLoop(eng, name=name) as loop:
+        while (prompts := next_turn(turns)) is not None:
+            sids = [loop.submit(p) for p in prompts]
+            turns.append((prompts, [loop.wait(sid, 600) for sid in sids]))
+        steps = loop.steps
+    torch.cuda.synchronize()
+    return turns, steps, time.perf_counter() - t0, read_counts()
+
+
+def check_drained(eng, name: str) -> None:
+    """Every page back in the pool once the prefix cache (if any) is
+    dropped, and the allocator's and the tree's invariants hold."""
+    if getattr(eng, "prefix_cache", None) is not None:
+        eng.prefix_cache.check_invariants()
+        eng.prefix_cache.drop()
+    eng.allocator.check_invariants()
+    if eng.allocator.used_pages != 0:
+        raise AssertionError(f"{name}: {eng.allocator.used_pages} pages still used after the drain")
+
+
+def spec_run(torch, cfg, params, dev, kind: str, spec: int, cache_dtype: str = ""):
+    """The 8 motif prompts through an EngineLoop on a paged engine (16-token
+    pages, 32-token chunks) or a dense one (whole-prompt admissions): 48 new
+    tokens each, spec_tokens ``spec`` with a 3-gram proposer. Every verify
+    pass is counted: 65 rmsnorm launches and no decode kernel."""
+    import numpy as np
+
+    from repro_torch.serving.engine import (
+        EngineConfig,
+        InferenceEngine,
+        PagedEngineConfig,
+        PagedInferenceEngine,
+    )
+
+    prompts = motif_prompts(cfg.vocab_size)
+    common = dict(max_new_tokens=OPT_NEW, spec_tokens=spec, spec_ngram=3)
+    if kind == "paged":
+        eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+            page_size=16, num_pages=257, max_slots=8, max_seq_len=256, chunk_tokens=32,
+            cache_dtype=cache_dtype, **common), params=params, device=dev)
+    else:
+        eng = InferenceEngine(cfg, EngineConfig(max_slots=4, max_len=256, chunk_tokens=0, **common),
+                              params=params, device=dev)
+    eng.prewarm()
+    passes = CallCounts(eng, "_verify")
+    name = f"{kind}-spec{spec}{'-' + cache_dtype if cache_dtype else ''}"
+    turns, steps, wall, counts = options_loop(torch, eng, name,
+                                              lambda turns: None if turns else prompts)
+    outs = [s.out for s in turns[0][1]]
+    if len(outs) != 8 or any(len(o) != OPT_NEW for o in outs):
+        raise AssertionError(f"options {name}: {[len(o) for o in outs]} tokens served, expected 8 x 48")
+    want = 2 * cfg.n_layers + 1
+    for _, c, _ in passes.calls:
+        if (c["rmsnorm"], c["paged_attention"], c["decode_attention"]) != (want, 0, 0):
+            raise AssertionError(f"options {name}: a verify pass launched {c}, expected {want} "
+                                 "rmsnorm and no decode kernel")
+    if spec and not passes.calls:
+        raise AssertionError(f"options {name}: no verify pass ran")
+    if kind == "paged":
+        check_drained(eng, name)
+    elif min(counts["flash_attention"], counts["decode_attention"]) <= 0:
+        raise AssertionError(f"options {name}: flash and decode_attention must both launch: {counts}")
+    r = {"name": name, "prompts": prompts, "outs": outs, "steps": steps, "wall_s": wall,
+         "counts": counts, "verify_passes": len(passes.calls), "proposed": eng.spec_proposed,
+         "accepted": eng.spec_accepted, "tokens_per_step": eng.tokens_emitted / max(1, steps)}
+    cost = ""
+    if spec:
+        # one more pass of the same work (the gather covers the whole row or
+        # stripe) on the drained engine: a null row, or free slot 0's stripe
+        toks = np.zeros(spec + 1, np.int64)
+        if kind == "paged":
+            null_row = np.zeros(eng._row_width, np.int32)
+            one = lambda: eng._verify(toks, null_row, OPT_PROMPT)  # noqa: E731
+        else:
+            one = lambda: eng._verify(0, toks, OPT_PROMPT)  # noqa: E731
+        served = statistics.median(dt for _, _, dt in passes.calls) * 1e3
+        ops, dms = device_ops(one, 5), device_ms(one, 5)
+        cost = (f"; a verify pass {served:.3f} ms on the host clock (median of the served ones, "
+                f"synchronized), {ops:g} device operations, device time "
+                f"{'not measured' if dms is None else f'{dms:.4f} ms'}")
+        r.update(pass_host_ms=served, pass_ops=ops, pass_device_ms=dms)
+    log(f"  {name}: 8 requests, 0 failed, {wall:.3f} s, {steps} steps, "
+        f"{r['tokens_per_step']:.4f} tokens per step, {r['verify_passes']} verify passes "
+        f"({want} rmsnorm, 0 decode launches each), accepted / proposed {eng.spec_accepted} / "
+        f"{eng.spec_proposed}{cost}; launches {counts}")
+    return r
+
+
+def prefix_run(torch, cfg, params, dev, cache_on: bool, chunk: int):
+    """4 conversations of 3 turns: a shared 64-token system prefix and 32
+    tokens of each conversation's own, then each turn the previous prompt,
+    its 16-token answer and 16 new tokens; all four conversations' turns
+    submitted together to a paged engine (16-token pages)."""
+    import numpy as np
+
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    def ids(seed, n):
+        return [int(t) for t in np.random.default_rng(seed).integers(1, cfg.vocab_size, n)]
+
+    system = ids(3000, 64)
+
+    def next_turn(turns):
+        if not turns:
+            return [system + ids(3100 + c, 32) for c in range(4)]
+        if len(turns) == 3:
+            return None
+        prompts, seqs = turns[-1]
+        return [p + s.out + ids(3200 + 10 * c + len(turns), 16)
+                for c, (p, s) in enumerate(zip(prompts, seqs))]
+
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=16, num_pages=257, max_slots=4, max_seq_len=256, max_new_tokens=16,
+        chunk_tokens=chunk, prefix_cache=cache_on), params=params, device=dev)
+    eng.prewarm()
+    chunks = CallCounts(eng, "_run_chunk_device")
+    name = f"prefix-{'on' if cache_on else 'off'}-chunk{chunk}"
+    turns, steps, wall, counts = options_loop(torch, eng, name, next_turn)
+    n_write = sum(1 for kind in cfg.block_pattern if kind == "attn") * cfg.n_superblocks
+    offset_writes = [args[2] for args, c, _ in chunks.calls
+                     if args[2] > 0 and c["paged_prefill_write"] == n_write]
+    snap = eng.capacity_now()
+    ttft = [[s.token_times[0] - s.submit_t for s in seqs] for _, seqs in turns]
+    cached = [[s.cached_tokens for s in seqs] for _, seqs in turns]
+    if any(len(s.out) != 16 for _, seqs in turns for s in seqs):
+        raise AssertionError(f"options {name}: a request came back short")
+    if cache_on and snap["prefix_cached_tokens"] <= 0:
+        raise AssertionError(f"options {name}: no prefix-cache hit")
+    check_drained(eng, name)
+    r = {"name": name, "turns": [(p, [s.out for s in seqs]) for p, seqs in turns], "ttft": ttft,
+         "cached": cached, "wall_s": wall, "counts": counts, "offset_writes": offset_writes,
+         "snap": snap, "steps": steps}
+    log(f"  {name}: 12 requests, 0 failed, {wall:.3f} s, {steps} steps, cached tokens per turn "
+        f"{cached}, prefix_cached_tokens {snap.get('prefix_cached_tokens', 0)}, chunk calls at a "
+        f"non-zero offset writing every layer {len(offset_writes)} (offsets {sorted(set(offset_writes))}), "
+        f"median TTFT turn 1 {statistics.median(ttft[0]):.4f} s, turns 2-3 "
+        f"{statistics.median(ttft[1] + ttft[2]):.4f} s; launches {counts}")
+    return r
+
+
+def fork_run(torch, cfg, params, dev):
+    """4 prompts on a paged engine (16-token pages, whole-prompt), stepped
+    until every sequence sits mid-page; two of them forked, then drained:
+    each clone's stream equals its source's."""
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=16, num_pages=257, max_slots=8, max_seq_len=256, max_new_tokens=32,
+        chunk_tokens=0), params=params, device=dev)
+    prompts = [p[:n] for p, n in zip(motif_prompts(cfg.vocab_size), (40, 45, 50, 57))]
+    reset_counts()
+    t0 = time.perf_counter()
+    sids = [eng.submit(p) for p in prompts]
+    for _ in range(40):
+        eng.step()
+        live = [i for i, s in enumerate(eng.slot_seq) if s is not None]
+        if len(live) == 4 and all(eng.slot_len[i] % 16 for i in live):
+            break
+    else:
+        raise AssertionError("fork: the sequences never sat mid-page together")
+    clones = {sid: eng.fork(sid) for sid in sids[:2]}
+    if None in clones.values():
+        raise AssertionError(f"fork returned None: {clones}")
+    done = {}
+    for _ in range(200):
+        done.update({s.sid: s.out for s in eng.step()})
+        if len(done) == 6:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if len(done) != 6:
+        raise AssertionError(f"fork: {len(done)} of 6 sequences finished")
+    for sid, csid in clones.items():
+        if done[csid] != done[sid]:
+            raise AssertionError(f"fork: clone {csid} {done[csid]} != source {sid} {done[sid]}")
+    check_drained(eng, "fork")
+    log(f"  fork: 4 sequences mid-page, 2 forked, 6 drained in {wall:.3f} s; each clone's 32 tokens "
+        f"equal its source's; pages reclaimed; launches {counts}")
+    return {"counts": counts, "wall_s": wall}
+
+
+def phase_options(torch, cfg, params, dev):
+    """Speculative decoding (paged bf16 and int8 pools, dense), the prefix
+    cache (off, on whole-prompt, on chunked) and fork() at FULL width."""
+    spec = {"paged_off": spec_run(torch, cfg, params, dev, "paged", 0),
+            "paged_on": spec_run(torch, cfg, params, dev, "paged", 4),
+            "paged_int8": spec_run(torch, cfg, params, dev, "paged", 4, "int8"),
+            "dense_off": spec_run(torch, cfg, params, dev, "dense", 0),
+            "dense_on": spec_run(torch, cfg, params, dev, "dense", 4)}
+    prefix = {"off": prefix_run(torch, cfg, params, dev, False, 0),
+              "on_chunk0": prefix_run(torch, cfg, params, dev, True, 0),
+              "on_chunk32": prefix_run(torch, cfg, params, dev, True, 32)}
+    if not prefix["on_chunk0"]["offset_writes"]:
+        raise AssertionError("no prefix hit wrote its suffix through paged_prefill_write at an offset")
+    if spec["paged_int8"]["counts"]["paged_prefill_write_quant"] <= 0:
+        raise AssertionError("the int8 spec leg launched no quantizing write")
+    for a, b in (("paged_off", "paged_on"), ("dense_off", "dense_on")):
+        same = sum(x == y for x, y in zip(spec[a]["outs"], spec[b]["outs"]))
+        log(f"  {b} vs {a}: {same} of 8 streams identical; tokens per step "
+            f"{spec[b]['tokens_per_step']:.4f} against {spec[a]['tokens_per_step']:.4f}, wall "
+            f"{spec[b]['wall_s']:.3f} s against {spec[a]['wall_s']:.3f} s")
+    cold, warm = prefix["off"]["ttft"], prefix["on_chunk0"]["ttft"]
+    log(f"  median TTFT of turns 2-3: cache off {statistics.median(cold[1] + cold[2]):.4f} s, "
+        f"on (whole-prompt) {statistics.median(warm[1] + warm[2]):.4f} s, on (chunk 32) "
+        f"{statistics.median(prefix['on_chunk32']['ttft'][1] + prefix['on_chunk32']['ttft'][2]):.4f} s")
+    return {"cfg": cfg, "params": params, "spec": spec, "prefix": prefix,
+            "fork": fork_run(torch, cfg, params, dev)}
+
+
 def xlstm_paged_run(torch, cfg, params, dev, chunk_tokens: int):
     """A FULL xLSTM paged engine under an EngineLoop serving the pools
     phase's 8 prompts of 120-200 tokens, 16-token pages; every prefill or
@@ -1498,6 +1766,19 @@ class Parity:
         every served token but the last, one per served token."""
         return model.logits(params, model.hidden(params, [prompt + out[:-1]]))[0, len(prompt) - 1:]
 
+    def batch_rows(self, model, params, prompts, outs):
+        """``rows`` for many streams, those of equal prompt and output
+        lengths in one forward. Returns one (len(out), V) tensor a stream."""
+        res, groups = [None] * len(prompts), {}
+        for i, (p, o) in enumerate(zip(prompts, outs)):
+            groups.setdefault((len(p), len(o)), []).append(i)
+        for (lp, _), idx in groups.items():
+            h = model.hidden(params, [prompts[i] + outs[i][:-1] for i in idx])
+            lg = model.logits(params, h[:, lp - 1:])
+            for k, i in enumerate(idx):
+                res[i] = lg[k]
+        return res
+
     def forced(self, model, p32, name, rid, prompt, out, bound=True):
         self.check(name, rid, self.rows(model, p32, prompt, out), out, bound)
 
@@ -1531,6 +1812,66 @@ def parity_smollm(torch, par, legs, launcher, pools):
             prompt, out = run["prompts"][i], run["outs"][i]
             par.check("smollm pools int8", i,
                       teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
+
+
+def first_divergence(label: str, a_outs, b_outs, rows) -> None:
+    """Log, per stream, the first step where two streams of one context
+    part and the CPU f32 lead of the first stream's token over the other's
+    there (``rows``: the first stream's teacher-forced CPU rows)."""
+    same = 0
+    for i, (a, b) in enumerate(zip(a_outs, b_outs)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            same += 1
+            continue
+        lead = float(rows[i][j][a[j]] - rows[i][j][b[j]])
+        log(f"  divergence {label} stream {i}: step {j}, {a[j]} against {b[j]}, CPU f32 lead "
+            f"of the first {lead:.4f}")
+    log(f"  {label}: {same} of {len(a_outs)} streams identical")
+
+
+def parity_options(torch, par, opts):
+    """Every spec-on and warm stream of the options phase against the CPU f32
+    forward (the int8 spec leg through a paged int8 pool, step by step),
+    held to FLIP_BOUND; then the first divergence of spec on from spec off
+    and of warm from cold, with the CPU's lead at that step."""
+    from repro_torch.models import get_model
+
+    cfg32 = par.f32(opts["cfg"])
+    p32 = par.to_cpu(opts["params"])
+    model = get_model(cfg32)
+    spec, prefix = opts["spec"], opts["prefix"]
+    rows = {}
+    with torch.no_grad():
+        for key in ("paged_on", "dense_on"):
+            r = spec[key]
+            rows[key] = par.batch_rows(model, p32, r["prompts"], r["outs"])
+            for i, out in enumerate(r["outs"]):
+                par.check(f"smollm-options {r['name']}", i, rows[key][i], out)
+        r = spec["paged_int8"]
+        cfg8 = cfg32.replace(kv_quant=True)
+        for i, (prompt, out) in enumerate(zip(r["prompts"], r["outs"])):
+            par.check(f"smollm-options {r['name']}", i,
+                      teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
+        for key in ("on_chunk0", "on_chunk32"):
+            r = prefix[key]
+            for t, (prompts, outs) in enumerate(r["turns"]):
+                trows = par.batch_rows(model, p32, prompts, outs)
+                rows[key, t] = trows
+                for c, out in enumerate(outs):
+                    par.check(f"smollm-options {r['name']}", f"c{c}t{t}", trows[c], out)
+    for on, off in (("paged_on", "paged_off"), ("dense_on", "dense_off")):
+        first_divergence(f"{spec[on]['name']} vs {spec[off]['name']}", spec[on]["outs"],
+                         spec[off]["outs"], rows[on])
+    for t, ((wp, wo), (cp, co)) in enumerate(zip(prefix["on_chunk0"]["turns"], prefix["off"]["turns"])):
+        idx = [c for c in range(len(wp)) if wp[c] == cp[c]]
+        first_divergence(f"warm vs cold turn {t + 1} (conversations {idx}, same prompts)",
+                         [wo[c] for c in idx], [co[c] for c in idx],
+                         [rows["on_chunk0", t][c] for c in idx])
+    r = spec["paged_on"]
+    log(f"  spec accepted / proposed: paged {r['accepted']} / {r['proposed']}, int8 "
+        f"{spec['paged_int8']['accepted']} / {spec['paged_int8']['proposed']}, dense "
+        f"{spec['dense_on']['accepted']} / {spec['dense_on']['proposed']}")
 
 
 def parity_xlstm(torch, par, xlstm):
@@ -1615,11 +1956,11 @@ def main() -> int:
             raise AssertionError(f"the bf16 {name} kernel issues no tensor-core instruction: {hmma}")
 
     # 3. kernels
-    log("phase 3 kernels:")
+    log(f"phase 3 kernels: [at {time.perf_counter() - T_START:.1f} s]")
     rows = phase_kernels(torch, dev)
 
     # 4. serve
-    log("phase 4 serve: smollm-360m FULL bf16, 24 requests through StraightLineRouter")
+    log(f"phase 4 serve: smollm-360m FULL bf16, 24 requests through StraightLineRouter [at {time.perf_counter() - T_START:.1f} s]")
     chunked, c_counts = serve_leg(torch, 32, None)
     whole, w_counts = serve_leg(torch, 0, chunked["params"])
     for name in ("rmsnorm", "paged_prefill_write", "paged_attention[flat]"):
@@ -1637,7 +1978,7 @@ def main() -> int:
         chunked_write_ops(torch, chunked["cfg"], chunked["params"], dev))
 
     # 5. launcher
-    log("phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines")
+    log(f"phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines [at {time.perf_counter() - T_START:.1f} s]")
     dense_step(torch, chunked["cfg"], chunked["params"], dev)
     l_chunk, lc_counts = launcher_leg(torch, 32, chunked["params"])
     l_whole, lw_counts = launcher_leg(torch, 0, chunked["params"])
@@ -1645,25 +1986,35 @@ def main() -> int:
         raise AssertionError("flash_attention was not launched by the whole-prompt launcher")
 
     # 6. compact pools
-    log("phase 6 pools: FULL bf16 paged engine, int8 pool and chained tables, prompts of 120-200 tokens")
+    log(f"phase 6 pools: FULL bf16 paged engine, int8 pool and chained tables, prompts of 120-200 tokens [at {time.perf_counter() - T_START:.1f} s]")
     pools = phase_pools(torch, chunked["cfg"], chunked["params"], dev)
 
-    # 7. xlstm
-    log("phase 7 xlstm: xlstm-350m FULL bf16, the launcher's 32 requests and 8 long prompts on a paged engine")
+    # 7. options
+    log(f"phase 7 options: FULL bf16 engines with spec_tokens, the prefix cache and fork() [at {time.perf_counter() - T_START:.1f} s]")
+    opts = phase_options(torch, chunked["cfg"], chunked["params"], dev)
+
+    # 8. xlstm
+    log(f"phase 8 xlstm: xlstm-350m FULL bf16, the launcher's 32 requests and 8 long prompts on a paged engine [at {time.perf_counter() - T_START:.1f} s]")
     xlstm = phase_xlstm(torch, dev)
 
-    # 8. parity
-    log("phase 8 parity: teacher-forced CPU f32 plain paths on the same weights")
+    # 9. parity
+    log(f"phase 9 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    t_parity = time.perf_counter()
     par = Parity(torch)
     parity_smollm(torch, par, [chunked, whole], [l_chunk, l_whole], pools)
+    parity_options(torch, par, opts)
     parity_xlstm(torch, par, xlstm)
     par.report()
+    t_summary = time.perf_counter()
 
-    # 9. summary
+    # 10. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
-            "pools_bf16_chained": pools["bf16_chained"]["counts"], **xlstm["counts"]}
+            "pools_bf16_chained": pools["bf16_chained"]["counts"],
+            **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
+            **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
+            "options_fork": opts["fork"]["counts"], **xlstm["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
@@ -1679,7 +2030,7 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
-    log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s")
+    log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

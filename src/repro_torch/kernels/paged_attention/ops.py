@@ -13,8 +13,9 @@ combines the splits in a fixed order; the call counts one launch. The
 prefill writes take a chunk's offset as a page count that the kernel
 resolves (``write_page_ids``), so a chunked write is one device operation,
 on a grid from ``plan_write_grid``.
-``paged_gather_context`` is plain PyTorch on every device, as its JAX twin
-is plain jnp."""
+``paged_gather_context`` and the speculative verify writes
+(``paged_verify_write``, ``paged_verify_write_quant``) are plain PyTorch on
+every device, as their JAX twins are plain jnp."""
 from __future__ import annotations
 
 import ctypes
@@ -28,6 +29,8 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref,
     paged_prefill_write_quant_ref,
     paged_prefill_write_ref,
+    paged_verify_write_quant_ref,
+    paged_verify_write_ref,
 )
 from repro_torch.models.quant import dequantize_kv
 
@@ -185,6 +188,26 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
 
 
 paged_prefill_write_quant.launches = 0
+
+
+def paged_verify_write(pool_k, pool_v, k, v, tab_row, offset):
+    """Scatter a speculative verify stripe's K/V (1, S, KV, hd) through a
+    block-table row at an arbitrary (mid-page) token offset, IN PLACE: the
+    write side of the verify pass. Plain PyTorch on every device, not a
+    fallback: the reference computes it outside any Pallas kernel, as a jnp
+    scatter of k + 1 tokens (``paged_verify_write_ref`` holds the rule).
+    Returns (pool_k, pool_v)."""
+    tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)
+    return paged_verify_write_ref(pool_k, pool_v, k, v, tab, offset)
+
+
+def paged_verify_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, offset):
+    """Int8 leg of ``paged_verify_write``: quantize the stripe per (token,
+    head) with ``models/quant.quantize_kv`` and land values and scales
+    through the same per-token page indexing, IN PLACE. Plain PyTorch on
+    every device, as its reference. Returns the four pools."""
+    tab = torch.as_tensor(tab_row, dtype=torch.int32, device=pool_k.device)
+    return paged_verify_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab, offset)
 
 
 def paged_gather_context(pool_k, pool_v, tab_row, pool_ks=None, pool_vs=None):

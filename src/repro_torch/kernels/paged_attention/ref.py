@@ -56,6 +56,44 @@ def paged_attention_ref(q, pool_k, pool_v, block_tab, lengths, softcap: float = 
     return decode_attention_ref(q, k, v, lengths, softcap=softcap)
 
 
+def paged_verify_write_ref(pool_k, pool_v, k, v, tab_row, offset):
+    """Scatter a short verify stripe's K/V (1, S, KV, hd) through a
+    block-table row (P,) at an ARBITRARY token offset, IN PLACE: token t
+    lands at absolute position offset + t, in page ``tab_row[(offset + t) //
+    ps]``, slot ``(offset + t) % ps``. A page index at or past P goes to the
+    null page 0 (JAX clamps the gather; the explicit guard keeps torch from
+    raising on the CPU or writing out of bounds on the card). A page id
+    outside the pool goes to page 0 too, where JAX drops the scatter: page 0
+    is never read as data, and no mask means no host sync on the card.
+    Returns (pool_k, pool_v)."""
+    num_pages, KV, ps, hd = pool_k.shape
+    S = k.shape[1]
+    dev = pool_k.device
+    tab = tab_row.to(device=dev, dtype=torch.long)
+    P = tab.shape[0]
+    t = int(offset) + torch.arange(S, device=dev)
+    page_idx = t // ps
+    pages = tab[page_idx.clamp(0, P - 1)]
+    pages = torch.where((page_idx < P) & (pages >= 0) & (pages < num_pages), pages,
+                        torch.zeros_like(pages))
+    kvh = torch.arange(KV, device=dev)
+    at = (pages[:, None], kvh[None, :], (t % ps)[:, None])
+    pool_k.index_put_(at, k[0].to(pool_k.dtype))
+    pool_v.index_put_(at, v[0].to(pool_v.dtype))
+    return pool_k, pool_v
+
+
+def paged_verify_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, offset):
+    """Int8 leg of the verify scatter: quantize the stripe per (token, head),
+    then land values and scales through the same per-token page indexing,
+    IN PLACE. Returns the four pools."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    paged_verify_write_ref(pool_k, pool_v, kq, vq, tab_row, offset)
+    paged_verify_write_ref(pool_ks, pool_vs, ks, vs, tab_row, offset)
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
 def paged_prefill_write_ref(pool_k, pool_v, k, v, tab_row):
     """Scatter one prompt's (or chunk's) K/V (1, Lp, KV, hd) through its
     block-table row (P,) into the pools IN PLACE: token t lands in page

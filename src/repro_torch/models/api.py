@@ -1,6 +1,5 @@
 """Model API the serving engines talk to (the torch twin of
-``repro/models/api.py``, decoder-LM dense and paged paths; the speculative
-``verify`` passes are not ported yet, ROADMAP Queue 1 item 3).
+``repro/models/api.py``, decoder-LM dense and paged paths).
 
     model = get_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
@@ -9,6 +8,8 @@
     pool = model.init_paged_cache(num_pages, page_size, device, batch)
     tok, pool = model.prefill_paged(params, batch, pool)
     tok, cache = model.decode(params, cache, batch)          # either layout
+    toks, cache = model.verify(params, batch, cache)         # speculative, one slot's view
+    toks, pool = model.verify_paged(params, batch, pool)
 
 Batches hold tensors on the model's device, or host values the functions
 move there. Caches and page pools are updated in place.
@@ -23,7 +24,7 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, init_tree
-from repro_torch.models.loss import logits, next_tokens
+from repro_torch.models.loss import logits, next_tokens, next_tokens_all
 from repro_torch.models.rotary import positions_for
 
 
@@ -185,6 +186,45 @@ class DecoderLM:
             self.cfg, params, tokens, positions_for(B, S, offset, device=dev), mode="prefill",
             cache=cache, cache_index=cidx, n_valid=n_valid, chunk_state=chunk_state)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
+
+    def verify(self, params, batch: Mapping, cache):
+        """Dense speculative verify of ONE slot's stripe (B = 1).
+
+        batch: tokens (1, S), the slot's pending last token then k proposal
+        tokens; offset, tokens already in the stripe (any position: dense
+        stripes need no alignment). All S tokens' K/V are written IN PLACE
+        at ``offset`` (a verify step is a chunk: ``ChunkPrefillIndex``) and
+        the greedy next token is read at every position. Attention-only
+        decoders (the engines enforce it). Returns (tokens (1, S), cache)."""
+        dev = params["embedding"].device
+        tokens = _tokens(batch["tokens"], dev)
+        B, S = tokens.shape
+        if B != 1:
+            raise ValueError("verify runs ONE slot's stripe; B must be 1")
+        offset = int(batch["offset"])
+        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
+                              mode="prefill", cache=cache,
+                              cache_index=attn_mod.ChunkPrefillIndex(offset))
+        return next_tokens_all(self.cfg, params, h), cache
+
+    def verify_paged(self, params, batch: Mapping, cache):
+        """Paged speculative verify of ONE sequence (B = 1): as ``verify``,
+        against the shared page pool; batch also carries tab_row (P,), the
+        sequence's full block-table row. The S tokens scatter through the
+        row at a mid-page offset (``PagedVerifyIndex``) and attend over the
+        gathered context by absolute position. Returns (tokens (1, S),
+        cache)."""
+        dev = params["embedding"].device
+        tokens = _tokens(batch["tokens"], dev)
+        B, S = tokens.shape
+        if B != 1:
+            raise ValueError("verify_paged scatters through ONE block-table row; B must be 1")
+        offset = int(batch["offset"])
+        vidx = attn_mod.PagedVerifyIndex(
+            tab_row=torch.as_tensor(batch["tab_row"], dtype=torch.int32, device=dev), offset=offset)
+        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
+                              mode="prefill", cache=cache, cache_index=vidx)
+        return next_tokens_all(self.cfg, params, h), cache
 
     def decode(self, params, cache, batch: Mapping):
         """One batched decode step. Paged (batch has ``block_tab``): token

@@ -149,6 +149,18 @@ class PagedChunkPrefillIndex(NamedTuple):
     offset: int
 
 
+class PagedVerifyIndex(NamedTuple):
+    """Speculative verify pass over one paged sequence: verify token t (the
+    pending last token, then the proposal) scatters to absolute position
+    offset + t through the row at an ARBITRARY (mid-page) offset, and the
+    queries attend over the gathered context view masked by absolute
+    position, as a prefill chunk does. Rejected positions stay in the pool
+    as garbage until the engine rolls its write-head back."""
+
+    tab_row: torch.Tensor
+    offset: int
+
+
 def paged_kv_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int) -> dict:
     """Shapes and dtypes of one attention layer's shared page pool; with
     ``cfg.kv_quant`` int8 values plus a bf16 scale per (page slot, head).
@@ -366,6 +378,21 @@ def self_attention(
         from repro_torch.kernels.paged_attention import ops as pa_ops
 
         paged_write_prompt(cfg, cache, k, v, cache_index.tab_row, offset=cache_index.offset)
+        ck, cv = pa_ops.paged_gather_context(cache["k"], cache["v"], cache_index.tab_row,
+                                             pool_ks=cache.get("k_scale"),
+                                             pool_vs=cache.get("v_scale"))
+        o = context_attention(cfg, q, ck.to(x.dtype), cv.to(x.dtype), positions)
+    elif mode == "prefill" and isinstance(cache_index, PagedVerifyIndex):
+        # speculative verify: scatter the k + 1 verify tokens at a mid-page
+        # offset, then attend over the gathered context by absolute position
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+
+        if "k_scale" in cache:
+            pa_ops.paged_verify_write_quant(cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                                            k, v, cache_index.tab_row, cache_index.offset)
+        else:
+            pa_ops.paged_verify_write(cache["k"], cache["v"], k, v, cache_index.tab_row,
+                                      cache_index.offset)
         ck, cv = pa_ops.paged_gather_context(cache["k"], cache["v"], cache_index.tab_row,
                                              pool_ks=cache.get("k_scale"),
                                              pool_vs=cache.get("v_scale"))

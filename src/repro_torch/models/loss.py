@@ -28,6 +28,13 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(is_max, idx, torch.full_like(idx, V)).amin(dim=-1).to(torch.int32)
 
 
+def next_tokens_all(cfg: ModelConfig, params: Mapping, hidden: torch.Tensor) -> torch.Tensor:
+    """Greedy next-token ids at EVERY position, (B, S, d) -> (B, S) int32:
+    the speculative verify pass reads the greedy continuation after each of
+    its positions in one shot."""
+    return first_argmax(logits(cfg, params, hidden))
+
+
 def next_tokens(cfg: ModelConfig, params: Mapping, hidden_last: torch.Tensor) -> torch.Tensor:
     """Greedy next-token ids from final hidden states (B, 1|S, d) -> (B,)."""
     return first_argmax(logits(cfg, params, hidden_last[:, -1, :]))

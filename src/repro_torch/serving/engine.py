@@ -24,14 +24,22 @@ docstring for the full contracts, which hold here unchanged):
 * with ``chunk_tokens > 0`` admission only reserves capacity and a slot;
   each ``step()`` shares one token budget between the decode batch and
   prefill chunks (PREFILLING slots, FIFO, one chunk always);
+* ``spec_tokens > 0`` (both engines, attention-only decoders): n-gram
+  (prompt-lookup) speculative decoding; each slot with a proposal runs one
+  verify pass of k + 1 positions and keeps the longest run that equals the
+  greedy chain, so the stream is the greedy stream;
+* ``prefix_cache`` (paged engine, attention-only decoders): finished
+  sequences retire their full pages into a radix tree
+  (serving/prefix_cache.py), admission matches every context against it and
+  prefills only the unmatched suffix, and cold cached pages are evicted
+  before any live sequence is preempted;
+* ``fork()`` (paged engine) clones a running sequence: full pages shared by
+  reference count, the trailing partial page copied on the device;
 * one reentrant ``lock`` covers every state-mutating entry point; the
   capacity probes are lock-free snapshots.
 
 Where the JAX engines jit their steps and donate the cache buffers, these
-run eagerly and update the preallocated caches in place. Options this port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP Queue 1
-item: speculative decoding (``spec_tokens``) and the prefix cache at
-construction, ``fork()`` when called.
+run eagerly and update the preallocated caches in place.
 """
 from __future__ import annotations
 
@@ -50,17 +58,13 @@ from repro_torch.serving.paging import (
     NULL_PAGE,
     BlockAllocator,
     ChainedTables,
+    OutOfPages,
     PageTable,
     bucket_lengths,
     bucket_tokens,
     num_buckets,
 )
-
-_ROADMAP_ITEM = {"spec_tokens": 3, "prefix_cache": 4, "fork()": 5}
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 item {_ROADMAP_ITEM[name]})")
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 def _apply_cache_dtype(cfg, choice: str):
@@ -101,7 +105,8 @@ class Sequence:
     out: List[int] = field(default_factory=list)
     done: bool = False
     preemptions: int = 0
-    cached_tokens: int = 0      # prefix-cache hits: always 0 until it is ported
+    cached_tokens: int = 0      # context tokens served from the prefix cache at the
+                                # latest admission (re-validated on every resume)
     submit_t: float = 0.0
     token_times: List[float] = field(default_factory=list)
     trace: Optional[object] = field(default=None, repr=False, compare=False)
@@ -114,6 +119,26 @@ class Sequence:
     def lane(self) -> str:
         """Trace lane for this sequence's engine-side spans."""
         return f"engine-sid{self.sid}"
+
+
+def _attention_only(cfg) -> bool:
+    return getattr(cfg, "encoder", None) is None and all(k == "attn" for k in cfg.block_pattern)
+
+
+def copy_fork(cfg, cache, src_pages: List[int], dst_pages: List[int], src_slot: int,
+              dst_slot: int) -> None:
+    """The device side of ``fork()``, in place: copy the pages ``src_pages``
+    into ``dst_pages`` in every attention pool leaf (int8 scale pools
+    included), and the source slot's row into the clone's in every
+    recurrent leaf."""
+    for i, kind in enumerate(cfg.block_pattern):
+        for leaf in cache["blocks"][f"l{i}_mixer"].values():
+            if kind != "attn":
+                leaf[:, dst_slot].copy_(leaf[:, src_slot])
+            elif src_pages:
+                src = torch.as_tensor(src_pages, dtype=torch.long, device=leaf.device)
+                dst = torch.as_tensor(dst_pages, dtype=torch.long, device=leaf.device)
+                leaf[:, dst] = leaf[:, src]
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -216,7 +241,10 @@ class _EngineBase:
 
     def _begin_chunked(self, slot: int, seq: Sequence, start: int = 0) -> None:
         """Move ``seq`` into ``slot`` in the PREFILLING state; the chunk
-        phase absorbs its context over the following steps."""
+        phase absorbs its context over the following steps. ``start`` > 0
+        (a prefix-cache hit, page-aligned) begins the cursor at the match
+        boundary: the positions below it sit on pages shared with the tree,
+        which no chunk rewrites."""
         self.slot_seq[slot] = seq
         self.slot_len[slot] = start
         self._chunking[slot] = True
@@ -240,6 +268,9 @@ class _EngineBase:
 
     @property
     def _chunk_unit(self) -> int:
+        """Tokens a chunk absorbs: the chunk size, or the length cap when the
+        chunk machinery runs with chunking off (a prefix-cache admission's
+        whole unmatched suffix is then one chunk)."""
         return self._chunk_tokens or self._len_cap
 
     def _next_chunk_cost(self, slot: int) -> int:
@@ -342,13 +373,115 @@ class _EngineBase:
             or cache_len >= self._len_cap - 1
         )
 
+    # -- speculative decoding (n-gram / prompt-lookup proposer) -----------------
+    def _resolve_spec(self, cfg, spec_tokens: int) -> int:
+        """The verify pass replays positions statelessly against the cache,
+        which recurrent mixers' per-slot state cannot follow: speculation is
+        attention-only, as in the reference."""
+        if not spec_tokens:
+            return 0
+        if not _attention_only(cfg):
+            raise ValueError(
+                "spec_tokens requires an attention-only decoder: the verify "
+                "pass replays positions statelessly, which recurrent mixers "
+                "(mamba/xlstm) and enc-dec models cannot"
+            )
+        return spec_tokens
+
     def _init_spec(self) -> None:
-        """Throughput accounting read by ``capacity_now()`` and EngineLoop
-        (speculation itself is not ported: its counters stay 0)."""
+        """Speculation and throughput accounting, read lock-free by
+        ``capacity_now()`` and drained per step by EngineLoop:
+        ``tokens_emitted`` counts every emitted token, ``spec_runs`` this
+        step's accepted-run lengths, ``spec_proposed`` / ``spec_accepted``
+        the lifetime totals."""
         self.tokens_emitted = 0
         self.spec_runs: List[int] = []
         self.spec_proposed = 0
         self.spec_accepted = 0
+
+    def _propose(self, seq: Sequence) -> Optional[List[int]]:
+        """Prompt-lookup proposal: match the context's last ``spec_ngram``
+        tokens against their most recent earlier occurrence and propose the
+        continuation, padded to ``spec_tokens`` with 0s (acceptance keeps
+        only tokens equal to the greedy choice). Deterministic in the
+        context alone, so a resumed sequence re-proposes identically. None
+        when nothing matches: the slot takes the plain decode this step."""
+        k, n = self._spec_tokens, self._spec_ngram
+        ctx = seq.context_tokens()
+        L = len(ctx)
+        if L < n + 1:
+            return None
+        tail = ctx[-n:]
+        for i in range(L - n - 1, -1, -1):
+            if ctx[i : i + n] == tail:
+                cont = ctx[i + n : i + n + k]
+                return cont + [0] * (k - len(cont))
+        return None
+
+    def _accept_verified(self, slot: int, seq: Sequence, proposal: List[int], toks, k_eff: int):
+        """Accept the longest matching run of a verify pass and advance the
+        slot's write-head. ``toks[j]`` is the greedy token after verify
+        position offset + j (position 0 re-ran the pending token): emit
+        tokens up to the first proposal mismatch, at least one and at most
+        k_eff + 1, applying the stop conditions per token. The last emitted
+        token becomes the pending ``_last``, not yet in cache, as after a
+        batched decode. Returns (m tokens emitted, stop hit)."""
+        L0 = int(self.slot_len[slot])
+        m = 0
+        done = False
+        tok_t = time.monotonic()          # one stamp per verify pass
+        while True:
+            tok = int(toks[m])
+            m += 1
+            seq.out.append(tok)
+            seq.token_times.append(tok_t)
+            self._last[slot] = tok
+            self.tokens_emitted += 1
+            if self._stop_hit(seq, tok, L0 + m):
+                done = True
+                break
+            if m > k_eff or proposal[m - 1] != tok:
+                break
+        self.slot_len[slot] = L0 + m
+        accepted = m - 1
+        self.spec_proposed += k_eff
+        self.spec_accepted += accepted
+        self.spec_runs.append(accepted)
+        if seq.trace is not None:
+            seq.trace.event("spec_accept" if accepted else "spec_reject", lane=seq.lane,
+                            slot=slot, proposed=k_eff, accepted=accepted)
+        return m, done
+
+    def _speculate(self, active: List[int], spent: int, budget: int, verify):
+        """One verify pass per decoding slot with a proposal and budget
+        headroom, replacing that slot's plain decode token this step.
+        ``verify(slot, seq, L, k_eff, proposal)`` runs the pass (the paged
+        engine also reserves and trims the pages it writes) and returns (m,
+        done). Returns (speculated slots, spent)."""
+        sped: List[int] = []
+        for slot in active:
+            seq = self.slot_seq[slot]
+            L = int(self.slot_len[slot])
+            k_eff = min(self._spec_tokens, self._len_cap - 1 - L)
+            if k_eff < 1 or spent + k_eff > budget:
+                continue
+            proposal = self._propose(seq)
+            if proposal is None:
+                continue
+            res = verify(slot, seq, L, k_eff, proposal)
+            if res is None:
+                continue                      # no pages for the verify window
+            spent += k_eff
+            sped.append(slot)
+            if res[1]:
+                seq.done = True
+                self._just_finished.append(seq)
+                self._release_slot(slot)
+        return sped, spent
+
+    def _verify_tokens(self, slot: int, proposal: List[int], k_eff: int):
+        """The k_eff + 1 verify tokens: the pending token, then the proposal."""
+        return np.asarray([int(self._last[slot])] + proposal[:k_eff], np.int64)
 
     def generate(self, prompts: List[List[int]], max_steps: int = 10000) -> List[Sequence]:
         """Synchronous convenience: runs until all prompts finish while
@@ -375,8 +508,9 @@ class EngineConfig:
     chunk_tokens: int = 0       # >0: chunked prefill, tokens per chunk (snapped
                                 # to a bucket_unit multiple; must divide max_len)
     step_token_budget: int = 0  # 0 = auto: 2*chunk_tokens chunked, max_len not
-    spec_tokens: int = 0        # not ported yet
-    spec_ngram: int = 3
+    spec_tokens: int = 0        # >0: n-gram speculative decoding, proposal tokens
+                                # per slot per step (attention-only decoders)
+    spec_ngram: int = 3         # prompt-lookup match length for the proposer
     cache_dtype: str = ""       # "" inherit | "f32" | "bf16" | "int8"
 
 
@@ -395,8 +529,6 @@ class InferenceEngine(_EngineBase):
     hide."""
 
     def __init__(self, cfg, ecfg: EngineConfig, params=None, seed: int = 0, device=None):
-        if ecfg.spec_tokens:
-            raise _not_ported("spec_tokens")
         cfg = _apply_cache_dtype(cfg, ecfg.cache_dtype)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -409,7 +541,8 @@ class InferenceEngine(_EngineBase):
         self._bucket_unit, self._bucket_on = ecfg.bucket_unit, ecfg.bucket_prefill
         self._chunk_tokens = self._resolve_chunking(ecfg.chunk_tokens, ecfg.bucket_unit,
                                                     ecfg.max_len, require_divisible=True)
-        self._spec_tokens = 0
+        self._spec_tokens = self._resolve_spec(cfg, ecfg.spec_tokens)
+        self._spec_ngram = max(1, ecfg.spec_ngram)
         self._init_spec()
         self._step_budget = ecfg.step_token_budget
         self._prefill_shapes = set()
@@ -450,6 +583,14 @@ class InferenceEngine(_EngineBase):
         nxt, _, self._chunk_carry[slot] = self.model.prefill_chunk(
             self.params, batch, self._slot_view(slot), self._chunk_carry[slot])
         return nxt[0]
+
+    def _verify(self, slot: int, toks, offset: int) -> np.ndarray:
+        """Speculative verify through the slot's stripe: the k + 1 tokens
+        written at ``offset`` (any position; the caller keeps offset + k + 1
+        within ``max_len``), the greedy token read at every position."""
+        batch = {"tokens": self._tensor(toks, torch.long)[None, :], "offset": offset}
+        out, _ = self.model.verify(self.params, batch, self._slot_view(slot))
+        return out[0].cpu().numpy()
 
     def _decode(self) -> np.ndarray:
         """One decode step for every slot; per-slot lengths drive the cache
@@ -551,11 +692,23 @@ class InferenceEngine(_EngineBase):
                 self._release_slot(i)
         return spent
 
+    def _spec_phase(self, active: List[int], spent: int, budget: int):
+        """Speculate at the decode frontier. Rollback is the write-head
+        alone: rejected stripe positions are hidden by the length masks and
+        overwritten by the next write there."""
+        def verify(slot, seq, L, k_eff, proposal):
+            toks = self._verify(slot, self._verify_tokens(slot, proposal, k_eff), L)
+            return self._accept_verified(slot, seq, proposal, toks, k_eff)
+
+        return self._speculate(active, spent, budget, verify)
+
     def step(self) -> List[Sequence]:
-        """Admit (budget-gated) + chunk work + one decode step; returns the
-        sequences finished. The batched decode sweeps every slot: PREFILLING
-        slots' writes land on the chunk cursor (rewritten by the next chunk),
-        idle slots' at position 0 of their stripe."""
+        """Admit (budget-gated) + chunk work + speculation + one decode step;
+        returns the sequences finished. The batched decode sweeps every slot:
+        PREFILLING slots' writes land on the chunk cursor (rewritten by the
+        next chunk), idle slots' at position 0 of their stripe, speculated
+        slots' at their new write-head (the same token the next step writes
+        there)."""
         with self.lock:
             budget = self.step_budget
             self.spec_runs = []
@@ -570,6 +723,9 @@ class InferenceEngine(_EngineBase):
                 i for i in range(self.ecfg.max_slots)
                 if self.slot_seq[i] is not None and not self._chunking[i]
             ]
+            if self._spec_tokens and active:
+                sped, spent = self._spec_phase(active, spent, budget)
+                active = [i for i in active if i not in set(sped)]
             finished, self._just_finished = self._just_finished, []
             if active:
                 nxt = self._decode()
@@ -599,8 +755,11 @@ class PagedEngineConfig:
     bucket_prefill: bool = True  # pad prefill to power-of-two page buckets
     chunk_tokens: int = 0        # >0: chunked prefill, tokens per chunk
     step_token_budget: int = 0   # 0 = auto: 2*chunk_tokens chunked, cap not
-    prefix_cache: bool = False   # not ported yet
-    spec_tokens: int = 0         # not ported yet
+    prefix_cache: bool = False   # cross-request prefix cache (attention-only decoders):
+                                 # finished sequences retire their pages into a
+                                 # radix tree, admissions skip cached prefixes
+    spec_tokens: int = 0         # >0: n-gram speculative decoding (attention-only)
+    spec_ngram: int = 3          # prompt-lookup match length for the proposer
     cache_dtype: str = ""        # "" inherit | "f32" | "bf16" | "int8"
     chained_tables: bool = False # two-level block tables: lifts num_pages >= table_width
     table_page_entries: int = 0  # chained: physical pages per second-level row (0 = page_size)
@@ -621,12 +780,18 @@ class PagedInferenceEngine(_EngineBase):
     ``params`` is the port's parameter tree (on ``device``); without it the
     weights are drawn from ``torch.Generator(device).manual_seed(seed)``.
     ``device=None`` means the card; pass ``device="cpu"`` to run the plain
-    versions of the kernels on the CPU."""
+    versions of the kernels on the CPU.
+
+    With the prefix cache on, a slot's release is either RELEASE-TO-CACHE
+    (the sequence finished: its full pages go to the radix tree, only the
+    trailing partial page is freed) or FREE (a preemption: every reference
+    is dropped; pages the tree shares survive under its own reference). A
+    hit attaches the matched pages to the front of the new table, pins the
+    matched tree path and starts the chunk cursor at the match boundary; a
+    preempted hit re-matches on resume. Cold tree leaves are evicted before
+    any live sequence is preempted."""
 
     def __init__(self, cfg, pcfg: PagedEngineConfig, params=None, seed: int = 0, device=None):
-        for name, on in (("spec_tokens", pcfg.spec_tokens), ("prefix_cache", pcfg.prefix_cache)):
-            if on:
-                raise _not_ported(name)
         cfg = _apply_cache_dtype(cfg, pcfg.cache_dtype)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -638,6 +803,11 @@ class PagedInferenceEngine(_EngineBase):
                 f"num_pages={pcfg.num_pages} cannot hold one max_seq_len={pcfg.max_seq_len} "
                 f"sequence ({pcfg.table_width} pages + reserved null page)"
             )
+        if pcfg.prefix_cache and not _attention_only(cfg):
+            raise ValueError(
+                "prefix_cache requires an attention-only decoder: recurrent "
+                "mixers carry per-slot state that cached pages cannot restore"
+            )
         self.model = get_model(cfg)
         if params is None:
             params = self.model.init(torch.Generator(self.device).manual_seed(seed))
@@ -648,7 +818,8 @@ class PagedInferenceEngine(_EngineBase):
         self._bucket_unit, self._bucket_on = pcfg.page_size, pcfg.bucket_prefill
         self._chunk_tokens = self._resolve_chunking(pcfg.chunk_tokens, pcfg.page_size,
                                                     self._len_cap, require_divisible=False)
-        self._spec_tokens = 0
+        self._spec_tokens = self._resolve_spec(cfg, pcfg.spec_tokens)
+        self._spec_ngram = max(1, pcfg.spec_ngram)
         self._init_spec()
         self._step_budget = pcfg.step_token_budget
         self._prefill_shapes = set()
@@ -659,7 +830,8 @@ class PagedInferenceEngine(_EngineBase):
             # a sequence holds at most min(table_width, num_pages - 1) data
             # pages: the flat row a chain encodes is that many entries
             # rounded up to whole table pages. The flat block_tab is still
-            # kept for the write side; only the batched decode walks the chain.
+            # kept for every write-side path (prefill scatter, context
+            # gather, verify); only the batched decode walks the chain.
             tpp = pcfg.table_page_entries or pcfg.page_size
             max_pages = min(pcfg.table_width, pcfg.num_pages - 1)
             self.chain: Optional[ChainedTables] = ChainedTables(B, -(-max_pages // tpp), tpp)
@@ -672,7 +844,9 @@ class PagedInferenceEngine(_EngineBase):
             cfg, self.cache, pcfg.num_pages * pcfg.page_size
         )
         self.allocator = BlockAllocator(pcfg.num_pages, pcfg.page_size)
-        self.prefix_cache = None
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, pcfg.page_size) if pcfg.prefix_cache else None)
+        self._cache_nodes: List[Optional[object]] = [None] * B   # pinned tree path per slot
         self.tables: List[Optional[PageTable]] = [None] * B
         self.slot_len = np.zeros(B, np.int32)
         self.slot_seq: List[Optional[Sequence]] = [None] * B
@@ -706,6 +880,15 @@ class PagedInferenceEngine(_EngineBase):
             self.params, batch, self.cache, self._chunk_carry[slot])
         return nxt[0]
 
+    def _verify(self, toks, tab_row, offset: int) -> np.ndarray:
+        """Speculative verify straight against the pool: the k + 1 tokens
+        scatter through the flat row at the (mid-page) write-head, the
+        greedy token is read at every position."""
+        batch = {"tokens": self._tensor(toks, torch.long)[None, :],
+                 "tab_row": self._tensor(tab_row), "offset": offset}
+        out, self.cache = self.model.verify_paged(self.params, batch, self.cache)
+        return out[0].cpu().numpy()
+
     def _decode(self) -> np.ndarray:
         batch = {"token": self._tensor(self._last, torch.long)[:, None],
                  "lengths": self._tensor(self.slot_len)}
@@ -722,8 +905,11 @@ class PagedInferenceEngine(_EngineBase):
         return self.allocator.free_pages
 
     def capacity_now(self) -> Dict[str, int]:
-        """Live capacity snapshot, the keys the StraightLine placer reads."""
-        return {
+        """Live capacity snapshot, the keys the StraightLine placer reads;
+        with the prefix cache on also ``cached_pages``, ``evictable_pages``,
+        ``prefix_hit_rate`` and ``prefix_cached_tokens`` (absent when it is
+        off)."""
+        snap = {
             "free_slots": self.free_slots(),
             "num_slots": self.pcfg.max_slots,
             "free_pages": self.allocator.free_pages,
@@ -744,21 +930,33 @@ class PagedInferenceEngine(_EngineBase):
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
         }
+        pc = self.prefix_cache
+        if pc is not None:
+            snap["cached_pages"] = pc.cached_pages
+            snap["evictable_pages"] = pc.evictable_pages()
+            snap["prefix_hit_rate"] = pc.hit_rate
+            snap["prefix_cached_tokens"] = pc.matched_tokens_total
+        return snap
 
     def admission_capacity(self, est_tokens: int = 0) -> int:
         """How many requests of ~est_tokens context the engine can admit now
-        (page- and slot-bounded)."""
+        (page- and slot-bounded); evictable prefix-cache pages count as
+        free, since admission reclaims them first."""
         est = max(1, est_tokens)
         per_seq = PageTable.pages_needed(est + 1, self.pcfg.page_size)
-        return min(self.free_slots(), self.allocator.free_pages // per_seq)
+        pages = self.allocator.free_pages
+        if self.prefix_cache is not None:
+            pages += self.prefix_cache.evictable_pages()
+        return min(self.free_slots(), pages // per_seq)
 
     # -- public API -------------------------------------------------------------
     def _prewarm_shape(self, Lp: int, slot: int) -> None:
         """Run a prefill at shape ``Lp`` through an all-null block-table row
-        (writes land on the null page); the chunk path when chunking is on."""
+        (writes land on the null page); the chunk path when chunking or the
+        prefix cache is on (every cache admission rides the chunk path)."""
         toks = np.zeros(Lp, np.int64)
         row = np.full(self._row_width, NULL_PAGE, np.int32)
-        if self._chunk_tokens:
+        if self._chunk_tokens or self.prefix_cache is not None:
             batch = {"tokens": self._tensor(toks, torch.long)[None, :], "n_valid": 1,
                      "tab_row": self._tensor(row), "slot": slot, "offset": 0}
             nxt, self.cache, _ = self.model.prefill_chunk_paged(
@@ -817,24 +1015,57 @@ class PagedInferenceEngine(_EngineBase):
         self._stamp_next += 1
         return nxt
 
-    def _release(self, slot: int) -> None:
-        """Tear down a slot and free its pages."""
-        self.tables[slot].release(self.allocator)
+    def _reserve_pages(self, n: int, seq: Optional[Sequence] = None) -> bool:
+        """Make ``n`` pages allocatable, evicting cold prefix-cache leaves
+        (LRU first) before any caller has to preempt. Returns whether
+        ``alloc(n)`` can now succeed."""
+        if self.allocator.can_alloc(n):
+            return True
+        if self.prefix_cache is not None:
+            freed = self.prefix_cache.evict(n - self.allocator.free_pages)
+            if freed and seq is not None and seq.trace is not None:
+                seq.trace.event("prefix_evict", lane=seq.lane, freed_pages=freed, need_pages=n)
+        return self.allocator.can_alloc(n)
+
+    def _release(self, slot: int, to_cache: bool = True) -> None:
+        """Tear down a slot. With the prefix cache on and ``to_cache`` (the
+        sequence finished), its full pages retire into the tree (which
+        adopts them or frees duplicates) and only the partial tail is
+        freed; otherwise every page reference is dropped."""
+        seq = self.slot_seq[slot]
+        table = self.tables[slot]
+        node = self._cache_nodes[slot]
+        self._cache_nodes[slot] = None
+        if node is not None:
+            self.prefix_cache.release(node)   # unpin the matched path
+        if (self.prefix_cache is not None and to_cache
+                and seq is not None and not self._chunking[slot]):
+            toks = seq.context_tokens()[: int(self.slot_len[slot])]
+            n_full = len(toks) // self.pcfg.page_size
+            self.prefix_cache.insert(toks, table.pages[:n_full])
+            self.allocator.free(table.pages[n_full:])    # partial tail only
+            table.pages = []
+            table.num_tokens = 0
+        else:
+            table.release(self.allocator)
         self.tables[slot] = None
         self.slot_seq[slot] = None
         self.slot_len[slot] = 0
         self._sync_row(slot)
         self._stamp[slot] = 0
         # a preempted PREFILLING slot drops its chunk progress: re-admission
-        # restarts the chunked prefill from scratch
+        # restarts the chunked prefill (and re-matches the prefix cache)
         self._clear_chunk_slot(slot)
 
     _release_slot = _release          # shared _chunk_step hook (see _EngineBase)
 
     def _admit(self, spent: int = 0, budget: int = 0) -> int:
         """Budget-gated page-gated admission. Chunked: the full context's
-        pages are reserved up front and the slot enters PREFILLING. Returns
-        the updated spend."""
+        pages are reserved up front and the slot enters PREFILLING. With the
+        prefix cache on, the context is matched first: matched pages go to
+        the front of the table, only the suffix is allocated (evicting cold
+        leaves if need be), and the chunk cursor starts at the match
+        boundary. Returns the updated spend."""
         budget = budget or self.step_budget
         admitted = False
         while self.waiting:
@@ -842,8 +1073,27 @@ class PagedInferenceEngine(_EngineBase):
             if slot is None:
                 break
             seq = self.waiting[0]
-            ctx_len = len(seq.prompt) + len(seq.out)
+            ctx_toks = seq.context_tokens()
+            ctx_len = len(ctx_toks)
             need = PageTable.pages_needed(ctx_len + 1, self.pcfg.page_size)
+            if self.prefix_cache is not None:
+                hit_pages, hit_node, hit_tokens = self.prefix_cache.acquire(ctx_toks)
+                if not self._reserve_pages(need - len(hit_pages), seq):
+                    self.prefix_cache.cancel(hit_pages, hit_node)
+                    break                                # page-gated admission
+                self.waiting.popleft()
+                if seq.trace is not None:
+                    seq.trace.event("prefix_hit" if hit_tokens else "prefix_miss", lane=seq.lane,
+                                    matched_tokens=hit_tokens, ctx_tokens=ctx_len)
+                seq.cached_tokens = hit_tokens
+                table = PageTable(self.pcfg.page_size,
+                                  hit_pages + self.allocator.alloc(need - len(hit_pages)))
+                table.num_tokens = ctx_len
+                self.tables[slot] = table
+                self._sync_row(slot)
+                self._cache_nodes[slot] = hit_node
+                self._begin_chunked(slot, seq, start=hit_tokens)
+                continue
             if not self.allocator.can_alloc(need):
                 break                                    # page-gated admission
             if self._chunk_tokens:
@@ -882,19 +1132,20 @@ class PagedInferenceEngine(_EngineBase):
             seq.trace.event("preempted", lane=seq.lane, slot=victim,
                             n_out=len(seq.out), preemptions=seq.preemptions)
         self.waiting.appendleft(seq)
-        self._release(victim)
+        self._release(victim, to_cache=False)
         active.remove(victim)
         return victim
 
     def _ensure_growth(self, active: List[int]) -> None:
         """Every active slot writes one token at position slot_len this step;
-        allocate the page that position lands in, preempting the newest
-        sequence when the pool is dry."""
+        allocate the page that position lands in. When the pool is dry, cold
+        prefix-cache leaves are evicted first; only then is the newest
+        sequence preempted."""
         for slot in sorted(active, key=lambda i: self._stamp[i]):
             if slot not in active:
                 continue
             while self.tables[slot].capacity_tokens <= self.slot_len[slot]:
-                if not self.allocator.can_alloc(1):
+                if not self._reserve_pages(1, self.slot_seq[slot]):
                     if active == [slot]:
                         raise RuntimeError(
                             "page pool too small to grow the only active sequence; "
@@ -907,11 +1158,42 @@ class PagedInferenceEngine(_EngineBase):
                 self.tables[slot].append_pages(self.allocator.alloc(1))
                 self._sync_row(slot)
 
+    def _spec_phase(self, active: List[int], spent: int, budget: int):
+        """Speculate at the decode frontier. The verify pass writes
+        positions L .. L + k_eff, so their pages are reserved first, through
+        ``_reserve_pages``, which may evict cold cache leaves but never
+        preempts for speculation (a failed reservation leaves the slot to
+        the plain decode). After acceptance every page past max(the count
+        before, the accepted run's) is trimmed: those were allocated for
+        this attempt alone, behind any shared page."""
+        ps = self.pcfg.page_size
+
+        def verify(slot, seq, L, k_eff, proposal):
+            table = self.tables[slot]
+            n0 = len(table.pages)
+            need = PageTable.pages_needed(L + k_eff + 1, ps) - n0
+            if need > 0:
+                if not self._reserve_pages(need, seq):
+                    return None
+                table.append_pages(self.allocator.alloc(need))
+                self._sync_row(slot)
+            toks = self._verify(self._verify_tokens(slot, proposal, k_eff), self.block_tab[slot], L)
+            m, done = self._accept_verified(slot, seq, proposal, toks, k_eff)
+            if table.trim(max(n0, PageTable.pages_needed(L + m, ps)), self.allocator):
+                self._sync_row(slot)
+            table.num_tokens = L + m
+            return m, done
+
+        return self._speculate(active, spent, budget, verify)
+
     def step(self) -> List[Sequence]:
-        """Grow + admit (budget-gated) + chunk work + one batched decode
-        step; returns the sequences finished. The batched decode sweeps every
-        slot: PREFILLING slots' writes land on the chunk cursor's allocated
-        page (rewritten by the next chunk), idle slots' on the null page."""
+        """Grow + admit (budget-gated) + chunk work + speculation + one
+        batched decode step; returns the sequences finished. The batched
+        decode sweeps every slot: PREFILLING slots' writes land on the chunk
+        cursor's allocated page (rewritten by the next chunk), idle slots'
+        on the null page, speculated slots' at their new write-head (the
+        token the next step writes there, or the null page past the
+        table)."""
         with self.lock:
             budget = self.step_budget
             self.spec_runs = []
@@ -922,13 +1204,16 @@ class PagedInferenceEngine(_EngineBase):
                 if s is not None and not self._chunking[i]
             )
             spent = self._admit(spent, budget)
-            if self._chunk_tokens:
+            if self._chunk_tokens or self.prefix_cache is not None:
                 spent = self._run_chunks(spent, budget)
             active = [
                 i for i in range(self.pcfg.max_slots)
                 if self.slot_seq[i] is not None and not self._chunking[i]
             ]
             self.peak_active = max(self.peak_active, len(active))
+            if self._spec_tokens and active:
+                sped, spent = self._spec_phase(active, spent, budget)
+                active = [i for i in active if i not in set(sped)]
             finished, self._just_finished = self._just_finished, []
             if active:
                 nxt = self._decode()
@@ -948,4 +1233,42 @@ class PagedInferenceEngine(_EngineBase):
             return finished
 
     def fork(self, sid: int) -> Optional[int]:
-        raise _not_ported("fork()")
+        """Clone a running sequence: full pages shared by reference count,
+        the trailing partial page copied on the device (``copy_fork``, with
+        the slot's recurrent state), and the clone decodes on independently.
+        A cache-attached source's tree path is pinned once more for the
+        clone. Returns the new sid, or None without a free slot or pages, or
+        while the source is mid-prefill (its recurrent state then rides the
+        off-cache carry)."""
+        with self.lock:
+            src = next((i for i, s in enumerate(self.slot_seq) if s is not None and s.sid == sid),
+                       None)
+            dst = self._free_slot()
+            if src is None or dst is None or self._chunking[src]:
+                return None
+            seq = self.slot_seq[src]
+            src_table = self.tables[src]
+            cow_pages = len(src_table.pages) - src_table.num_tokens // self.pcfg.page_size
+            if not self._reserve_pages(cow_pages, seq):
+                return None
+            try:
+                new_table = src_table.fork(self.allocator)
+            except OutOfPages:
+                return None
+            clone = Sequence(self._sid, list(seq.prompt), out=list(seq.out),
+                             submit_t=time.monotonic(), trace=seq.trace,
+                             cached_tokens=seq.cached_tokens)
+            if self._cache_nodes[src] is not None:
+                self._cache_nodes[dst] = self.prefix_cache.pin(self._cache_nodes[src])
+            self._sid += 1
+            n_full = new_table.num_tokens // self.pcfg.page_size
+            copy_fork(self.cfg, self.cache, src_table.pages[n_full:], new_table.pages[n_full:],
+                      src, dst)
+            self.tables[dst] = new_table
+            self._sync_row(dst)
+            self.slot_seq[dst] = clone
+            self.slot_len[dst] = self.slot_len[src]
+            self._last[dst] = self._last[src]
+            self._stamp[dst] = self._stamp_next
+            self._stamp_next += 1
+            return clone.sid

@@ -257,6 +257,99 @@ def _map(tree, fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_verify_writes_match_the_cpu_call(cuda_device, quant):
+    """Both speculative verify writes (plain PyTorch on every device) on
+    CUDA tensors against the same call on CPU tensors, at offsets inside a
+    page, across pages and past the row's end: bit for bit, the null page
+    included except where several tokens collide on it."""
+    g = torch.Generator().manual_seed(11)
+    NP, KV, ps, hd, S = 9, 5, 16, 64, 5
+    tab = torch.tensor([6, 2, 8, 3], dtype=torch.int32)
+    for offset in (3, 13, 60, 62, 70):
+        k = torch.randn(1, S, KV, hd, generator=g)
+        v = torch.randn(1, S, KV, hd, generator=g)
+        if quant:
+            pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, dtype=torch.int8)
+                     for _ in range(2)]
+            pools += [torch.rand(NP, KV, ps, 1, generator=g).bfloat16() for _ in range(2)]
+            fn = pa_ops.paged_verify_write_quant
+        else:
+            pools = [torch.randn(NP, KV, ps, hd, generator=g) for _ in range(2)]
+            fn = pa_ops.paged_verify_write
+        gpu = [p.to(cuda_device) for p in pools]
+        want = fn(*pools, k, v, tab, offset)
+        got = fn(*gpu, k.to(cuda_device), v.to(cuda_device), tab.to(cuda_device), offset)
+        null_hits = sum((offset + t) // ps >= tab.shape[0] for t in range(S))
+        for a, b in zip(want, got):
+            lo = 1 if null_hits > 1 else 0
+            assert torch.equal(a[lo:], b.cpu()[lo:]), offset
+
+
+@pytest.mark.cuda
+def test_cuda_copy_fork_matches_the_cpu_copy(cuda_device):
+    """fork()'s device copy on an int8 smollm pool and an xLSTM slot state:
+    the card's copy equals the CPU's bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import copy_fork
+
+    g = torch.Generator().manual_seed(12)
+    for arch, quant in (("smollm-360m", True), ("xlstm-350m", False)):
+        cfg = get_config(arch, smoke=True).replace(kv_quant=quant)
+        cache = get_model(cfg).init_paged_cache(9, 8, "cpu", batch=3)
+        for leaves in cache["blocks"].values():
+            for leaf in leaves.values():
+                if leaf.dtype == torch.int8:
+                    leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, dtype=torch.int8))
+                else:
+                    leaf.copy_(torch.randn(leaf.shape, generator=g).to(leaf.dtype))
+        gpu = _map(cache, lambda t: t.to(cuda_device))
+        copy_fork(cfg, cache, [3, 5], [7, 1], 0, 2)
+        copy_fork(cfg, gpu, [3, 5], [7, 1], 0, 2)
+        for key, leaves in cache["blocks"].items():
+            for name, leaf in leaves.items():
+                assert torch.equal(leaf, gpu["blocks"][key][name].cpu()), (arch, key, name)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_with_spec_and_prefix_cache_matches_cpu_engine(cuda_device):
+    """The paged engine on the card with speculation and the prefix cache on
+    (verify passes, prefix hits at a page offset, an int8 pool) against the
+    same engine on the CPU, smollm-360m SMOKE in f32 at a 24-token
+    vocabulary on the same weights: identical greedy streams, proposals
+    accepted, prefixes hit; a flip reports the CPU's top-2 logit gap."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config("smollm-360m", smoke=True).replace(attn_chunk=64, vocab_size=24)
+    model = get_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = _map(cpu_params, lambda t: t.to(cuda_device))
+    system = [(3 * i) % 23 + 1 for i in range(20)]
+    prompts = [system + [1, 2, 3, 1, 2, 3], system + [7, 8, 9, 7, 8], system + [5, 5, 6]]
+    for extra in ({}, {"cache_dtype": "int8"}, {"chunk_tokens": 16}):
+        kw = dict(page_size=8, num_pages=65, max_slots=3, max_seq_len=96, max_new_tokens=24,
+                  spec_tokens=4, prefix_cache=True, **extra)
+        runs = []
+        for params, dev in ((cpu_params, "cpu"), (gpu_params, cuda_device)):
+            eng = PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=params, device=dev)
+            outs = [s.out for s in eng.generate(prompts)] + [s.out for s in eng.generate(prompts)]
+            assert eng.spec_accepted > 0 and eng.capacity_now()["prefix_cached_tokens"] > 0
+            eng.allocator.check_invariants()
+            runs.append(outs)
+        for prompt, a, b in zip(prompts * 2, *runs):
+            if a != b:
+                j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                with torch.no_grad():
+                    row = model.logits(cpu_params, model.hidden(cpu_params, [prompt + a[:j]]))[0, -1]
+                top2 = torch.topk(row, 2).values
+                pytest.fail(f"{extra}: token {j} differs (cpu {a}, card {b}); CPU top-2 gap "
+                            f"{float(top2[0] - top2[1]):.3e}")
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     """A CUDA tensor never falls back to the plain version: an input the
     kernel does not take raises."""

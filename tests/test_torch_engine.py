@@ -126,25 +126,6 @@ def test_engine_loop_concurrent_submitters_match_jax(weights):
     assert t.allocator.free_pages == kw["num_pages"] - 1
 
 
-@pytest.mark.parametrize("option", [{"spec_tokens": 2}, {"prefix_cache": True}],
-                         ids=["spec_tokens", "prefix_cache"])
-def test_unported_engine_options_raise(weights, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedInferenceEngine(weights[1], PagedEngineConfig(**option), params=weights[3],
-                             device="cpu")
-
-
-def test_dense_engine_spec_tokens_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        InferenceEngine(weights[1], EngineConfig(spec_tokens=2), params=weights[3], device="cpu")
-
-
-def test_fork_is_not_ported(weights):
-    eng = PagedInferenceEngine(weights[1], PagedEngineConfig(), params=weights[3], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.fork(0)
-
-
 def test_engine_default_device_is_the_card(weights):
     """``device=None`` means the card; without one it raises instead of
     running on the CPU."""
