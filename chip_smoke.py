@@ -22,7 +22,12 @@ result line:
                 split across blocks,
                 the paged decode's four legs at long rows split across
                 blocks (split boundaries, determinism, chained == flat),
-                flash also at a 2048-token prompt beside SDPA
+                flash also at a 2048-token prompt beside SDPA; then the
+                qkv_bias models' shapes at hd 128 (glm4-9b's G = 16 over 2
+                KV heads, qwen1.5-32b's G = 1 over 40): the dense decode at
+                the launcher's cache beside SDPA, the paged decode's four
+                legs at batch 8 with the pools phase's lengths, flash at
+                (1, 16, 32, 128), rmsnorm at (8, 4096) beside F.rms_norm
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
@@ -63,17 +68,29 @@ result line:
                 time and the device's busy share; then the same weights in
                 f32 on a dense engine at the launcher's shapes and on the
                 paged engine, both prefill modes
-  9. parity   — served requests re-run teacher-forced through the port's
+  9. glm4     — every earlier phase's weights moved to the host; glm4-9b
+                FULL in bf16 (random weights drawn on the card from a seeded
+                generator, standard-normal q/k/v biases): a batch-8 paged
+                decode step (81 rmsnorm and 40 paged decode launches, its
+                time and busy share), a batch-4 dense step (40
+                decode_attention), launch/serve.main(["--arch", "glm4-9b"])
+                with 32 requests, whole-prompt; the pools phase's 8 prompts
+                on a paged engine in 32-token chunks on a bf16 flat pool and
+                whole-prompt on an int8 chained pool, 0 failures; then 4 of
+                the 40 layers at FULL width (other draws) on a dense engine
+                and both paged legs, for the parity phase
+ 10. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights: the
-                whole-sequence forward (phases 4, 7 and 8), the dense cache
-                (phase 5) and the paged int8 pool (phases 6 and 7); every
+                whole-sequence forward (phases 4, 7, 8 and 9), the dense
+                cache (phases 5 and 9) and the paged int8 pool (phases 6, 7
+                and 9); every
                 spec-on and warm stream of phase 7, with the first
                 divergence of spec on from off and of warm from cold and
                 the CPU's lead there. Every flip's
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more)
- 10. summary  — the kernels JSON line, then the result line.
+ 11. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -984,6 +1001,8 @@ def phase_kernels(torch, dev):
         "by_shape": by_shape, "tile_plan": {f"BH {BH}, DH {DH}": tc for BH, tc in plan.items()},
     })
 
+    wide_shapes(torch, dev, g, rows, tab_p)
+
     for r in rows:
         kernel, plain = r.pop("fns")
         r["ms"], r["plain_ms"] = time_ms(kernel), time_ms(plain)
@@ -1019,6 +1038,144 @@ def phase_kernels(torch, dev):
             f"plain {r['plain_ms']:.5f} ms (device {r['plain_device_ms']}), library {lib} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){chunk}{twin}")
     return rows
+
+
+WIDE = {"glm4-9b": (2, 16), "qwen1.5-32b": (40, 1)}     # (KV, G) at hd 128
+
+
+def wide_shapes(torch, dev, g, rows, tab_p):
+    """The kernels at the qkv_bias models' shapes, each checked against its
+    plain version (bf16 and f32) and timed (events, profiler, stalled
+    events) beside its bound, into its row's ``by_shape``: the dense decode
+    at the launcher's cache (4 slots, T = 96) and the paged decode's four
+    legs at batch 8 with the pools phase's lengths, both at glm4-9b's G = 16
+    (KV 2) and qwen1.5-32b's G = 1 (KV 40), hd 128, SDPA beside the dense
+    decode; flash at glm4-9b's 16-token bucket (1, 16, 32, 128); rmsnorm at
+    glm4-9b's width (8, 4096), beside F.rms_norm."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    hd, ps, tpp = 128, 16, 4
+    row = {r["name"]: r for r in rows}
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev, dtype=f32).to(dtype)
+
+    def add(name, key, d):
+        row[name].setdefault("by_shape", {})[key] = d
+        log_shape(name, d["shape"], d)
+
+    for model, (KV, G) in WIDE.items():
+        # dense decode, the launcher's cache
+        B, T, lens_l = 4, 96, [1, 9, 57, 96]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        for dt in (bf16, f32):
+            q, cache = randn(B, 1, G * KV, hd, dtype=dt), randn(2, B, T, KV, hd, dtype=dt)
+            out = da_ops.decode_attention(q, cache[0], cache[1], lens)
+            again = da_ops.decode_attention(q, cache[0], cache[1], lens)
+            ref = decode_attention_ref(q[:, 0].reshape(B, KV, G, hd), cache[0].transpose(1, 2),
+                                       cache[1].transpose(1, 2), lens)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(out).all()) and torch.equal(out, again)):
+                raise AssertionError(f"decode_attention {model}: non-finite, or two calls differ")
+            e = err(out.reshape(B, KV, G, hd), ref)
+            check_tol(f"decode_attention {model} G={G} KV={KV} hd={hd} B={B} T={T} {dt}", e, dt)
+            row["decode_attention"]["max_abs_err"] = max(row["decode_attention"]["max_abs_err"], e)
+        q, cache = randn(B, 1, G * KV, hd), randn(2, B, T, KV, hd)
+        qg, k_t, v_t = q[:, 0].reshape(B, KV, G, hd), cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        mask = torch.arange(T, device=dev)[None, None, None, :] < lens[:, None, None, None]
+        nbytes = 2 * 2 * sum(lens_l) * KV * hd + 2 * 2 * B * KV * G * hd + 4 * B
+        b_ms, b_by = bound(nbytes, 4 * KV * G * hd * sum(lens_l), F32_FLOPS_S)
+        add("decode_attention", model, time_shape(
+            lambda: da_ops.decode_attention(q, cache[0], cache[1], lens),
+            lambda: decode_attention_ref(qg, k_t, v_t, lens),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_t, v_t, attn_mask=mask,
+                                                   enable_gqa=True),
+            b_ms, b_by, shape=f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), "
+            f"lengths {lens_l}", bytes=nbytes, splits=da_ops.plan_splits(B, KV, T, G),
+            head_groups=da_ops.head_groups(G)))
+
+        # paged decode, the pools phase's batch: every leg
+        B, NPp, lens_l = 8, 129, [120, 128, 129, 144, 161, 176, 193, 208]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        l1, l2 = chain(torch, tab_p, tpp)
+        tab, l1, l2 = tab_p.to(dev), l1.to(dev), l2.to(dev)
+        for dt in (f32, bf16):              # the bf16 pools are then timed below
+            q = randn(B, 1, G * KV, hd, dtype=dt)
+            qg = q[:, 0].reshape(B, KV, G, hd)
+            pools = {False: ((randn(NPp, KV, ps, hd, dtype=dt), randn(NPp, KV, ps, hd, dtype=dt)), {}),
+                     True: int8_pools(torch, g, dev, NPp, KV, ps, hd)}
+            pools[True] = (pools[True][:2], {"pool_ks": pools[True][2], "pool_vs": pools[True][3]})
+            for quant in (False, True):
+                kv, kw = pools[quant]
+                flat = pa_ops.paged_attention(q, *kv, tab, lens, **kw)
+                chained = pa_ops.paged_attention(q, *kv, l1, lens, l2_tab=l2, **kw)
+                ref = paged_attention_ref(qg, *kv, tab, lens, **kw)
+                torch.cuda.synchronize()
+                if not (bool(torch.isfinite(flat).all()) and torch.equal(flat, chained)):
+                    raise AssertionError(f"paged_attention {model} int8={quant}: non-finite, or "
+                                         f"chained differs from flat")
+                e = err(flat.reshape(B, KV, G, hd), ref)
+                for leg in (("int8", "int8+chained") if quant else ("flat", "chained")):
+                    name = "paged_attention" if leg == "flat" else f"paged_attention[{leg}]"
+                    row[name]["max_abs_err"] = max(row[name]["max_abs_err"], e)
+                check_tol(f"paged_attention[{'int8' if quant else 'flat'}, chained bit-identical] "
+                          f"{model} G={G} KV={KV} hd={hd} lens={lens_l} {dt}", e, dt)
+        for leg, quant, chained in [("flat", False, False), ("int8", True, False), ("chained", False, True),
+                                    ("int8+chained", True, True)]:
+            kv, kw = pools[quant]
+            kw = dict(kw, **({"l2_tab": l2} if chained else {}))
+            q = randn(B, 1, G * KV, hd)
+            qg = q[:, 0].reshape(B, KV, G, hd)
+            t_ = l1 if chained else tab
+            nbytes = paged_decode_bytes(lens_l, B, KV, G, hd, ps, quant, tpp if chained else 0)
+            b_ms, b_by = bound(nbytes, 4 * KV * G * hd * sum(lens_l), F32_FLOPS_S)
+            name = "paged_attention" if leg == "flat" else f"paged_attention[{leg}]"
+            add(name, model, time_shape(
+                lambda a=(q, *kv, t_, lens), kw=kw: pa_ops.paged_attention(*a, **kw),
+                lambda a=(qg, *kv, t_, lens), kw=kw: paged_attention_ref(*a, **kw), None, b_ms, b_by,
+                shape=f"q ({B}, {KV}, {G}, {hd}) bf16, {'int8' if quant else 'bf16'} pool ({NPp}, {KV}, "
+                f"{ps}, {hd}), {f'chained (tpp {tpp})' if chained else 'flat'} tables, lengths {lens_l}",
+                bytes=nbytes, splits=pa_ops.plan_page_splits(B, KV, 16, ps, G),
+                head_groups=da_ops.head_groups(G)))
+
+    # flash at glm4-9b's 16-token bucket: 32 heads over 2, hd 128
+    S, H, KV = 16, 32, 2
+    for dt in (bf16, f32):
+        q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
+        want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+        e = err(fa_ops.flash_attention(q, k, v), want)
+        torch.cuda.synchronize()
+        check_tol(f"flash_attention glm4-9b (1, {S}, {H}, {hd}) over {KV} KV heads {dt}", e, dt)
+        row["flash_attention"]["max_abs_err"] = max(row["flash_attention"]["max_abs_err"], e)
+    q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes, ops = 2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_S)
+    add("flash_attention", "glm4-9b", time_shape(
+        lambda: fa_ops.flash_attention(q, k, v), lambda: attention_ref(qt, kt, vt),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        b_ms, b_by, shape=f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd})", bytes=nbytes, ops=ops))
+
+    # rmsnorm at glm4-9b's width: the block-per-row path
+    R, D = 8, 4096
+    x, w = randn(R, D), torch.linspace(0.5, 1.5, D, device=dev).to(bf16)
+    e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
+    torch.cuda.synchronize()
+    check_tol(f"rmsnorm glm4-9b R={R} D={D} bf16 (block path)", e, bf16)
+    b_ms, b_by = bound(2 * (2 * R * D + D), 4 * R * D, F32_FLOPS_S)
+    add("rmsnorm", "glm4-9b", time_shape(
+        lambda: rms_ops.rmsnorm(x, w), lambda: rmsnorm_ref(x, w), lambda: F.rms_norm(x, (D,), w, 1e-6),
+        b_ms, b_by, shape=f"x ({R}, {D}) bf16"))
 
 
 def counters():
@@ -1284,9 +1441,10 @@ def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
 POOL_PROMPTS = [120, 131, 142, 154, 165, 177, 188, 200]
 
 
-def pools_run(torch, cfg, params, dev, cache_dtype: str, chained: bool):
+def pools_run(torch, cfg, params, dev, cache_dtype: str, chained: bool, chunk_tokens: int = 0):
     """A FULL paged engine under an EngineLoop serving 8 prompts of 120-200
-    tokens, 16-token pages, 4 pages per second-level table row."""
+    tokens, 16-token pages, 4 pages per second-level table row; whole-prompt
+    prefill, or chunks of ``chunk_tokens``."""
     import numpy as np
 
     from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
@@ -1296,8 +1454,8 @@ def pools_run(torch, cfg, params, dev, cache_dtype: str, chained: bool):
                for i, n in enumerate(POOL_PROMPTS)]
     eng = PagedInferenceEngine(cfg, PagedEngineConfig(
         page_size=16, num_pages=129, max_slots=8, max_seq_len=256, max_new_tokens=8,
-        cache_dtype=cache_dtype, chained_tables=chained, table_page_entries=4),
-        params=params, device=dev)
+        cache_dtype=cache_dtype, chained_tables=chained, table_page_entries=4,
+        chunk_tokens=chunk_tokens), params=params, device=dev)
     eng.prewarm()
     reset_counts()
     t0 = time.perf_counter()
@@ -1308,10 +1466,12 @@ def pools_run(torch, cfg, params, dev, cache_dtype: str, chained: bool):
     wall = time.perf_counter() - t0
     counts = read_counts()
     snap = eng.capacity_now()
-    log(f"  pools {cache_dtype} {'chained' if chained else 'flat'}: {len(outs)} requests in "
-        f"{wall:.3f} s, kv_bytes_per_token {snap['kv_bytes_per_token']}, "
+    log(f"  pools {cfg.name} {cfg.n_layers}L {cache_dtype} {'chained' if chained else 'flat'} "
+        f"chunk_tokens={chunk_tokens}: "
+        f"{len(outs)} requests in {wall:.3f} s, kv_bytes_per_token {snap['kv_bytes_per_token']}, "
         f"{eng.preemptions} preemptions; launches {counts}")
-    return {"prompts": prompts, "outs": outs, "counts": counts, "snap": snap, "wall_s": wall}
+    return {"prompts": prompts, "outs": outs, "counts": counts, "snap": snap, "wall_s": wall,
+            "preemptions": eng.preemptions}
 
 
 def phase_pools(torch, cfg, params, dev):
@@ -1628,9 +1788,10 @@ def xlstm_paged_run(torch, cfg, params, dev, chunk_tokens: int):
     return {"prompts": prompts, "outs": outs, "counts": counts, "wall_s": wall}
 
 
-def xlstm_dense_run(torch, cfg, params, dev, chunk_tokens: int):
+def dense_run(torch, cfg, params, dev, chunk_tokens: int, need=("mlstm_chunkwise",)):
     """A dense engine at the launcher's shapes (4 slots, max_len 96, the
-    launcher's 8-token prompts of requests 0-7), generate()."""
+    launcher's 8-token prompts of requests 0-7), generate(); every kernel
+    in ``need`` must have been launched."""
     import numpy as np
 
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
@@ -1644,11 +1805,12 @@ def xlstm_dense_run(torch, cfg, params, dev, chunk_tokens: int):
     outs = [s.out for s in eng.generate(prompts)]
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"  xlstm dense {str(cfg.compute_dtype).replace('torch.', '')} chunk_tokens={chunk_tokens}: "
+    log(f"  {cfg.name} {cfg.n_layers}L dense {str(cfg.compute_dtype).replace('torch.', '')} "
+        f"chunk_tokens={chunk_tokens}: "
         f"{len(outs)} requests in {time.perf_counter() - t0:.3f} s; launches "
         f"{ {n: c for n, c in counts.items() if c} }")
-    if any(len(o) != 8 for o in outs) or counts["mlstm_chunkwise"] <= 0:
-        raise AssertionError(f"xlstm dense chunk {chunk_tokens}: {outs}, {counts}")
+    if any(len(o) != 8 for o in outs) or any(counts[n] <= 0 for n in need):
+        raise AssertionError(f"{cfg.name} dense chunk {chunk_tokens}: {outs}, {counts}")
     return {"prompts": prompts, "outs": outs, "counts": counts}
 
 
@@ -1680,13 +1842,93 @@ def phase_xlstm(torch, dev):
     # logits by about 1e-4, so the parity bound tells a fault from noise
     cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
     params32 = _map(params, lambda t: t.float())
-    f32 = {"dense": [xlstm_dense_run(torch, cfg32, params32, dev, c) for c in (32, 0)],
+    f32 = {"dense": [dense_run(torch, cfg32, params32, dev, c) for c in (32, 0)],
            "paged": [xlstm_paged_run(torch, cfg32, params32, dev, c) for c in (0, 32)]}
     return {"cfg": cfg, "params": params, "launcher": [l_chunk, l_whole],
             "paged": [p_whole, p_chunk], "f32": f32,
             "counts": {"xlstm_launcher_chunk32": lc_counts, "xlstm_launcher_whole_prompt": lw_counts,
                        "xlstm_paged_whole_prompt": p_whole["counts"],
                        "xlstm_paged_chunk32": p_chunk["counts"]}}
+
+
+def glm4_params(torch, cfg, dev, seed: int):
+    """glm4-9b weights drawn on the card from a seeded CUDA generator (never
+    on the CPU), with bq, bk and bv overwritten by standard-normal draws so
+    that the biases move the outputs."""
+    from repro_torch.models import get_model
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = get_model(cfg).init(gen)
+    mixer = params["blocks"]["l0_mixer"]
+    for name in ("bq", "bk", "bv"):
+        mixer[name].copy_(torch.randn(mixer[name].shape, generator=gen, device=dev))
+    return params
+
+
+def check_served(name: str, run: dict, n: int = 8) -> None:
+    """Every stream of a paged run complete (8 new tokens): 0 failures."""
+    if any(len(o) != n for o in run["outs"]):
+        raise AssertionError(f"{name}: a stream fell short of {n} tokens: {run['outs']}")
+
+
+def phase_glm4(torch, dev):
+    """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
+    rmsnorm and 40 paged decode launches, its time and the device's busy
+    share), a batch-4 dense step (40 decode_attention launches), the
+    launcher's 32 requests on dense engines (whole-prompt prefill: flash and
+    decode_attention at G = 16), the pools phase's 8 prompts on a paged
+    engine in 32-token chunks on a bf16 flat pool and whole-prompt on an
+    int8 chained pool, 0 failures on each. Then the same FULL width at 4 of
+    the 40 layers (other seeded draws) served on the card for the parity
+    phase: a dense engine, whole-prompt, and both paged legs."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("glm4-9b")
+    params = glm4_params(torch, cfg, dev, 0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    L = cfg.n_layers
+    log(f"  glm4-9b FULL: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.hd}, {n_params} "
+        f"parameters in bf16, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the card")
+    per = phase_step(torch, cfg, params, dev)["decode step"]
+    if per["rmsnorm"] != 2 * L + 1 or per["paged_attention"] != L:
+        raise AssertionError(f"glm4 paged decode step: {per['rmsnorm']} rmsnorm and "
+                             f"{per['paged_attention']} paged decode launches, expected {2 * L + 1} and {L}")
+    dense_step(torch, cfg, params, dev)
+    launcher, l_counts = launcher_leg(torch, 0, params, "glm4-9b",
+                                      ("decode_attention", "flash_attention", "rmsnorm"))
+    bf = pools_run(torch, cfg, params, dev, "bf16", False, chunk_tokens=32)
+    i8 = pools_run(torch, cfg, params, dev, "int8", True)
+    for name, run, keys in (("glm4 pools bf16 flat chunk32", bf, ("paged_prefill_write", "paged_attention[flat]")),
+                            ("glm4 pools int8 chained", i8, ("paged_prefill_write_quant",
+                                                             "paged_attention[int8+chained]"))):
+        check_served(name, run)
+        for key in keys:
+            if run["counts"][key] <= 0:
+                raise AssertionError(f"{key} was not launched in {name}")
+    want = {"bf16": L * 2 * cfg.n_kv_heads * cfg.hd * 2, "int8": L * 2 * cfg.n_kv_heads * (cfg.hd + 2)}
+    got = {"bf16": bf["snap"]["kv_bytes_per_token"], "int8": i8["snap"]["kv_bytes_per_token"]}
+    log(f"  glm4 kv_bytes_per_token: bf16 {got['bf16']} B, int8 {got['int8']} B (from the shapes: "
+        f"{want['bf16']} and {want['int8']})")
+    if got != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"glm4 kv_bytes_per_token {got}, expected {want}")
+    counts = {"glm4_launcher_whole_prompt": l_counts, "glm4_pools_bf16_flat_chunk32": bf["counts"],
+              "glm4_pools_int8_chained": i8["counts"]}
+    del params, launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg4 = cfg.replace(n_layers=4)
+    p4 = glm4_params(torch, cfg4, dev, 1)
+    need = ("decode_attention", "flash_attention")
+    served = {"dense": dense_run(torch, cfg4, p4, dev, 0, need),
+              "bf16": pools_run(torch, cfg4, p4, dev, "bf16", False, chunk_tokens=32),
+              "int8": pools_run(torch, cfg4, p4, dev, "int8", True)}
+    check_served("glm4 4L pools bf16", served["bf16"])
+    check_served("glm4 4L pools int8", served["int8"])
+    return {"cfg": cfg4, "params": p4, "served": served, "counts": counts}
 
 
 def _leaves(tree):
@@ -1913,8 +2155,49 @@ def parity_xlstm(torch, par, xlstm):
         f"{g.numel()} logits): max |d| {float(g.max()):.4f}, mean |d| {float(g.mean()):.4f}")
 
 
+def parity_glm4(torch, par, glm4):
+    """glm4-9b at FULL width, 4 layers: the dense engine's streams through
+    the dense cache step by step, the bf16 chunked paged streams through the
+    whole-sequence forward, the int8 chained paged streams through a paged
+    int8 pool step by step, all on the CPU in f32, held to FLIP_BOUND."""
+    from repro_torch.models import get_model
+
+    cfg32 = par.f32(glm4["cfg"])
+    p32 = par.to_cpu(glm4["params"])
+    model = get_model(cfg32)
+    served = glm4["served"]
+    with torch.no_grad():
+        r = served["dense"]
+        for i in (0, 3, 7):
+            par.check("glm4-4L dense", i, teacher_forced_rows(torch, cfg32, p32, r["prompts"][i],
+                                                              r["outs"][i], "dense"), r["outs"][i])
+        r = served["bf16"]
+        for i, (rows, out) in enumerate(zip(par.batch_rows(model, p32, r["prompts"], r["outs"]), r["outs"])):
+            par.check("glm4-4L pools bf16 chunk32", i, rows, out)
+        r = served["int8"]
+        cfg8 = cfg32.replace(kv_quant=True)
+        for i in (0, 7):
+            par.check("glm4-4L pools int8 chained", i, teacher_forced_rows(
+                torch, cfg8, p32, r["prompts"][i], r["outs"][i], "paged"), r["outs"][i])
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def offload(torch, runs) -> None:
+    """Move the weights each run holds (``run["params"]``) to the host, one
+    copy per tree however many runs share it, and release the card's cache."""
+    import gc
+
+    moved = {}
+    for r in runs:
+        key = id(r["params"])
+        if key not in moved:
+            moved[key] = _map(r["params"], lambda t: t.cpu())
+        r["params"] = moved[key]
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1997,24 +2280,33 @@ def main() -> int:
     log(f"phase 8 xlstm: xlstm-350m FULL bf16, the launcher's 32 requests and 8 long prompts on a paged engine [at {time.perf_counter() - T_START:.1f} s]")
     xlstm = phase_xlstm(torch, dev)
 
-    # 9. parity
-    log(f"phase 9 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    # 9. glm4-9b, every earlier phase's weights moved off the card first
+    before = torch.cuda.memory_allocated()
+    offload(torch, [chunked, whole, l_chunk, l_whole, opts, xlstm])
+    log(f"phase 9 glm4: glm4-9b FULL bf16, earlier weights moved to the host ("
+        f"{before / 2**30:.3f} -> {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated) "
+        f"[at {time.perf_counter() - T_START:.1f} s]")
+    glm4 = phase_glm4(torch, dev)
+
+    # 10. parity
+    log(f"phase 10 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
     t_parity = time.perf_counter()
     par = Parity(torch)
     parity_smollm(torch, par, [chunked, whole], [l_chunk, l_whole], pools)
     parity_options(torch, par, opts)
     parity_xlstm(torch, par, xlstm)
+    parity_glm4(torch, par, glm4)
     par.report()
     t_summary = time.perf_counter()
 
-    # 10. summary
+    # 11. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
             "pools_bf16_chained": pools["bf16_chained"]["counts"],
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
-            "options_fork": opts["fork"]["counts"], **xlstm["counts"]}
+            "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",

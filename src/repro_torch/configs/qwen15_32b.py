@@ -1,0 +1,26 @@
+"""qwen1.5-32b [dense] — QKV bias, MHA-like GQA kv=40 (hf:Qwen/Qwen1.5-32B).
+
+64L d_model=5120 40H (kv=40) d_ff=27392 vocab=152064.
+"""
+import torch
+
+from repro_torch.models.common import ModelConfig
+
+FULL = ModelConfig(
+    name="qwen1.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=40,
+    d_ff=27392,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)
+
+SMOKE = FULL.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512,
+    param_dtype=torch.float32, compute_dtype=torch.float32,
+    attn_chunk=8,
+)

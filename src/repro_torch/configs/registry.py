@@ -5,12 +5,14 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import smollm_360m, xlstm_350m
+from repro_torch.configs import glm4_9b, qwen15_32b, smollm_360m, xlstm_350m
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "smollm-360m": smollm_360m,
     "xlstm-350m": xlstm_350m,
+    "glm4-9b": glm4_9b,
+    "qwen1.5-32b": qwen15_32b,
 }
 
 

@@ -6,8 +6,9 @@
 // here it is applied before the mask, as in the paged kernel).
 //
 // Bound on the H100: memory bytes. The kernel reads each live K/V row once
-// and does ~4 * G operations per element read (G = 3), far below the ~295
-// operations per byte at which compute would bind. At the serving path's
+// and does ~4 * G operations per element read (G = 3, or 16 for glm4-9b),
+// far below the ~295 operations per byte at which compute would bind. At
+// the serving path's
 // sizes (a few hundred KB) what it costs is latency: how many loads are in
 // flight at once, and how many dependent steps each block takes.
 //
@@ -21,18 +22,20 @@
 //   stored in, (B, T, KV, hd), through its strides: no transposed or padded
 //   copy, no staging in shared memory. Each warp keeps two chunks of rows
 //   in flight.
-// - The G query rows, the online softmax (base 2) and the accumulators live
-//   in registers; G is a template width (3, 4 or 8), so a chunk's heads and
-//   rows unroll into independent chains without branches: at these sizes
-//   the kernel waits on dependent arithmetic as much as on memory.
-// - The T axis is split across blocks when B * KV alone would leave most of
-//   the 132 SMs idle (the wrapper's plan_splits: at most two blocks per SM,
-//   so that all are resident at once, splits of at least 64 tokens; split s
-//   covers [s T / n, (s + 1) T / n)). Each split then writes its (m, l, acc)
-//   in f32 to a scratch, and the shared combine kernel merges the splits in
-//   split order: the output is deterministic, with no float atomics. A
-//   split past its sequence's length writes m = -inf and l = 0. With one
-//   split the block writes the output itself.
+// - The query rows, the online softmax (base 2) and the accumulators of a
+//   head group live in registers; the group's width GM is a template width
+//   (decode_warp.cuh's head groups: any G, in ceil(G / 4) groups of 4 heads
+//   past G = 8, each group a block), so a chunk's heads and rows unroll
+//   into independent chains without branches: at these sizes the kernel
+//   waits on dependent arithmetic as much as on memory.
+// - The T axis is split across blocks when B * KV * n_groups alone would
+//   leave most of the 132 SMs idle (the wrapper's plan_splits: at most two
+//   blocks per SM, so that all are resident at once, splits of at least 64
+//   tokens; split s covers [s T / n, (s + 1) T / n)). Each split then
+//   writes its (m, l, acc) in f32 to a scratch, and the shared combine
+//   kernel merges the splits in split order: the output is deterministic,
+//   with no float atomics. A split past its sequence's length writes m =
+//   -inf and l = 0. With one split the block writes the output itself.
 // A length of 0 yields 0, as the TPU kernel's finalize.
 #include "decode_warp.cuh"
 
@@ -40,9 +43,10 @@ namespace {
 
 using rt::dec::kThreads;
 
-// Grid: (B * KV) * nsplit blocks of kThreads. q, out: (B, KV, G, hd)
-// contiguous; k/v strided as stored. With nsplit > 1, ``part`` holds per
-// (b, h, split) G maxima (base 2), G sums and G x hd accumulators, f32.
+// Grid: B * KV * nsplit * n_groups blocks of kThreads (rt::dec::HeadGroup).
+// q, out: (B, KV, G, hd) contiguous; k/v strided as stored. With nsplit > 1,
+// ``part`` holds per (b, h, split) G maxima (base 2), G sums and G x hd
+// accumulators, f32.
 template <typename T, int VEC, int LPR, int GM>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -53,18 +57,18 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   using P = rt::Pack<T, VEC>;
   __shared__ rt::dec::MergeSmem<GM, HD> sm;
 
-  const int split = blockIdx.x % nsplit;
-  const int bh = blockIdx.x / nsplit;
+  const auto hg = rt::dec::HeadGroup::of<GM>(blockIdx.x, G, nsplit);
+  const int split = hg.split, bh = hg.bh;
   const int b = bh / KV, h = bh % KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / LPR, col = lane % LPR;
   const bool active = col * VEC < hd;
 
   float qf[GM][VEC] = {};
-  const T* qb = q + static_cast<size_t>(bh) * G * hd + col * VEC;
+  const T* qb = q + (static_cast<size_t>(bh) * G + hg.g0) * hd + col * VEC;
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G && active) {
+    if (g < hg.n && active) {
       const P pq = rt::dec::load_vec<P>(qb + g * hd);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qf[g][e] = rt::to_f(pq.v[e]);
@@ -86,7 +90,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* pb = nsplit > 1
                   ? part + (static_cast<size_t>(bh) * nsplit + split) * (G * (hd + 2))
                   : nullptr;
-  rt::dec::finish<T, VEC, LPR, GM, HD>(s, sm, warp, sub, col, active, G, hd,
+  rt::dec::finish<T, VEC, LPR, GM, HD>(s, sm, warp, sub, col, active, G, hg, hd,
                                        out + static_cast<size_t>(bh) * G * hd, pb, nsplit);
 }
 
@@ -95,7 +99,8 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
            float* part, int B, int T_len, int KV, int G, int hd, long long sb, long long st,
            long long sh, float scale, float softcap, int nsplit, cudaStream_t s) {
   T* o = static_cast<T*>(out);
-  decode_split_kernel<T, VEC, LPR, GM><<<B * KV * nsplit, kThreads, 0, s>>>(
+  const int n_groups = (G + GM - 1) / GM;
+  decode_split_kernel<T, VEC, LPR, GM><<<B * KV * nsplit * n_groups, kThreads, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths, o,
       part, T_len, KV, G, hd, nsplit, sb, st, sh, scale, softcap);
   cudaError_t err = cudaGetLastError();
@@ -133,12 +138,12 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* lengths, void* out,
              float* part, int B, int T_len, int KV, int G, int hd, long long sb, long long st,
              long long sh, float scale, float softcap, int nsplit, cudaStream_t s) {
-  if (G < 1 || G > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (G == 3) {  // smollm-360m's 15 query heads over 5 KV heads
     return dispatch_width<T, 3>(q, k, v, lengths, out, part, B, T_len, KV, G, hd, sb, st, sh,
                                 scale, softcap, nsplit, s);
   }
-  if (G <= 4) {
+  if (G <= 4 || G > 8) {  // past 8, groups of 4: glm4-9b's 32 heads over 2 are 4 a KV head
     return dispatch_width<T, 4>(q, k, v, lengths, out, part, B, T_len, KV, G, hd, sb, st, sh,
                                 scale, softcap, nsplit, s);
   }
@@ -152,7 +157,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths, vo
 // sb (batch), st (token) and sh (head) and unit stride over hd, both with
 // the same strides; lengths: (B,) int32 valid positions per sequence;
 // part: with nsplit > 1, B * KV * nsplit * G * (hd + 2) f32 of scratch
-// (else unused). G at most 8; hd a multiple of 16 bytes' elements up to 32
+// (else unused). Any G >= 1; hd a multiple of 16 bytes' elements up to 32
 // vectors with 16-byte aligned q, k, v and strides, else hd <= 32.
 extern "C" int rt_decode_attention(const void* q, const void* k, const void* v,
                                    const void* lengths, void* out, void* part, int B, int T_len,

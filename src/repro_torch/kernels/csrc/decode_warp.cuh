@@ -12,22 +12,33 @@
 //   flight. Where a row lies is the caller's: an index functor maps a row
 //   (a token position) to the row's index in its storage, and the row's
 //   elements start at index * row_stride.
-// - The G query rows live in registers (each lane its VEC columns). A dot
-//   product is reduced with xor-shuffles among the LPR lanes of a row. Each
-//   group of LPR lanes keeps its own online softmax (m, l) and accumulator
-//   per query head, over the rows it reads, in registers, with scores in
-//   base 2 (times log2 e) so that each exponential is one exp2f. The number
-//   of heads is a template width GM (3, 4 or 8; heads past G run on zero
-//   query rows and are never stored), so a chunk's heads and rows unroll
-//   into independent chains without branches.
+// - A block takes one group of at most GM of the G query heads of its KV
+//   head: GM is a template width (3 where G = 3, 4 where G <= 4, 8 where
+//   G <= 8), and G > 8 is split into ceil(G / 4) head groups of GM = 4,
+//   each a block of its own in the grid (HeadGroup). The group's query rows
+//   live in registers (each lane its VEC columns): GM = 8 at hd 128 in
+//   bf16 already fills the 255 registers a thread may hold and spills, and
+//   at glm4-9b's serving shapes (G = 16) groups of 4 ran 1.2-1.6x faster
+//   than groups of 8 on an H100 (scripts/decode_groups_timing.py: twice the
+//   blocks, no spill; slower only at 4096-token rows, where they get half
+//   the splits). The groups of one (b, KV head, split) are neighbours in
+//   the grid, so the later groups' K/V rows come mostly from L2.
+// - A dot product is reduced with xor-shuffles among the LPR lanes of a
+//   row. Each group of LPR lanes keeps its own online softmax (m, l) and
+//   accumulator per query head, over the rows it reads, in registers, with
+//   scores in base 2 (times log2 e) so that each exponential is one exp2f.
+//   Heads past the group's last run on zero query rows and are never
+//   stored, so a chunk's heads and rows unroll into independent chains
+//   without branches.
 // - An int8 row is dequantized in registers, f32(int8) * f32(scale), the
 //   arithmetic of models/quant.py's dequantize_kv, one scale per row.
 // - One merge at the end: the row groups of a warp by xor-shuffles, then the
 //   warps through shared memory, in a fixed order. With a split of the keys
-//   across blocks, each split writes its (m, l, acc) in f32 and
-//   combine_kernel merges the splits in split order: deterministic, with no
-//   float atomics. A split that sees no row writes m = -inf and l = 0, and a
-//   sequence that sees none yields 0.
+//   across blocks, each split writes its (m, l, acc) in f32 (each head group
+//   its own heads' slice of the split's G x (hd + 2) floats) and
+//   combine_kernel merges the splits of all G heads in split order:
+//   deterministic, with no float atomics. A split that sees no row writes
+//   m = -inf and l = 0, and a sequence that sees none yields 0.
 #pragma once
 
 #include <string.h>
@@ -40,7 +51,7 @@ namespace dec {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 2;            // row steps per chunk; two chunks' loads in flight
-constexpr int kCombineThreads = 256;  // >= G * hd at hd = 64 for G <= 4: one element a thread
+constexpr int kCombineThreads = 256;  // strided over the G * hd outputs (2048 at G 16, hd 128)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // One lane's vector of a row: a 16- or 8-byte load through the read-only
@@ -66,6 +77,20 @@ __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000);
 __device__ __forceinline__ float rescale(float a, float b) {
   return a == neg_inf() ? 0.f : exp2f(a - b);
 }
+
+// The head group of block index x: groups of one (b, KV head, split) are
+// neighbours, x = (bh * nsplit + split) * n_groups + group.
+struct HeadGroup {
+  int bh, split, g0, n;   // (b, KV head), split, first head, heads in the group
+
+  template <int GM>
+  __device__ __forceinline__ static HeadGroup of(int x, int G, int nsplit) {
+    const int n_groups = (G + GM - 1) / GM;
+    const int group = x % n_groups, rest = x / n_groups;
+    const int g0 = group * GM;
+    return {rest / nsplit, rest % nsplit, g0, G - g0 < GM ? G - g0 : GM};
+  }
+};
 
 // The online-softmax state of one lane: its VEC columns of GM query heads,
 // over the rows its group of LPR lanes has read.
@@ -231,13 +256,14 @@ struct MergeSmem {
   float acc[kWarps][GM][HD];
 };
 
-// Merges the lanes' states of the block and writes either the output (one
-// split: out, G x hd of this (b, h)) or this split's partial (pb: G maxima,
-// G sums, G x hd accumulators, f32).
+// Merges the lanes' states of the block and writes, for the hg.n heads of
+// its group, either the output (one split: out, the G x hd of this (b, h))
+// or this split's partial (pb: G maxima, G sums, G x hd accumulators, f32),
+// each at head g0 + g.
 template <typename TQ, int VEC, int LPR, int GM, int HD>
 __device__ __forceinline__ void finish(Softmax<GM, VEC>& s, MergeSmem<GM, HD>& sm, int warp,
-                                       int sub, int col, bool active, int G, int hd, TQ* out,
-                                       float* pb, int nsplit) {
+                                       int sub, int col, bool active, int G, const HeadGroup& hg,
+                                       int hd, TQ* out, float* pb, int nsplit) {
   // merge the row groups of the warp (lanes col, col + LPR, ...)
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1) {
@@ -258,7 +284,7 @@ __device__ __forceinline__ void finish(Softmax<GM, VEC>& s, MergeSmem<GM, HD>& s
   if (sub == 0 && active) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
+      if (g < hg.n) {
         if (col == 0) {
           sm.m[warp][g] = s.m[g];
           sm.l[warp][g] = s.l[g];
@@ -271,7 +297,7 @@ __device__ __forceinline__ void finish(Softmax<GM, VEC>& s, MergeSmem<GM, HD>& s
   __syncthreads();
 
   // merge the warps in warp order
-  const int GH = G * hd;
+  const int GH = hg.n * hd;
   for (int e = threadIdx.x; e < GH; e += kThreads) {
     const int g = e / hd, d = e % hd;
     float M = neg_inf();
@@ -285,12 +311,12 @@ __device__ __forceinline__ void finish(Softmax<GM, VEC>& s, MergeSmem<GM, HD>& s
       den += sm.l[w][g] * cw;
     }
     if (nsplit == 1) {
-      out[e] = rt::from_f<TQ>(num / fmaxf(den, 1e-30f));
+      out[hg.g0 * hd + e] = rt::from_f<TQ>(num / fmaxf(den, 1e-30f));
     } else {
-      pb[2 * G + e] = num;
+      pb[2 * G + hg.g0 * hd + e] = num;
       if (d == 0) {
-        pb[g] = M;
-        pb[G + g] = den;
+        pb[hg.g0 + g] = M;
+        pb[G + hg.g0 + g] = den;
       }
     }
   }
@@ -298,10 +324,13 @@ __device__ __forceinline__ void finish(Softmax<GM, VEC>& s, MergeSmem<GM, HD>& s
 
 // Grid: B * KV blocks of kCombineThreads. Combines the nsplit partials of
 // each (b, h) in split order: out = sum_s acc_s 2^(m_s - M) / sum_s l_s
-// 2^(m_s - M), M = max m_s. Warp g reduces head g's maxima and sums across
-// its lanes (a fixed tree: deterministic) and leaves the split weights in
-// shared memory (nsplit G + G floats); then each thread sums one output
-// element over the splits, its loads independent and unrolled.
+// 2^(m_s - M), M = max m_s. Warp w reduces the maxima and sums of heads w,
+// w + 8, ... across its lanes (a fixed tree: deterministic) and leaves the
+// split weights in shared memory (nsplit G + G floats: the planners keep
+// nsplit * n_groups <= 264, so at most 264 * 8 + G floats at G <= 8 and
+// 264 * 4 + G past it); then each
+// thread sums output elements e, e + 256, ... over the splits, its loads
+// independent and unrolled.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ part, T* __restrict__ out, int G, int hd, int nsplit) {

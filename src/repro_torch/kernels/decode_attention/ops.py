@@ -4,9 +4,11 @@ tensor, the plain version on a CPU tensor.
 
 The kernel reads the cache through its strides, as it is stored: no
 transposed or padded copy is made (the JAX wrapper transposes and pads the
-whole cache on every call). When B * KV blocks would leave the card's SMs
-idle, the T axis is split across blocks (``plan_splits``) and a second
-kernel combines the splits in a fixed order."""
+whole cache on every call). It takes any G = H / KV: past 8 query heads per
+KV head, each (b, KV head) is ``head_groups(G)`` blocks of 4 heads. When
+the blocks would leave the card's SMs idle, the T axis is split across
+blocks (``plan_splits``) and a second kernel combines the splits in a fixed
+order."""
 from __future__ import annotations
 
 import ctypes
@@ -23,15 +25,25 @@ _RT = _build.Entry("rt_decode_attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _
                                            ctypes.c_float, ctypes.c_float, _I, _I, _P])
 SMS = 132                   # streaming multiprocessors of an H100 SXM
 MIN_SPLIT = 64              # tokens: a shorter split costs more in its combine than it saves
-_MAX_G = 8                  # csrc/decode_attention.cu: query rows and accumulators in registers
+GROUP_HEADS = 4             # csrc/decode_warp.cuh: a block's query rows past G = 8
 
 
-def plan_splits(B: int, KV: int, T: int) -> int:
+def head_groups(G: int) -> int:
+    """Blocks per (b, KV head, split) for G query heads per KV head, as the
+    kernels' dispatch groups them (csrc/decode_attention.cu and
+    csrc/paged_attention.cu): one for G <= 8 (every head's rows and
+    accumulators in one block's registers), else head groups of
+    GROUP_HEADS."""
+    return 1 if G <= 8 else -(-G // GROUP_HEADS)
+
+
+def plan_splits(B: int, KV: int, T: int, G: int = 1) -> int:
     """Splits of the cache's T axis, from the shapes alone (the lengths lie
     on the card): at most two blocks per SM, all resident at once, where
-    B * KV blocks would leave SMs idle; each split at least MIN_SPLIT
-    tokens (T // MIN_SPLIT splits at most); one split for a short cache."""
-    return max(1, min(2 * SMS // max(1, B * KV), T // MIN_SPLIT))
+    the B * KV * head_groups(G) blocks would leave SMs idle; each split at
+    least MIN_SPLIT tokens (T // MIN_SPLIT splits at most); one split for a
+    short cache."""
+    return max(1, min(2 * SMS // max(1, B * KV * head_groups(G)), T // MIN_SPLIT))
 
 
 def split_bounds(T: int, nsplit: int) -> list:
@@ -71,11 +83,10 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     vec = 16 // q.element_size()                 # elements per 16-byte load
     fast = (hd % vec == 0 and hd <= 32 * vec and sb % vec == 0 and st % vec == 0
             and sh % vec == 0 and (qg.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0)
-    if G > _MAX_G or not (fast or hd <= 32):
-        raise ValueError(f"decode_attention: the kernel takes G <= {_MAX_G} query heads per KV head "
-                         f"and either hd <= 32 or rows of whole 16-byte vectors up to 512 bytes "
-                         f"(aligned, as are the strides), got G={G}, hd={hd}")
-    nsplit = plan_splits(B, KV, T)
+    if not (fast or hd <= 32):
+        raise ValueError(f"decode_attention: the kernel takes hd <= 32 or rows of whole 16-byte "
+                         f"vectors up to 512 bytes (aligned, as are the strides), got hd={hd}")
+    nsplit = plan_splits(B, KV, T, G)
     out = torch.empty_like(qg)
     part = None
     if nsplit > 1:       # per (b, h, split): G maxima, G sums, G x hd accumulators

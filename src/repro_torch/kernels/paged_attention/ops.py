@@ -7,12 +7,13 @@ two-level block tables.
 
 For a CPU tensor each wrapper runs its plain version (``ref.py``); for a
 CUDA tensor it launches the kernel of ``csrc/paged_attention.cu`` or raises.
-When B * KV blocks would leave the card's SMs idle, the decode splits each
-row's pages across blocks (``plan_page_splits``) and a second kernel
-combines the splits in a fixed order; the call counts one launch. The
-prefill writes take a chunk's offset as a page count that the kernel
-resolves (``write_page_ids``), so a chunked write is one device operation,
-on a grid from ``plan_write_grid``.
+The decode takes any G = H / KV: past 8 query heads a KV head, in head
+groups of 4 a block (``head_groups``). When the blocks would leave the
+card's SMs idle, it splits each row's pages across blocks
+(``plan_page_splits``) and a second kernel combines the splits in a fixed
+order; the call counts one launch. The prefill writes take a chunk's
+offset as a page count that the kernel resolves (``write_page_ids``), so a
+chunked write is one device operation, on a grid from ``plan_write_grid``.
 ``paged_gather_context`` and the speculative verify writes
 (``paged_verify_write``, ``paged_verify_write_quant``) are plain PyTorch on
 every device, as their JAX twins are plain jnp."""
@@ -23,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ops import MIN_SPLIT, SMS
+from repro_torch.kernels.decode_attention.ops import MIN_SPLIT, SMS, head_groups
 from repro_torch.kernels.paged_attention.ref import (
     gather_kv,
     paged_attention_ref,
@@ -43,20 +44,21 @@ _WRITE_QUANT = _build.Entry("rt_paged_prefill_write_quant",
                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _DECODE = _build.Entry("rt_paged_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P])
-_MAX_G, _MAX_HD = 8, 128    # csrc/paged_attention.cu: query heads and columns held in registers
+_MAX_HD = 128               # csrc/paged_attention.cu: a row's columns held in registers
 _MAX_SPLIT_PAGES = 8192     # one split's page ids, resolved into 32 KB of shared memory
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WRITE_TOKENS = 16          # tokens per write block at most: a page's worth at 16-token pages
 
 
-def plan_page_splits(B: int, KV: int, P: int, ps: int) -> int:
+def plan_page_splits(B: int, KV: int, P: int, ps: int, G: int = 1) -> int:
     """Splits of a block-table row's P pages across blocks, from the shapes
     alone (the lengths lie on the card), by ``decode_attention``'s rule: at
-    most two blocks per SM, all resident at once, where B * KV blocks would
-    leave SMs idle; each split a whole number of pages and at least
-    MIN_SPLIT tokens; one split for a short row."""
+    most two blocks per SM, all resident at once, where the
+    B * KV * head_groups(G) blocks would leave SMs idle; each split a whole
+    number of pages and at least MIN_SPLIT tokens; one split for a short
+    row."""
     min_pages = max(1, -(-MIN_SPLIT // ps))
-    return max(1, min(2 * SMS // max(1, B * KV), P // min_pages))
+    return max(1, min(2 * SMS // max(1, B * KV * head_groups(G)), P // min_pages))
 
 
 def page_split_bounds(P: int, nsplit: int) -> list:
@@ -266,11 +268,10 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
         P = tab.shape[1] * tpp
     vec = 8 if quant else 16 // pool_k.element_size()     # elements per vector load
     fast = hd % vec == 0 and (pool_k.data_ptr() | pool_v.data_ptr()) % (vec * pool_k.element_size()) == 0
-    if G > _MAX_G or hd > _MAX_HD or not (fast or hd <= 32):
-        raise ValueError(f"paged_attention: the kernel takes G <= {_MAX_G} query heads per KV head "
-                         f"and hd <= 32, or rows of whole vectors up to hd {_MAX_HD} in pools "
-                         f"aligned to a vector, got G={G}, hd={hd}")
-    nsplit = plan_page_splits(B, KV, P, ps)
+    if hd > _MAX_HD or not (fast or hd <= 32):
+        raise ValueError(f"paged_attention: the kernel takes hd <= 32, or rows of whole vectors up "
+                         f"to hd {_MAX_HD} in pools aligned to a vector, got hd={hd}")
+    nsplit = plan_page_splits(B, KV, P, ps, G)
     if -(-P // nsplit) > _MAX_SPLIT_PAGES:
         raise ValueError(f"paged_attention: {-(-P // nsplit)} pages in one split, more than the "
                          f"kernel's {_MAX_SPLIT_PAGES}")

@@ -32,14 +32,17 @@ class TensorSpec(NamedTuple):
 
 def attention_defs(cfg: ModelConfig) -> dict:
     H, KV, hd, d = cfg.n_heads, min(cfg.n_kv_heads, cfg.n_heads), cfg.hd, cfg.d_model
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported yet (ROADMAP Queue 1 item 8)")
-    return {
+    defs = {
         "wq": ParamDef((d, H * hd)),
         "wk": ParamDef((d, KV * hd)),
         "wv": ParamDef((d, KV * hd)),
         "wo": ParamDef((H * hd, d)),
     }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H * hd,), "zeros")
+        defs["bk"] = ParamDef((KV * hd,), "zeros")
+        defs["bv"] = ParamDef((KV * hd,), "zeros")
+    return defs
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +348,10 @@ def _project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor, n_heads: int):
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     return q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
 
 

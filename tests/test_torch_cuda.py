@@ -788,6 +788,118 @@ def test_cuda_paged_decode_split_boundaries(cuda_device):
     torch.cuda.synchronize()
 
 
+ANY_G = (1, 3, 5, 8, 9, 12, 16, 24)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_any_G(cuda_device):
+    """The paged decode at G 1, 3, 5, 8, 9, 12, 16 and 24 (past 8: head
+    groups of 4 as blocks), hd 64 and 128, f32 and bf16 queries over pools
+    of their dtype or int8, flat and chained tables, with and without the
+    softcap (the softcap on the bf16 pools): lengths 0, 1 (a dead
+    slot), split - 1, split, split + 1 and a full row at the planner's
+    splits, then one split; against paged_attention_ref, two calls
+    bit-identical, chained bit-identical to flat, one launch a call, a
+    length of 0 gives 0. Then qwen1.5-32b's shape, G = 1 over 40 KV heads at
+    hd 128, and glm4-9b's, G = 16 over 2."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(20)
+    gen_tab = torch.Generator().manual_seed(20)
+    ps, P = 16, 64
+    cases = [(G, 2, hd, 6) for G in ANY_G for hd in (64, 128)] + [(1, 40, 128, 8), (16, 2, 128, 8)]
+    for G, KV, hd, B in cases:
+        for dt, quant in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True),
+                          (torch.float32, True)):
+            n = pa_ops.plan_page_splits(B, KV, P, ps, G)
+            s = pa_ops.page_split_bounds(P, n)[1][0] * ps if n > 1 else 200
+            lens_l = ([0, 1, s - 1, s, s + 1, P * ps] if B == 6 else
+                      [120, 128, 129, 144, 161, 176, 193, 208])     # the pools phase's lengths
+            pools, kw, tab, l1, l2 = _paged_setup(g, gen_tab, dev, B, KV, hd, ps, P, lens_l, dt, quant)
+            if B == 6:
+                tab[1] = 0                              # dead slot: length 1 over the null page
+                l1[1] = 0
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            q = torch.randn(B, 1, G * KV, hd, generator=g, device=dev).to(dt)
+            cap = 30.0 if dt == torch.bfloat16 and not quant else 0.0
+            before = pa_ops.paged_attention.launches
+            out = pa_ops.paged_attention(q, *pools, tab, lens, softcap=cap, **kw)
+            assert pa_ops.paged_attention.launches == before + 1
+            again = pa_ops.paged_attention(q, *pools, tab, lens, softcap=cap, **kw)
+            chained = pa_ops.paged_attention(q, *pools, l1, lens, softcap=cap, l2_tab=l2, **kw)
+            ref = paged_attention_ref(q[:, 0].reshape(B, KV, G, hd), *pools, tab, lens, softcap=cap,
+                                      **kw)
+            name = (G, KV, hd, dt, quant, cap, n, lens_l)
+            assert torch.isfinite(out.float()).all(), name
+            assert torch.equal(out, again) and torch.equal(out, chained), name
+            live = lens > 0
+            if bool((~live).any()):
+                assert float(out[~live].float().abs().max()) == 0.0, name
+            err = (out.reshape(B, KV, G, hd)[live].float() - ref[live].float()).abs().max()
+            assert float(err) < TOL[dt], (name, float(err))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_any_G(cuda_device):
+    """The dense decode at G 1, 3, 5, 8, 9, 12, 16 and 24, hd 64 and 128,
+    f32 and bf16, with and without the softcap: a T split across blocks
+    (lengths 0, 1, split - 1, split, split + 1 and T at T = 1000) and the
+    launcher's one-split cache (T = 96); against the plain version, two calls
+    bit-identical, one launch a call, a length of 0 gives 0. Then
+    qwen1.5-32b's shape (G = 1 over 40 KV heads, hd 128) and glm4-9b's
+    (G = 16 over 2) at the launcher's cache."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(21)
+    cases = [(G, 2, hd) for G in ANY_G for hd in (64, 128)] + [(1, 40, 128), (16, 2, 128)]
+    for G, KV, hd in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            for B, T, cap in ((6, 1000, 0.0), (6, 1000, 30.0), (4, 96, 0.0)):
+                n = da_ops.plan_splits(B, KV, T, G)
+                s = da_ops.split_bounds(T, n)[1][0] if n > 1 else 57
+                lens_l = [0, 1, s - 1, s, s + 1, T][:B] if B == 6 else [1, 9, 57, 96]
+                q = torch.randn(B, 1, G * KV, hd, generator=g, device=dev).to(dt)
+                cache = torch.randn(2, B, T, KV, hd, generator=g, device=dev).to(dt)
+                lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+                before = da_ops.decode_attention.launches
+                out = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
+                assert da_ops.decode_attention.launches == before + 1
+                again = da_ops.decode_attention(q, cache[0], cache[1], lens, softcap=cap)
+                ref = decode_attention_ref(q[:, 0].reshape(B, KV, G, hd), cache[0].transpose(1, 2),
+                                           cache[1].transpose(1, 2), lens, softcap=cap)
+                name = (G, KV, hd, dt, B, T, cap, n)
+                assert torch.isfinite(out.float()).all(), name
+                assert torch.equal(out, again), name
+                live = lens > 0
+                if bool((~live).any()):
+                    assert float(out[~live].float().abs().max()) == 0.0, name
+                err = (out.reshape(B, KV, G, hd)[live].float() - ref[live].float()).abs().max()
+                assert float(err) < TOL[dt], (name, float(err))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_G16(cuda_device):
+    """Flash at glm4-9b's grouping, G = 16 over 2 KV heads at hd 128 (a row
+    tile of 4 positions x 16 heads), S 2 to 2048, bf16 and f32, on the
+    model's strided (B, S, H, hd) views and on (B, H, S, hd) tensors."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(22)
+    for dt in (torch.bfloat16, torch.float32):
+        for S in (2, 16, 17, 40, 96, 200, 2048):
+            B = 1 if S == 2048 else 2
+            q, k, v = _flash_inputs(g, dev, dt, B, S, 2, 16, 128)
+            want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+            out = fa_ops.flash_attention(q, k, v)
+            assert out.is_contiguous() and out.shape == q.shape
+            err = float((out.float() - want.float()).abs().max())
+            assert err < TOL[dt], (dt, S, "bshd", err)
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            err = float((fa_ops.flash_attention_bhsd(qh, kh, vh).float()
+                         - want.transpose(1, 2).float()).abs().max())
+            assert err < TOL[dt], (dt, S, "bhsd", err)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_rmsnorm_one_warp_and_general_paths(cuda_device):
     """rmsnorm's one-warp path (D = 960 in bf16 and f32, D = 2048 bf16) and
