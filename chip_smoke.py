@@ -90,7 +90,15 @@ result line:
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more)
- 11. summary  — the kernels JSON line, then the result line.
+ 11. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
+                Python loop of ``StraightLinePolicy`` at N 1024 and at the
+                paper's top ramp (N 7000, availability (0, 0), (4, 8),
+                (64, 512)), its CUDA-event and device times, device
+                operations and bytes bound at N 1024, 7000 and 2**20, the
+                loop's host time a request; the paper's gates of
+                tests/test_system.py through the port's simulator; the five
+                figure twins' rows
+ 12. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -2200,6 +2208,161 @@ def offload(torch, runs) -> None:
     torch.cuda.empty_cache()
 
 
+PLACE_F, PLACE_D = 1200.0, 1e6     # the default Thresholds: the paper's knee and payload split
+
+
+def place_along(pol, reqs, rates, flask_free: int, docker_free: int) -> list:
+    """``place_all``'s loop with each request's own rate: ``place`` per
+    request, availability consumed by each flask and docker decision."""
+    from repro_torch.core import Tier
+
+    out = []
+    for r, f in zip(reqs, rates):
+        t = pol.place(r, float(f), flask_free, docker_free).tier
+        flask_free -= t == Tier.FLASK
+        docker_free -= t == Tier.DOCKER
+        out.append(int(t))
+    return out
+
+
+def sched_placer(torch, dev) -> None:
+    """``placing_batch_torch`` on the card against the Python loop of
+    ``StraightLinePolicy``, exactly: at N 1024 with the placement twin's
+    arguments, and at the paper's top ramp (7000 bimodal sessions a 180 s
+    window) with the window estimator's rate along the arrivals, and with
+    scalar rates through ``place_all`` itself. Sizes are rounded to float32
+    before the loop sees them, as the placer compares in float32. Then its
+    CUDA-event and device times, device operations per call and bytes
+    bound at N 1024, 7000 and 2**20, beside the loop's host time."""
+    import numpy as np
+
+    from repro_torch.core import Request, StraightLinePolicy, Thresholds
+    from repro_torch.core.placing import placing_batch_torch
+    from repro_torch.core.telemetry import FrequencyEstimator
+    from repro_torch.core.workload import ramp
+
+    pol = StraightLinePolicy(Thresholds(F=PLACE_F, D=PLACE_D))
+
+    def on_card(f_t, sizes, ff, df):
+        out = placing_batch_torch(f_t, sizes, ff, df, F=PLACE_F, D=PLACE_D)
+        if out.device.type != "cuda" or out.dtype != torch.int32 or out.shape != sizes.shape:
+            raise AssertionError(f"placer output on {out.device}, {out.dtype}, {tuple(out.shape)}")
+        return out.tolist()
+
+    reqs = [Request(rid=i, arrival_t=0.0, data_size=1e5) for i in range(1024)]
+    want = [int(d.tier) for d in pol.place_all(reqs, 900.0, 4, 8)]
+    if on_card(900.0, torch.full((1024,), 1e5, dtype=torch.float32, device=dev), 4, 8) != want:
+        raise AssertionError("placer on the card != place_all at N 1024")
+
+    wl = ramp(7000, dist="bimodal", seed=7000)
+    fe, rates = FrequencyEstimator(window_s=180.0), []
+    for r in wl:
+        fe.observe(r.arrival_t)
+        rates.append(fe.frequency(r.arrival_t))
+    sizes32 = np.array([r.data_size for r in wl], np.float32)
+    reqs = [Request(rid=i, arrival_t=r.arrival_t, data_size=float(s)) for i, (r, s) in enumerate(zip(wl, sizes32))]
+    sizes = torch.from_numpy(sizes32).to(dev)
+    f_dev = torch.tensor(rates, dtype=torch.float32, device=dev)
+    tally = {}
+    for ff, df in ((0, 0), (4, 8), (64, 512)):
+        got = on_card(f_dev, sizes, ff, df)
+        if got != place_along(pol, reqs, rates, ff, df):
+            raise AssertionError(f"placer on the card != the loop at N 7000, availability ({ff}, {df})")
+        for ft in (900.0, 5000.0):
+            if on_card(ft, sizes, ff, df) != [int(d.tier) for d in pol.place_all(reqs, ft, ff, df)]:
+                raise AssertionError(f"placer on the card != place_all at N 7000, f_t {ft}, ({ff}, {df})")
+        tally[f"({ff}, {df})"] = [got.count(t) for t in range(3)]
+    log(f"  placer == Python loop on the card: N 1024 (f_t 900, (4, 8)); N 7000 ramp, rate 1-{rates[-1]:.0f} "
+        f"along the arrivals and f_t 900 / 5000; flask/docker/serverless by availability {tally}")
+
+    t0 = time.perf_counter()
+    pol.place_all(reqs, 900.0, 4, 8)
+    loop_us = (time.perf_counter() - t0) / len(reqs) * 1e6
+    g = np.random.default_rng(1)
+    for n in (1024, 7000, 2**20):
+        if n == 7000:
+            s, f = sizes, f_dev
+        else:
+            big = g.random(n) >= 0.8
+            s = torch.from_numpy(np.where(big, g.lognormal(np.log(8e6), 0.4, n),
+                                          g.lognormal(np.log(150e3), 0.3, n)).astype(np.float32)).to(dev)
+            f = torch.arange(1, n + 1, dtype=torch.float32, device=dev) * (7000.0 / n)
+        fn = lambda: placing_batch_torch(f, s, 4, 8, F=PLACE_F, D=PLACE_D)  # noqa: E731
+        b_ms = 3 * 4 * n / HBM_BYTES_S * 1e3        # sizes and rates read, ids written, 4 B each
+        d = {"events_ms": time_ms(fn), "device_ms": device_ms(fn), "ops": device_ops(fn)}
+        log(f"  placing_batch_torch N {n}: {d['events_ms']:.7f} ms (CUDA events, back to back), device "
+            f"{d['device_ms']} ms (profiler), {d['ops']:.1f} device operations a call, bytes bound "
+            f"{b_ms:.7f} ms; {d['events_ms'] * 1e6 / n:.3f} ns a request")
+    log(f"  Python loop (place_all, N 7000) on this host: {loop_us:.4f} us a request")
+
+
+def sched_gates() -> None:
+    """The paper's gates of ``tests/test_system.py`` through the port's
+    simulator, at its loads: the interactive knee (Fig 4), the elastic
+    memory classes (Fig 5a), StraightLine against every static tier, the
+    hedge, the burst on the elastic tier, retry and autoscaler prewarming."""
+    from repro_torch.core import SimConfig, Simulation, StaticPolicy, StraightLinePolicy, Tier
+    from repro_torch.core.autoscaler import Autoscaler
+    from repro_torch.core.testbed import paper_tiers
+    from repro_torch.core.workload import burst, ramp
+
+    def run(policy, load, mem="3GB", seed=1, **kw):
+        sim = Simulation(policy, paper_tiers(seed=seed, elastic_mem=mem), SimConfig(**kw))
+        return sim.run(ramp(load, seed=load)).summary()
+
+    def gate(name: str, ok: bool, got) -> None:
+        log(f"  gate {name}: {got}")
+        if not ok:
+            raise AssertionError(f"paper gate {name} failed: {got}")
+
+    low, knee, high = (run(StaticPolicy(Tier.FLASK), n)["failure_rate"] for n in (800, 1400, 2000))
+    gate("knee (Fig 4)", low < 0.05 and knee > 0.15 and high > knee, (low, knee, high))
+    two = run(StaticPolicy(Tier.SERVERLESS), 6000, mem="2GB")["failure_rate"]
+    three = run(StaticPolicy(Tier.SERVERLESS), 6000, mem="3GB")["failure_rate"]
+    gate("memory classes (Fig 5a)", two > 0.25 and three < two * 0.5, (two, three))
+    for load, bound_ in ((1400, 0.05), (4000, 0.05), (6000, 0.15)):
+        sl = run(StraightLinePolicy(), load)["failure_rate"]
+        st = {t.name: run(StaticPolicy(t), load, mem="2GB" if t == Tier.SERVERLESS else "3GB")["failure_rate"]
+              for t in Tier}
+        gate(f"StraightLine beats every static tier at {load}",
+             sl < bound_ and all(sl <= v + 1e-9 for v in st.values()), (sl, st))
+    base = run(StraightLinePolicy(), 3000)["p95_response_s"]
+    hedged = run(StraightLinePolicy(), 3000, hedge_after_s=2.0)["p95_response_s"]
+    gate("hedging", hedged <= base + 0.5, (base, hedged))
+    m = Simulation(StraightLinePolicy(), paper_tiers(seed=0), SimConfig()).run(
+        burst(background_rate=2.0, burst_rate=120.0, burst_at_s=60, burst_len_s=20, seed=7))
+    n_elastic = sum(r.tier == Tier.SERVERLESS for r in m.completed)
+    gate("burst on the elastic tier", m.failure_rate < 0.05 and n_elastic > 0, (m.failure_rate, n_elastic))
+    plain = run(StaticPolicy(Tier.FLASK), 2500)["failure_rate"]
+    retried = run(StaticPolicy(Tier.FLASK), 2500, retry_failed_on_elastic=True)["failure_rate"]
+    gate("retry on elastic", retried < plain, (plain, retried))
+    wl = dict(background_rate=1.0, burst_rate=80.0, burst_at_s=90, burst_len_s=15, seed=9)
+    cold = Simulation(StaticPolicy(Tier.SERVERLESS), paper_tiers(seed=2), SimConfig()).run(burst(**wl))
+    warm = Simulation(StaticPolicy(Tier.SERVERLESS), paper_tiers(seed=2),
+                      SimConfig(autoscaler=Autoscaler())).run(burst(**wl))
+    cold_p95, warm_p95 = cold.summary()["p95_response_s"], warm.summary()["p95_response_s"]
+    gate("autoscaler prewarming", warm_p95 <= cold_p95 + 1e-9, (cold_p95, warm_p95))
+
+
+def phase_sched(torch, dev) -> None:
+    """Phase 11: the placer on the card, the paper's gates through the
+    port's simulator, then the five figure twins' rows (placement's
+    vectorized row timed on the card)."""
+    from repro_torch.benchmarks import (fig4_interactive, fig5_elastic, fig6_7_platforms,
+                                        fig8_response, placement)
+
+    t0 = time.perf_counter()
+    sched_placer(torch, dev)
+    t1 = time.perf_counter()
+    sched_gates()
+    t2 = time.perf_counter()
+    for mod in (fig4_interactive, fig5_elastic, fig6_7_platforms, fig8_response):
+        mod.main()
+    placement.main([])
+    log(f"  phase 11 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
+        f"figure twins {time.perf_counter() - t2:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2299,7 +2462,12 @@ def main() -> int:
     par.report()
     t_summary = time.perf_counter()
 
-    # 11. summary
+    # 11. sched
+    log(f"phase 11 sched: placing_batch_torch on the card, the paper's gates and figure twins "
+        f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
+    phase_sched(torch, dev)
+
+    # 12. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -2322,7 +2490,8 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
-    log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s)")
+    log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s, "
+        f"sched {time.perf_counter() - t_summary:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

@@ -1,9 +1,10 @@
 """StraightLine core: the paper's primary contribution.
 
-Empirical Dynamic Placing (Algorithm 1), telemetry, tracing and the online
-router — copies of the JAX package's JAX-free modules with their imports
-rewritten. The simulator, tier models and ``placing_batch_jax`` are not
-ported yet.
+Empirical Dynamic Placing (Algorithm 1) and its vectorized torch form,
+telemetry, tracing, the tier models, the discrete-event hybrid-infrastructure
+simulator and the online router — copies of the JAX package's JAX-free
+modules with their imports rewritten. The estimator carries one H100 card's
+rates; the paper testbed's tiers keep the paper machines' calibrated rates.
 """
 from repro_torch.core.placing import (
     AdaptiveThresholds,
@@ -13,8 +14,10 @@ from repro_torch.core.placing import (
     StaticPolicy,
     StraightLinePolicy,
     Thresholds,
+    placing_batch_torch,
 )
 from repro_torch.core.request import PlacementDecision, Request, Tier
+from repro_torch.core.simulator import SimConfig, Simulation
 from repro_torch.core.telemetry import (
     CapacityGauge,
     Counter,
@@ -31,6 +34,7 @@ from repro_torch.core.telemetry import (
     queue_depth,
     warm_fraction,
 )
+from repro_torch.core.tiers import TierConfig, TierSim
 from repro_torch.core.tracing import NULL_TRACER, Trace, Tracer, trace_now
 
 __all__ = [
@@ -49,15 +53,20 @@ __all__ = [
     "Request",
     "RoundRobinPolicy",
     "SLOAwarePolicy",
+    "SimConfig",
+    "Simulation",
     "StaticPolicy",
     "StraightLinePolicy",
     "Thresholds",
     "Tier",
+    "TierConfig",
+    "TierSim",
     "Trace",
     "Tracer",
     "batch_occupancy",
     "default_registry",
     "log_buckets",
+    "placing_batch_torch",
     "prefill_backlog",
     "queue_depth",
     "trace_now",

@@ -11,7 +11,7 @@ Faithful control flow::
 Variants (paper §IV future work, implemented here as beyond-paper features):
   * SLOAwarePolicy        — picks argmin estimated-completion subject to SLO
   * AdaptiveThresholds    — F/D re-fit online from telemetry + tier models
-  * (placing_batch_jax, the vectorized version, is not ported yet)
+  * placing_batch_torch   — vectorized torch version for high-rate routers
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.request import PlacementDecision, Request, Tier
 
@@ -232,3 +233,57 @@ class AdaptiveThresholds:
         self.th.D = max(1e4, (docker_service_s - flask_service_s) * link_bw)
         return self.th
 
+
+def placing_batch_torch(
+    f_t,                     # () or (N,) requests/window: a number, or a tensor on r_d's device
+    r_d: torch.Tensor,       # (N,) data sizes
+    flask_free,              # int, or 0-d int tensor on r_d's device — availability snapshot
+    docker_free,
+    F: float,
+    D: float,
+) -> torch.Tensor:
+    """Vectorized Algorithm 1 (availability consumed in arrival order):
+    returns int32 tier ids (N,) on ``r_d``'s device, the twin of the JAX
+    package's ``placing_batch_jax``. Rates and sizes are float32, and torch
+    compares them with F and D rounded to float32, as JAX's weak typing
+    does. Issues device work only: nothing here waits for the device."""
+    N = r_d.shape[0]
+    dev = r_d.device
+    r_d = r_d.to(torch.float32)
+    if isinstance(f_t, torch.Tensor):
+        f_t = f_t.to(device=dev, dtype=torch.float32).expand(N)
+    else:
+        f_t = torch.full((N,), float(f_t), dtype=torch.float32, device=dev)
+    # ranks are int32 and below N: a larger int pool is as good as N, and
+    # would wrap if compared as int32
+    if isinstance(flask_free, int):
+        flask_free = min(flask_free, N)
+    if isinstance(docker_free, int):
+        docker_free = min(docker_free, N)
+    burst = (f_t > F) & (r_d < D)
+    big = r_d > D
+    # availability is consumed by earlier requests in the batch
+    want_flask = ~burst & ~big
+    flask_rank = torch.cumsum(want_flask, 0, dtype=torch.int32) - 1
+    got_flask = want_flask & (flask_rank < flask_free)
+    want_docker2 = want_flask & ~got_flask
+    # docker availability is consumed by every docker placement — large
+    # payloads included. A docker2 candidate succeeds iff prior docker
+    # consumers (bigs + earlier candidates, all of which succeed until the
+    # pool is dry and none after) leave headroom.
+    docker_rank = torch.cumsum(big | want_docker2, 0, dtype=torch.int32) - 1
+    got_docker2 = want_docker2 & (docker_rank < docker_free)
+    serverless = torch.full((N,), int(Tier.SERVERLESS), dtype=torch.int32, device=dev)
+    return torch.where(
+        burst,
+        int(Tier.SERVERLESS),
+        torch.where(
+            big,
+            int(Tier.DOCKER),
+            torch.where(
+                got_flask,
+                int(Tier.FLASK),
+                torch.where(got_docker2, int(Tier.DOCKER), serverless),
+            ),
+        ),
+    )

@@ -7,8 +7,9 @@ from typing import Optional
 
 
 class Tier(enum.IntEnum):
-    """Execution tiers. Names follow the paper; the TPU-pod analogue is in
-    parentheses (DESIGN.md §2)."""
+    """Execution tiers. Names follow the paper; in parentheses, what backs
+    each in the port: a ``TierSim`` of ``core/testbed.py`` in the simulator,
+    a serving engine on the card in the launchers."""
 
     FLASK = 0       # local web server  (interactive slice)
     DOCKER = 1      # container/RESTful (batch slice, continuous batching)

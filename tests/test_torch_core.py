@@ -134,9 +134,10 @@ def test_import_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 25 or 'repro_torch.launch.serve' not in names\n"
-        "         or 'repro_torch.models.quant' not in names\n"
-        "         or 'repro_torch.serving.prefix_cache' not in names else 0)\n"
+        "need = {'repro_torch.launch.serve', 'repro_torch.models.quant',\n"
+        "        'repro_torch.serving.prefix_cache', 'repro_torch.core.simulator',\n"
+        "        'repro_torch.core.testbed', 'repro_torch.benchmarks.placement'}\n"
+        "sys.exit(1 if bad or len(names) < 64 or not need <= set(names) else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

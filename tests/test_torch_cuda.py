@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, through the
-``ops.py`` wrappers, and the paged engine on the card against the engine on
-the CPU. These tests carry the ``cuda`` marker and skip where there is no
+``ops.py`` wrappers, the paged engine on the card against the engine on the
+CPU, and the vectorized placer on the card against the CPU. These tests carry the ``cuda`` marker and skip where there is no
 card; on a machine with one run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -991,3 +991,42 @@ def test_cuda_launch_counts_exact_under_threads(cuda_device):
     torch.cuda.synchronize()
     assert rms_ops.rmsnorm.launches == 400
     assert da_ops.decode_attention.launches == 400
+
+
+@pytest.mark.cuda
+def test_cuda_placing_batch_matches_cpu_at_7000(cuda_device):
+    """The vectorized placer on the card against the CPU at the paper's top
+    ramp (7000 bimodal sessions a 180 s window), with the rate the window
+    estimator gives along those arrivals and scalar rates, availability
+    from none to a large pool (ints and 0-d tensors on the card), and
+    thresholds float32 represents or not, with the last requests' sizes
+    and rates at their float32 neighbours."""
+    import numpy as np
+
+    from repro_torch.core.placing import placing_batch_torch
+    from repro_torch.core.telemetry import FrequencyEstimator
+    from repro_torch.core.workload import ramp
+
+    reqs = ramp(7000, dist="bimodal", seed=7000)
+    fe = FrequencyEstimator(window_s=180.0)
+    f_t = []
+    for r in reqs:
+        fe.observe(r.arrival_t)
+        f_t.append(fe.frequency(r.arrival_t))
+    seen = set()
+    for F, D in ((1200.0, 1e6), (1200.3, 16777217.0)):
+        edge = [float(np.nextafter(np.float32(x), np.float32(d))) for x in (F, D) for d in (-np.inf, np.inf)]
+        edge += [float(np.float32(F)), float(np.float32(D))]
+        sizes = torch.tensor(np.array([r.data_size for r in reqs][:-6] + edge, np.float32))
+        rates = torch.tensor(f_t[:-6] + edge, dtype=torch.float32)
+        for ft in (rates, 900.0, 5000.0):
+            for ff, df in ((0, 0), (4, 8), (64, 512), (10**6, 10**6)):
+                want = placing_batch_torch(ft, sizes, ff, df, F=F, D=D)
+                seen |= set(want.tolist())
+                ft_d = ft.to(cuda_device) if isinstance(ft, torch.Tensor) else ft
+                for a, b in ((ff, df), (torch.tensor(ff, device=cuda_device),
+                                        torch.tensor(df, device=cuda_device))):
+                    got = placing_batch_torch(ft_d, sizes.to(cuda_device), a, b, F=F, D=D)
+                    assert got.device.type == "cuda" and got.dtype == torch.int32
+                    assert torch.equal(got.cpu(), want), (F, D, ff, df)
+    assert seen == {0, 1, 2}
