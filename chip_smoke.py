@@ -23,11 +23,14 @@ result line:
                 the paged decode's four legs at long rows split across
                 blocks (split boundaries, determinism, chained == flat),
                 flash also at a 2048-token prompt beside SDPA; then the
-                qkv_bias models' shapes at hd 128 (glm4-9b's G = 16 over 2
-                KV heads, qwen1.5-32b's G = 1 over 40): the dense decode at
-                the launcher's cache beside SDPA, the paged decode's four
-                legs at batch 8 with the pools phase's lengths, flash at
-                (1, 16, 32, 128), rmsnorm at (8, 4096) beside F.rms_norm
+                hd-128 models' shapes (glm4-9b's G = 16 over 2 KV heads,
+                qwen1.5-32b's G = 1 over 40, granite-8b's G = 4 over 8):
+                the dense decode at the launcher's cache beside SDPA, the
+                paged decode's four legs at batch 8 with the pools phase's
+                lengths, both page-pool writes at granite-8b's and
+                qwen1.5-32b's (1, Lp, KV, 128) with offsets, flash at the
+                16-token bucket over each model's heads beside SDPA,
+                rmsnorm at (8, 4096) and (8, 5120) beside F.rms_norm
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
@@ -79,18 +82,36 @@ result line:
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
                 the 40 layers at FULL width (other draws) on a dense engine
                 and both paged legs, for the parity phase
- 10. parity   — served requests re-run teacher-forced through the port's
-                plain paths on the CPU in f32 on the same weights: the
-                whole-sequence forward (phases 4, 7, 8 and 9), the dense
-                cache (phases 5 and 9) and the paged int8 pool (phases 6, 7
-                and 9); every
+ 10. int8w    — weight-only int8, glm4's weights moved to the host first.
+                granite-8b FULL in bf16 and with int8 weights
+                (quantize_params of the same tree, its bytes against the
+                reckoning; quantize_weight on the card == the CPU, and
+                qeinsum one rounding from f32), in one run: a batch-8 paged step each (73
+                rmsnorm and 36 paged decode launches, time, busy share,
+                device operations, side by side), a batch-4 dense step each
+                (36 decode_attention), launch/serve.main() with 32 requests
+                each, whole-prompt, --weights-int8 on the int8 tree.
+                qwen1.5-32b FULL with int8 weights drawn on the card by the
+                quantized init (standard-normal q/k/v biases; its bytes and
+                its peak memory against the tree): a paged step (129 + 64),
+                a dense step (64), the launcher with --weights-int8, the
+                pools phase's 8 prompts on an int8 chained pool. Then 4 of
+                the layers at FULL width (granite bf16 and int8 weights,
+                qwen int8 weights) on a dense engine and an int8 chained
+                pool, for the parity phase
+ 11. parity   — served requests re-run teacher-forced through the port's
+                plain paths on the CPU in f32 on the same weights (int8
+                weight values stay int8, the products in f32): the
+                whole-sequence forward (phases 4, 7, 8, 9 and 10), the dense
+                cache (phases 5 and 9) and the paged int8 pool (phases 6, 7,
+                9 and 10); every
                 spec-on and warm stream of phase 7, with the first
                 divergence of spec on from off and of warm from cold and
                 the CPU's lead there. Every flip's
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more)
- 11. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
+ 12. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
                 Python loop of ``StraightLinePolicy`` at N 1024 and at the
                 paper's top ramp (N 7000, availability (0, 0), (4, 8),
                 (64, 512)), its CUDA-event and device times, device
@@ -98,7 +119,7 @@ result line:
                 loop's host time a request; the paper's gates of
                 tests/test_system.py through the port's simulator; the five
                 figure twins' rows
- 12. summary  — the kernels JSON line, then the result line.
+ 13. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
 """
 import json
@@ -278,7 +299,35 @@ def int8_pools(torch, g, dev, NP, KV, ps, hd):
     return ik, iv, ks, vs
 
 
-def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
+def check_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt, KV=5, hd=64):
+    """One plain write at offset ``off`` into random pools against the plain
+    write through the shifted row: pages 1.. exact (page 0 absorbs pad writes
+    and writes past the row's end, and is never compared), pages the chunk
+    does not reach untouched, ids outside the pool dropped."""
+    ps = 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dt)
+
+    pool_k, pool_v = randn(NP, KV, ps, hd), randn(NP, KV, ps, hd)
+    k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
+    ck, cv = pool_k.clone(), pool_v.clone()
+    rk, rv = pool_k.clone(), pool_v.clone()
+    pa_ops.paged_prefill_write(ck, cv, k, v, row, offset=off)
+    write_ref(rk, rv, k, v, pa_ops._shift_row(row, off, ps))
+    torch.cuda.synchronize()
+    untouched = torch.ones(NP, dtype=torch.bool, device=dev)
+    ids = pa_ops.write_page_ids(row, off // ps, Lp, ps).long()
+    untouched[ids[(ids >= 0) & (ids < NP)]] = False
+    untouched[0] = False
+    name = f"paged_prefill_write KV={KV} hd={hd} Lp={Lp} off={off}"
+    if not (torch.equal(ck[1:], rk[1:]) and torch.equal(cv[1:], rv[1:])):
+        raise AssertionError(f"{name}: pages differ from the plain write")
+    if not (torch.equal(ck[untouched], pool_k[untouched]) and torch.equal(cv[untouched], pool_v[untouched])):
+        raise AssertionError(f"{name}: touched a page outside the row")
+
+
+def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt, KV=5, hd=64):
     """One quantizing write at offset ``off`` into random int8 pools against
     the plain write through the shifted row. The int8 values may differ from
     quantize_kv only where x * 127 / amax is exactly half-way between two
@@ -287,7 +336,7 @@ def check_quant_write(torch, pa_ops, write_ref, g, dev, NP, row, Lp, off, dt):
     reach must be untouched (page 0 absorbs pad writes and writes past the
     row's end, and is never compared; ids outside the pool are dropped).
     Returns (ties in the input, int8 values differing)."""
-    KV, ps, hd = 5, 16, 64
+    ps = 16
     pools = [torch.randint(-127, 128, (NP, KV, ps, hd), generator=g, device=dev).to(torch.int8)
              for _ in range(2)]
     scales = [torch.rand(NP, KV, ps, 1, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
@@ -480,21 +529,7 @@ def phase_kernels(torch, dev):
                                     (NP, row_small, 32, 80, f32), (NP, row_small, 16, 96, bf16),
                                     (NP, row_oob, 64, 0, bf16), (NPp, row_long, 256, 0, bf16),
                                     (NPp, row_long, 2048, 0, bf16)]:
-        pool_k, pool_v = randn(np_, KV, ps, hd, dtype=dt), randn(np_, KV, ps, hd, dtype=dt)
-        k, v = randn(1, Lp, KV, hd, dtype=dt), randn(1, Lp, KV, hd, dtype=dt)
-        ck, cv = pool_k.clone(), pool_v.clone()
-        rk, rv = pool_k.clone(), pool_v.clone()
-        pa_ops.paged_prefill_write(ck, cv, k, v, row, offset=off)
-        paged_prefill_write_ref(rk, rv, k, v, pa_ops._shift_row(row, off, ps))
-        torch.cuda.synchronize()
-        untouched = torch.ones(np_, dtype=torch.bool, device=dev)
-        ids = pa_ops.write_page_ids(row, off // ps, Lp, ps).long()
-        untouched[ids[(ids >= 0) & (ids < np_)]] = False
-        untouched[0] = False                 # page 0 absorbs pad writes: never compared
-        if not (torch.equal(ck[1:], rk[1:]) and torch.equal(cv[1:], rv[1:])):
-            raise AssertionError(f"paged_prefill_write Lp={Lp} off={off}: pages differ from the plain write")
-        if not (torch.equal(ck[untouched], pool_k[untouched]) and torch.equal(cv[untouched], pool_v[untouched])):
-            raise AssertionError(f"paged_prefill_write Lp={Lp} off={off}: touched a page outside the row")
+        check_write(torch, pa_ops, paged_prefill_write_ref, g, dev, np_, row, Lp, off, dt)
         log(f"  paged_prefill_write pool {np_} pages Lp={Lp} offset={off} {dt} row {row.tolist()[:6]}: "
             f"exact, untouched pages preserved")
 
@@ -1048,18 +1083,24 @@ def phase_kernels(torch, dev):
     return rows
 
 
-WIDE = {"glm4-9b": (2, 16), "qwen1.5-32b": (40, 1)}     # (KV, G) at hd 128
+WIDE = {"glm4-9b": (2, 16), "qwen1.5-32b": (40, 1), "granite-8b": (8, 4)}     # (KV, G) at hd 128
 
 
 def wide_shapes(torch, dev, g, rows, tab_p):
-    """The kernels at the qkv_bias models' shapes, each checked against its
+    """The kernels at the hd-128 models' shapes, each checked against its
     plain version (bf16 and f32) and timed (events, profiler, stalled
     events) beside its bound, into its row's ``by_shape``: the dense decode
     at the launcher's cache (4 slots, T = 96) and the paged decode's four
-    legs at batch 8 with the pools phase's lengths, both at glm4-9b's G = 16
-    (KV 2) and qwen1.5-32b's G = 1 (KV 40), hd 128, SDPA beside the dense
-    decode; flash at glm4-9b's 16-token bucket (1, 16, 32, 128); rmsnorm at
-    glm4-9b's width (8, 4096), beside F.rms_norm."""
+    legs at batch 8 with the pools phase's lengths, at glm4-9b's G = 16
+    (KV 2), qwen1.5-32b's G = 1 (KV 40) and granite-8b's G = 4 (KV 8), SDPA
+    beside the dense decode; both page-pool writes at granite-8b's and
+    qwen1.5-32b's (1, Lp, KV, 128), at offsets inside the row and past its
+    end, timed at the pools phase's 256-token bucket beside ``index_put_``
+    (the plain write); flash at the 16-token bucket over each model's heads,
+    (1, 16, 32, 128) over glm4-9b's 2 and granite-8b's 8 KV heads and
+    (1, 16, 40, 128) over qwen1.5-32b's 40, beside SDPA; rmsnorm at
+    glm4-9b's and granite-8b's width (8, 4096) and qwen1.5-32b's (8, 5120),
+    beside F.rms_norm."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -1067,7 +1108,11 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref,
+        paged_prefill_write_quant_ref,
+        paged_prefill_write_ref,
+    )
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -1156,34 +1201,90 @@ def wide_shapes(torch, dev, g, rows, tab_p):
                 bytes=nbytes, splits=pa_ops.plan_page_splits(B, KV, 16, ps, G),
                 head_groups=da_ops.head_groups(G)))
 
-    # flash at glm4-9b's 16-token bucket: 32 heads over 2, hd 128
-    S, H, KV = 16, 32, 2
-    for dt in (bf16, f32):
-        q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
-        want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
-        e = err(fa_ops.flash_attention(q, k, v), want)
-        torch.cuda.synchronize()
-        check_tol(f"flash_attention glm4-9b (1, {S}, {H}, {hd}) over {KV} KV heads {dt}", e, dt)
-        row["flash_attention"]["max_abs_err"] = max(row["flash_attention"]["max_abs_err"], e)
-    q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes, ops = 2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2
-    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_S)
-    add("flash_attention", "glm4-9b", time_shape(
-        lambda: fa_ops.flash_attention(q, k, v), lambda: attention_ref(qt, kt, vt),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        b_ms, b_by, shape=f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd})", bytes=nbytes, ops=ops))
+    # both page-pool writes at granite-8b's 8 and qwen1.5-32b's 40 KV heads:
+    # the small pool at offsets inside its 6-page row and past its end, the
+    # pools phase's 129-page pool through a 16-entry row
+    NP, NPp = 25, 129
+    row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
+    row_p = tab_p[7].to(dev)                                # 193 tokens: the 256-token bucket
+    for model in ("granite-8b", "qwen1.5-32b"):
+        KV = WIDE[model][0]
+        cases = [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16), (NP, row_small, 16, 96, bf16),
+                 (NP, row_small, 64, 32, f32), (NPp, row_p, 256, 0, bf16), (NPp, row_p, 224, 32, bf16)]
+        ties_total = diffs_total = 0
+        for (np_, r, Lp, off, dt) in cases:
+            check_write(torch, pa_ops, paged_prefill_write_ref, g, dev, np_, r, Lp, off, dt, KV, hd)
+            ties, diffs = check_quant_write(torch, pa_ops, paged_prefill_write_quant_ref, g, dev,
+                                            np_, r, Lp, off, dt, KV, hd)
+            ties_total += ties
+            diffs_total += diffs
+        log(f"  paged_prefill_write and paged_prefill_write_quant {model} (1, Lp, {KV}, {hd}) at "
+            f"(pool, Lp, offset, dtype) {[(c[0], c[2], c[3], str(c[4])) for c in cases]}: plain write "
+            f"exact; quantized scales exact, int8 values differing {diffs_total}, all at rounding ties "
+            f"(ties in the input {ties_total}); untouched pages preserved")
+        row["paged_prefill_write_quant"]["int8_values_differing"] += diffs_total
+        row["paged_prefill_write_quant"]["rounding_ties"] += ties_total
 
-    # rmsnorm at glm4-9b's width: the block-per-row path
-    R, D = 8, 4096
-    x, w = randn(R, D), torch.linspace(0.5, 1.5, D, device=dev).to(bf16)
-    e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
-    torch.cuda.synchronize()
-    check_tol(f"rmsnorm glm4-9b R={R} D={D} bf16 (block path)", e, bf16)
-    b_ms, b_by = bound(2 * (2 * R * D + D), 4 * R * D, F32_FLOPS_S)
-    add("rmsnorm", "glm4-9b", time_shape(
-        lambda: rms_ops.rmsnorm(x, w), lambda: rmsnorm_ref(x, w), lambda: F.rms_norm(x, (D,), w, 1e-6),
-        b_ms, b_by, shape=f"x ({R}, {D}) bf16"))
+        Lp = 256
+        pool_k, pool_v = randn(NPp, KV, ps, hd), randn(NPp, KV, ps, hd)
+        k, v = randn(1, Lp, KV, hd), randn(1, Lp, KV, hd)
+        t = torch.arange(Lp, device=dev)
+        at = (row_p.long()[t // ps][:, None], torch.arange(KV, device=dev)[None, :], (t % ps)[:, None])
+
+        def index_put(pool_k=pool_k, pool_v=pool_v, k=k, v=v, at=at):
+            pool_k.index_put_(at, k[0])
+            pool_v.index_put_(at, v[0])
+
+        nbytes = 2 * 2 * 2 * Lp * KV * hd + 4 * -(-Lp // ps)
+        b_ms, b_by = bound(nbytes, 0, F32_FLOPS_S)
+        a = (pool_k, pool_v, k, v, row_p)
+        add("paged_prefill_write", model, time_shape(
+            lambda a=a: pa_ops.paged_prefill_write(*a), lambda a=a: paged_prefill_write_ref(*a), index_put,
+            b_ms, b_by, shape=f"k/v (1, {Lp}, {KV}, {hd}) bf16 into ({NPp}, {KV}, {ps}, {hd})", bytes=nbytes))
+        qpools = [torch.zeros(NPp, KV, ps, hd, dtype=torch.int8, device=dev) for _ in range(2)]
+        qscales = [torch.zeros(NPp, KV, ps, 1, dtype=bf16, device=dev) for _ in range(2)]
+        nbytes = 2 * (2 * Lp * KV * hd + Lp * KV * (hd + 2)) + 4 * -(-Lp // ps)
+        b_ms, b_by = bound(nbytes, 0, F32_FLOPS_S)
+        a = (*qpools, *qscales, k, v, row_p)
+        add("paged_prefill_write_quant", model, time_shape(
+            lambda a=a: pa_ops.paged_prefill_write_quant(*a), lambda a=a: paged_prefill_write_quant_ref(*a),
+            None, b_ms, b_by, shape=f"k/v (1, {Lp}, {KV}, {hd}) bf16 into int8 ({NPp}, {KV}, {ps}, {hd}) "
+            f"+ bf16 scales", bytes=nbytes))
+
+    # flash at the 16-token bucket over each model's heads, hd 128
+    S = 16
+    for model, H, KV in (("glm4-9b", 32, 2), ("granite-8b", 32, 8), ("qwen1.5-32b", 40, 40)):
+        for dt in (bf16, f32):
+            q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
+            want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+            e = err(fa_ops.flash_attention(q, k, v), want)
+            torch.cuda.synchronize()
+            check_tol(f"flash_attention {model} (1, {S}, {H}, {hd}) over {KV} KV heads {dt}", e, dt)
+            row["flash_attention"]["max_abs_err"] = max(row["flash_attention"]["max_abs_err"], e)
+        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes, ops = 2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_S)
+        add("flash_attention", model, time_shape(
+            lambda a=(q, k, v): fa_ops.flash_attention(*a), lambda a=(qt, kt, vt): attention_ref(*a),
+            lambda a=(qt, kt, vt): F.scaled_dot_product_attention(*a, is_causal=True, enable_gqa=True),
+            b_ms, b_by, shape=f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd})", bytes=nbytes,
+            ops=ops))
+
+    # rmsnorm at glm4-9b's and granite-8b's width and at qwen1.5-32b's: the block-per-row path
+    R = 8
+    for model, D in (("glm4-9b", 4096), ("qwen1.5-32b", 5120)):
+        for dt in (bf16, f32):
+            x, w = randn(R, D, dtype=dt), torch.linspace(0.5, 1.5, D, device=dev).to(dt)
+            e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
+            torch.cuda.synchronize()
+            check_tol(f"rmsnorm {model} R={R} D={D} {dt} (block path)", e, dt)
+            row["rmsnorm"]["max_abs_err"] = max(row["rmsnorm"]["max_abs_err"], e)
+        x, w = randn(R, D), torch.linspace(0.5, 1.5, D, device=dev).to(bf16)
+        b_ms, b_by = bound(2 * (2 * R * D + D), 4 * R * D, F32_FLOPS_S)
+        add("rmsnorm", model, time_shape(
+            lambda x=x, w=w: rms_ops.rmsnorm(x, w), lambda x=x, w=w: rmsnorm_ref(x, w),
+            lambda x=x, w=w, D=D: F.rms_norm(x, (D,), w, 1e-6), b_ms, b_by, shape=f"x ({R}, {D}) bf16"))
 
 
 def counters():
@@ -1295,6 +1396,8 @@ def phase_step(torch, cfg, params, dev):
         f"synchronized, mean of {STEPS}); device busy share {busy}")
     for e in top[:10]:
         log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
+    per["timing"] = {"step_ms": step_ms, "device_us": dev_us / 5, "busy": dev_us / wall_us,
+                     "ops": sum(e.count for e in top) / 5}
     return per
 
 
@@ -1417,16 +1520,17 @@ def dense_step(torch, cfg, params, dev):
 
 
 def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
-                 need=("decode_attention",)):
-    """launch/serve.main() at FULL width in bf16 on dense engines; every
-    kernel in ``need`` must have been launched."""
+                 need=("decode_attention",), extra=()):
+    """launch/serve.main() at FULL width in bf16 on dense engines (``extra``:
+    more flags, e.g. --weights-int8); every kernel in ``need`` must have
+    been launched."""
     from repro_torch.launch import serve
 
-    out = OUT / f"launcher_{arch}_chunk{chunk_tokens}"
+    out = OUT / f"launcher_{arch}_chunk{chunk_tokens}{''.join(extra).replace('-', '_')}"
     out.mkdir(parents=True, exist_ok=True)
     argv = ["--arch", arch, "--workers", "4", "--prewarm", "--chunk-tokens", str(chunk_tokens),
             "--trace-out", str(out / "trace.json"), "--metrics-interval", "0.05",
-            "--metrics-out", str(out / "metrics.prom")]
+            "--metrics-out", str(out / "metrics.prom"), *extra]
     reset_counts()
     t0 = time.perf_counter()
     r = serve.main(argv, params=params)
@@ -1434,7 +1538,7 @@ def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
     wall = time.perf_counter() - t0
     counts = read_counts()
     m = r["metrics"].summary()
-    log(f"  launcher {arch} chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
+    log(f"  launcher {arch} {' '.join(extra)} chunk_tokens={chunk_tokens}: {m['total']} requests, {m['failed']} failed, "
         f"serve {r['wall_s']:.3f} s (wall {wall:.3f} s incl. tier set-up and prewarm), "
         f"placement {r['by_tier']}, median response {m['median_response_s']} s, "
         f"p99 {m['p99_response_s']} s; launches {counts}")
@@ -1859,17 +1963,20 @@ def phase_xlstm(torch, dev):
                        "xlstm_paged_chunk32": p_chunk["counts"]}}
 
 
-def glm4_params(torch, cfg, dev, seed: int):
-    """glm4-9b weights drawn on the card from a seeded CUDA generator (never
-    on the CPU), with bq, bk and bv overwritten by standard-normal draws so
+def seeded_params(torch, cfg, dev, seed: int):
+    """Weights drawn on the card from a seeded CUDA generator (never on the
+    CPU), through the quantized init when ``cfg.weights_int8``; bq, bk and
+    bv, where the config has them, overwritten by standard-normal draws so
     that the biases move the outputs."""
     from repro_torch.models import get_model
 
     gen = torch.Generator(dev).manual_seed(seed)
-    params = get_model(cfg).init(gen)
+    model = get_model(cfg)
+    params = model.init(gen)
     mixer = params["blocks"]["l0_mixer"]
     for name in ("bq", "bk", "bv"):
-        mixer[name].copy_(torch.randn(mixer[name].shape, generator=gen, device=dev))
+        if name in mixer:
+            mixer[name].copy_(torch.randn(mixer[name].shape, generator=gen, device=dev))
     return params
 
 
@@ -1894,7 +2001,7 @@ def phase_glm4(torch, dev):
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("glm4-9b")
-    params = glm4_params(torch, cfg, dev, 0)
+    params = seeded_params(torch, cfg, dev, 0)
     n_params = sum(t.numel() for t in _leaves(params))
     L = cfg.n_layers
     log(f"  glm4-9b FULL: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
@@ -1929,7 +2036,7 @@ def phase_glm4(torch, dev):
     torch.cuda.empty_cache()
 
     cfg4 = cfg.replace(n_layers=4)
-    p4 = glm4_params(torch, cfg4, dev, 1)
+    p4 = seeded_params(torch, cfg4, dev, 1)
     need = ("decode_attention", "flash_attention")
     served = {"dense": dense_run(torch, cfg4, p4, dev, 0, need),
               "bf16": pools_run(torch, cfg4, p4, dev, "bf16", False, chunk_tokens=32),
@@ -1937,6 +2044,196 @@ def phase_glm4(torch, dev):
     check_served("glm4 4L pools bf16", served["bf16"])
     check_served("glm4 4L pools int8", served["int8"])
     return {"cfg": cfg4, "params": p4, "served": served, "counts": counts}
+
+
+# Bytes of the weight-only int8 trees, reckoned from the configs by hand:
+# int8 projections and unembed, bf16 scales, embedding, norms and biases
+INT8_TREE_BYTES = {"granite-8b": 8_459_509_760, "qwen1.5-32b": 35_987_901_440}
+
+
+def int8_tree_bytes(cfg) -> int:
+    """A weight-only int8 tree's bytes from the config's widths: int8 wq,
+    wk, wv, wo, w1, w3, w2 and unembed, one bf16 scale per output channel,
+    the bf16 embedding, norms and q/k/v biases."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qo, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    ins, outs = (d, d, d, qo, d, d, f), (qo, kv, kv, d, f, f, d)
+    int8 = L * sum(i * o for i, o in zip(ins, outs)) + d * V
+    scales = 2 * (L * sum(outs) + V)
+    floats = 2 * (V * d + (2 * L + 1) * d + (L * (qo + 2 * kv) if cfg.qkv_bias else 0))
+    return int8 + scales + floats
+
+
+def check_tree_bytes(name: str, cfg, params) -> int:
+    got, want = sum(t.numel() * t.element_size() for t in _leaves(params)), int8_tree_bytes(cfg)
+    log(f"  {name} int8-weight tree: {got} B on the card (reckoned {want} B; "
+        f"{got / 1e9:.3f} GB)")
+    if not got == want == INT8_TREE_BYTES[cfg.name]:
+        raise AssertionError(f"{name}: {got} B, reckoned {want}, expected {INT8_TREE_BYTES[cfg.name]}")
+    return got
+
+
+def check_step(name: str, cfg, per) -> None:
+    L = cfg.n_layers
+    if per["rmsnorm"] != 2 * L + 1 or per["paged_attention"] != L:
+        raise AssertionError(f"{name} paged decode step: {per['rmsnorm']} rmsnorm and "
+                             f"{per['paged_attention']} paged decode launches, expected {2 * L + 1} and {L}")
+
+
+QEINSUM_ULP = 0.55     # one rounding from f32 (0.501 and 0.508 read on the H100); two give about 1
+
+
+def qeinsum_gap(torch, w) -> None:
+    """``quantize_weight`` of a granite-8b w1 slice (4096, 14336) on the card
+    against the CPU, bit for bit; then ``qeinsum`` of bf16 activations (8,
+    1, 4096) on it, the card (``torch.mm`` with f32 output) against the CPU
+    (f32 throughout) and both against an f64 product, in bf16 units in the
+    last place of each output (ulps below 2**-8 of the largest output
+    counted at that floor). The card must round once, from f32: within
+    QEINSUM_ULP of the f64 product (a bf16 rounding before the scale puts
+    it near 1 ulp) and within 1 ulp of the CPU."""
+    from repro_torch.models.quant import qeinsum, quantize_weight
+
+    card, host = quantize_weight(w), quantize_weight(w.cpu())
+    if not (torch.equal(card["q"].cpu(), host["q"])
+            and torch.equal(card["s"].cpu().view(torch.int16), host["s"].view(torch.int16))):
+        raise AssertionError("quantize_weight on the card differs from the CPU")
+    g = torch.Generator(w.device).manual_seed(2)
+    x = torch.randn(8, 1, w.shape[0], generator=g, device=w.device).to(torch.bfloat16)
+    y, y_cpu = qeinsum(x, card).cpu().float(), qeinsum(x.cpu(), host).float()
+    exact = (x.cpu().double() @ host["q"].double()) * host["s"].double()
+    ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp_min(float(exact.abs().max()) / 256))) - 7)
+    d = (y - y_cpu).abs()
+    to_cpu, card_f64 = float((d / ulp).max()), float(((y - exact).abs() / ulp).max())
+    log(f"  quantize_weight (4096, 14336) bf16 on the card == the CPU, bit for bit; qeinsum bf16 "
+        f"(8, 1, 4096) x int8 (4096, 14336): card against CPU max |d| {float(d.max()):.6g} "
+        f"({int((d > 0).sum())} of {d.numel()} outputs differ, largest {to_cpu:.3g} "
+        f"bf16 ulp); against f64: card {card_f64:.3g} ulp (bound {QEINSUM_ULP}), CPU "
+        f"{float(((y_cpu - exact).abs() / ulp).max()):.3g} ulp")
+    if not (card_f64 <= QEINSUM_ULP and to_cpu <= 1.0):
+        raise AssertionError(f"qeinsum on the card: {card_f64} bf16 ulp from the f64 product, {to_cpu} "
+                             f"from the CPU: not one rounding from f32")
+
+
+INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8w_granite(torch, dev, counts, steps) -> None:
+    """granite-8b FULL in bf16 and with int8 weights (``quantize_params`` of
+    the same tree, its bytes against the reckoning), in one run: each a
+    batch-8 paged decode step (73 rmsnorm and 36 paged decode launches,
+    time, busy share, device operations) and a batch-4 dense step (36
+    decode_attention), side by side, then the launcher's 32 requests each
+    (whole-prompt; --weights-int8 for the int8 tree)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.quant import quantize_params
+
+    cfg = get_config("granite-8b")
+    params = seeded_params(torch, cfg, dev, 0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  granite-8b FULL: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.hd}, {n_params} "
+        f"parameters, {2 * n_params} B in bf16")
+    qeinsum_gap(torch, params["blocks"]["l0_ffn"]["w1"][0])
+    legs = {"bf16": (cfg, params), "int8w": (cfg.replace(weights_int8=True), quantize_params(params))}
+    del params
+    check_tree_bytes("granite-8b", cfg, legs["int8w"][1])
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the card (both trees)")
+    for name, (c, p) in legs.items():
+        log(f"  granite-8b {name}:")
+        per = phase_step(torch, c, p, dev)
+        check_step(f"granite-8b {name}", c, per["decode step"])
+        steps[name] = dict(per["timing"], dense_ms=dense_step(torch, c, p, dev)[0])
+    a, b = steps["bf16"], steps["int8w"]
+    log(f"  granite-8b paged step, bf16 against int8 weights (one run): {a['step_ms']:.3f} / "
+        f"{b['step_ms']:.3f} ms host clock, {a['device_us']:.1f} / {b['device_us']:.1f} us device, "
+        f"busy {a['busy']:.4f} / {b['busy']:.4f}, {a['ops']:g} / {b['ops']:g} device operations; "
+        f"dense step {a['dense_ms']:.3f} / {b['dense_ms']:.3f} ms")
+    for name, (c, p) in legs.items():
+        extra = ("--weights-int8",) if c.weights_int8 else ()
+        counts[f"granite_{name}_launcher_whole_prompt"] = launcher_leg(
+            torch, 0, p, "granite-8b", INT8W_NEED, extra)[1]
+
+
+def int8w_qwen(torch, dev, counts, steps) -> None:
+    """qwen1.5-32b FULL with int8 weights drawn on the card by the quantized
+    init (standard-normal q/k/v biases), its bytes against the reckoning and
+    its peak memory against the tree: a batch-8 paged step (129 rmsnorm and
+    64 paged decode launches), a batch-4 dense step (64 decode_attention),
+    the launcher's 32 requests with --weights-int8 (whole-prompt), and the
+    pools phase's 8 prompts on an int8 chained pool."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen1.5-32b").replace(weights_int8=True)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tb = check_tree_bytes("qwen1.5-32b", cfg, params)
+    log(f"  qwen1.5-32b FULL: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads, drawn and quantized on the card in {time.perf_counter() - t0:.3f} s; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; {before / 2**30:.3f} GiB allocated "
+        f"before the draw), tree + 4 GiB = {(tb + 4 * 2**30) / 2**30:.3f} GiB")
+    if peak >= tb + 4 * 2**30:
+        raise AssertionError(f"qwen int8 init peak {peak} B, not below the tree {tb} B + 4 GiB")
+    per = phase_step(torch, cfg, params, dev)
+    check_step("qwen1.5-32b int8w", cfg, per["decode step"])
+    steps["qwen_int8w"] = dict(per["timing"], dense_ms=dense_step(torch, cfg, params, dev)[0])
+    counts["qwen_int8w_launcher_whole_prompt"] = launcher_leg(
+        torch, 0, params, "qwen1.5-32b", INT8W_NEED, ("--weights-int8",))[1]
+    i8 = pools_run(torch, cfg, params, dev, "int8", True)
+    check_served("qwen int8w pools int8 chained", i8)
+    for key in ("paged_prefill_write_quant", "paged_attention[int8+chained]"):
+        if i8["counts"][key] <= 0:
+            raise AssertionError(f"{key} was not launched in the qwen int8 chained pools run")
+    want = cfg.n_layers * 2 * cfg.n_kv_heads * (cfg.hd + 2)
+    log(f"  qwen kv_bytes_per_token: int8 {i8['snap']['kv_bytes_per_token']} B (from the shapes: {want})")
+    if i8["snap"]["kv_bytes_per_token"] != float(want):
+        raise AssertionError(f"qwen kv_bytes_per_token {i8['snap']['kv_bytes_per_token']}, expected {want}")
+    counts["qwen_int8w_pools_int8_chained"] = i8["counts"]
+
+
+def int8w_parity_models(torch, dev) -> dict:
+    """4 of the layers at FULL width for the parity phase: granite-8b in
+    bf16 and with int8 weights, qwen1.5-32b with int8 weights, each on a
+    dense engine (whole-prompt) and an int8 chained pool, then moved to the
+    host."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.quant import quantize_params
+
+    g4 = get_config("granite-8b").replace(n_layers=4)
+    q4 = get_config("qwen1.5-32b").replace(n_layers=4, weights_int8=True)
+    p4 = seeded_params(torch, g4, dev, 1)
+    served = {}
+    for name, c, p in (("granite-4L-bf16", g4, p4),
+                       ("granite-4L-int8w", g4.replace(weights_int8=True), quantize_params(p4)),
+                       ("qwen-4L-int8w", q4, seeded_params(torch, q4, dev, 1))):
+        served[name] = {"cfg": c, "params": p, "dense": dense_run(torch, c, p, dev, 0, INT8W_NEED[:2]),
+                        "int8": pools_run(torch, c, p, dev, "int8", True)}
+        check_served(f"{name} pools int8", served[name]["int8"])
+    offload(torch, list(served.values()))
+    return served
+
+
+def phase_int8w(torch, dev):
+    """Weight-only int8: granite-8b FULL in bf16 and with int8 weights side
+    by side, qwen1.5-32b FULL with int8 weights, each tree freed before the
+    next; then the 4-layer models of the parity phase."""
+    counts, steps = {}, {}
+    int8w_granite(torch, dev, counts, steps)
+    free_card(torch)
+    int8w_qwen(torch, dev, counts, steps)
+    free_card(torch)
+    return {"served": int8w_parity_models(torch, dev), "counts": counts, "steps": steps}
 
 
 def _leaves(tree):
@@ -1992,7 +2289,8 @@ class Parity:
         return cfg.replace(param_dtype=self.torch.float32, compute_dtype=self.torch.float32)
 
     def to_cpu(self, t):
-        return _map(t, lambda x: x.float().cpu())
+        """The tree on the host in f32; int8 weight values stay int8."""
+        return _map(t, lambda x: x.cpu() if x.dtype == self.torch.int8 else x.float().cpu())
 
     def check(self, name, rid, rows, out, bound=True):
         """Rows of CPU logits against the served tokens; with ``bound`` False
@@ -2189,6 +2487,29 @@ def parity_glm4(torch, par, glm4):
                 torch, cfg8, p32, r["prompts"][i], r["outs"][i], "paged"), r["outs"][i])
 
 
+def parity_int8w(torch, par, int8w):
+    """granite-8b (bf16 and int8 weights) and qwen1.5-32b (int8 weights) at
+    FULL width, 4 layers: the dense engine's 8 streams through the
+    whole-sequence forward, the first int8 chained paged stream (a
+    120-token prompt) through a paged int8 pool step by step, on the CPU in
+    f32 (``qeinsum`` in f32 on the int8 values), held to FLIP_BOUND."""
+    from repro_torch.models import get_model
+
+    with torch.no_grad():
+        for name, r in int8w["served"].items():
+            cfg32 = par.f32(r["cfg"])
+            p32 = par.to_cpu(r["params"])
+            model = get_model(cfg32)
+            d = r["dense"]
+            for i, (rows, out) in enumerate(zip(par.batch_rows(model, p32, d["prompts"], d["outs"]),
+                                                d["outs"])):
+                par.check(f"{name} dense", i, rows, out)
+            d = r["int8"]
+            par.check(f"{name} pools int8 chained", 0, teacher_forced_rows(
+                torch, cfg32.replace(kv_quant=True), p32, d["prompts"][0], d["outs"][0], "paged"),
+                d["outs"][0])
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
@@ -2359,7 +2680,7 @@ def phase_sched(torch, dev) -> None:
     for mod in (fig4_interactive, fig5_elastic, fig6_7_platforms, fig8_response):
         mod.main()
     placement.main([])
-    log(f"  phase 11 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
+    log(f"  phase 12 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
         f"figure twins {time.perf_counter() - t2:.1f} s")
 
 
@@ -2451,30 +2772,40 @@ def main() -> int:
         f"[at {time.perf_counter() - T_START:.1f} s]")
     glm4 = phase_glm4(torch, dev)
 
-    # 10. parity
-    log(f"phase 10 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    # 10. int8w: weight-only int8, granite-8b and qwen1.5-32b, glm4's trees moved off the card first
+    before = torch.cuda.memory_allocated()
+    offload(torch, [glm4])
+    log(f"phase 10 int8w: granite-8b FULL bf16 and int8 weights, qwen1.5-32b FULL int8 weights, glm4 "
+        f"weights moved to the host ({before / 2**30:.3f} -> {torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB allocated) [at {time.perf_counter() - T_START:.1f} s]")
+    int8w = phase_int8w(torch, dev)
+
+    # 11. parity
+    log(f"phase 11 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
     t_parity = time.perf_counter()
     par = Parity(torch)
     parity_smollm(torch, par, [chunked, whole], [l_chunk, l_whole], pools)
     parity_options(torch, par, opts)
     parity_xlstm(torch, par, xlstm)
     parity_glm4(torch, par, glm4)
+    parity_int8w(torch, par, int8w)
     par.report()
     t_summary = time.perf_counter()
 
-    # 11. sched
-    log(f"phase 11 sched: placing_batch_torch on the card, the paper's gates and figure twins "
+    # 12. sched
+    log(f"phase 12 sched: placing_batch_torch on the card, the paper's gates and figure twins "
         f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
     phase_sched(torch, dev)
 
-    # 12. summary
+    # 13. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
             "pools_bf16_chained": pools["bf16_chained"]["counts"],
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
-            "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"]}
+            "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
+            **int8w["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import glm4_9b, qwen15_32b, smollm_360m, xlstm_350m
+from repro_torch.configs import glm4_9b, granite_8b, qwen15_32b, smollm_360m, xlstm_350m
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -13,6 +13,7 @@ _MODULES = {
     "xlstm-350m": xlstm_350m,
     "glm4-9b": glm4_9b,
     "qwen1.5-32b": qwen15_32b,
+    "granite-8b": granite_8b,
 }
 
 

@@ -21,10 +21,15 @@ lifecycle traces as Chrome trace-event JSON, ``--metrics-interval`` samples
 every tier's ``capacity_now`` into time series, ``--metrics-out`` dumps the
 metrics registry as Prometheus text.
 
+``--weights-int8`` serves weight-only int8 (``models/quant.py``): every tier
+(interactive, batch, elastic) shares one quantized tree, drawn by
+``DecoderLM.init`` under ``weights_int8`` (a superblock's slice at a time, so qwen1.5-32b's
+tree fits one card), or ``quantize_params`` of the ``params`` passed in.
+Attention-only decoders; xlstm-350m raises ``WeightsInt8Error``.
+
 Where the JAX launcher always serves the smoke configuration, this one
 serves the FULL model (bf16) unless ``--smoke`` is given; ``--device``
-defaults to the card. ``--weights-int8`` (weight-only int8) raises: it is
-not ported yet.
+defaults to the card.
 """
 from __future__ import annotations
 
@@ -32,8 +37,6 @@ import argparse
 import threading
 import time
 from typing import List, Optional
-
-ROADMAP_WEIGHTS_INT8 = "weight-only int8 (--weights-int8) is not ported yet (ROADMAP Queue 1 item 8)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -68,14 +71,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None, params=None) -> dict:
-    """Serve the burst. ``params`` (the port's tree on the device) defaults
-    to random weights from ``torch.Generator(device)`` seeded with 0, as
-    the JAX launcher seeds its own. Returns the router metrics with the
-    placement per tier, the wall time, each request's prompt and output
-    tokens, the weights and the config."""
+    """Serve the burst. ``params`` (the port's tree on the device, plain or
+    quantized) defaults to random weights from ``torch.Generator(device)``
+    seeded with 0, as the JAX launcher seeds its own. Returns the router
+    metrics with the placement per tier, the wall time, each request's
+    prompt and output tokens, the weights and the config."""
     args = parse_args(argv)
-    if args.weights_int8:
-        raise NotImplementedError(ROADMAP_WEIGHTS_INT8)
 
     import numpy as np
     import torch
@@ -94,11 +95,15 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
     from repro_torch.core.router import Backend, StraightLineRouter
     from repro_torch.models import get_model
     from repro_torch.models.common import resolve_device
+    from repro_torch.models.quant import check_int8_family, quantize_params
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
     from repro_torch.serving.scheduler import EngineLoop
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke).replace(attn_chunk=64)
+    if args.weights_int8:
+        check_int8_family(cfg)
+        cfg = cfg.replace(weights_int8=True)
 
     def ecfg(slots):
         return EngineConfig(
@@ -108,11 +113,14 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
 
     t0 = time.time()
     if params is None:
-        params = get_model(cfg).init(torch.Generator(dev).manual_seed(0))
+        model, gen = get_model(cfg), torch.Generator(dev).manual_seed(0)
+        params = model.init(gen)
+    elif args.weights_int8:
+        params = quantize_params(params)
     interactive = InferenceEngine(cfg, ecfg(1), params=params, device=dev)
     batch_tier = InferenceEngine(cfg, ecfg(4), params=params, device=dev)
     print(f"tiers ready in {time.time()-t0:.1f}s ({cfg.name}, {'smoke' if args.smoke else 'FULL'}, "
-          f"{str(cfg.compute_dtype).replace('torch.', '')}, {dev})")
+          f"{str(cfg.compute_dtype).replace('torch.', '')}, {dev}, weights_int8={args.weights_int8})")
     if dev.type == "cuda":
         from repro_torch.kernels import _build
 

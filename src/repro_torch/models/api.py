@@ -2,7 +2,7 @@
 ``repro/models/api.py``, decoder-LM dense and paged paths).
 
     model = get_model(cfg)
-    params = model.init(torch.Generator(device).manual_seed(0))
+    params = model.init(torch.Generator(device).manual_seed(0))   # int8 with cfg.weights_int8
     cache = model.init_cache(batch, cap, device)            # dense stripes
     tok, cache = model.prefill(params, batch, cache)         # one slot's view
     pool = model.init_paged_cache(num_pages, page_size, device, batch)
@@ -25,6 +25,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, init_tree
 from repro_torch.models.loss import logits, next_tokens, next_tokens_all
+from repro_torch.models.quant import check_int8_family, init_quantized
 from repro_torch.models.rotary import positions_for
 
 
@@ -53,7 +54,18 @@ class DecoderLM:
         return tf.param_defs(self.cfg)
 
     def init(self, gen: torch.Generator):
-        """Random weights drawn from ``gen`` on the generator's device."""
+        """Random weights drawn from ``gen`` on the generator's device. With
+        ``cfg.weights_int8`` the tree is weight-only int8 (``models/quant.py``),
+        drawn leaf by leaf and a superblock's slice at a time, each slice
+        quantized as ``quantize_params`` quantizes the floating-point tree,
+        so that tree never exists whole: qwen1.5-32b's 70 GB of bf16 weights
+        become a 36 GB tree on the card. Bit for bit ``quantize_params`` of
+        the floating-point init on the CPU at smoke size; on the card its own
+        draw. Attention-only decoders: another mixer raises
+        ``WeightsInt8Error``."""
+        if self.cfg.weights_int8:
+            check_int8_family(self.cfg)
+            return init_quantized(gen, self.param_defs(), self.cfg.param_dtype, gen.device)
         return init_tree(gen, self.param_defs(), self.cfg.param_dtype, gen.device)
 
     # -- cache ---------------------------------------------------------------

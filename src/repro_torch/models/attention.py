@@ -14,7 +14,7 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from repro_torch.models.common import ModelConfig, ParamDef
-from repro_torch.models.quant import dequantize_kv, quantize_kv
+from repro_torch.models.quant import dequantize_kv, qeinsum, quantize_kv
 from repro_torch.models.rotary import apply_rope
 
 NEG_INF = -1e30
@@ -345,9 +345,9 @@ def _project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor, n_heads: int):
     H = n_heads
     KV = min(cfg.n_kv_heads, H)
     hd = cfg.hd
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = qeinsum(x, p["wq"])
+    k = qeinsum(x, p["wk"])
+    v = qeinsum(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -437,5 +437,5 @@ def self_attention(
             o = decode_attention(cfg, q, ck, cv, cache_index + S)
     else:
         raise ValueError(f"mode={mode!r}")
-    out = o.reshape(B, S, H * cfg.hd) @ p["wo"].to(x.dtype)
+    out = qeinsum(o.reshape(B, S, H * cfg.hd), p["wo"])
     return out, cache

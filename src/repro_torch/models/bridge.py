@@ -7,7 +7,10 @@ has no bf16: a bf16 leaf arrives either as the ``ml_dtypes`` bfloat16 array
 JAX hands out, or as its raw bits in a ``uint16`` array; both become
 ``torch.bfloat16`` bit for bit. The stacked layout is kept: ``blocks/l0_*``
 leaves carry the leading superblock axis, and ``embedding``, ``unembed`` and
-``final_norm`` sit at the top level.
+``final_norm`` sit at the top level. A tree that went through the JAX
+package's ``quantize_params`` carries a {"q", "s"} dict at each
+``QUANT_LEAVES`` key: int8 values of the leaf's shape, which stay int8, and
+bf16 scales of that shape with axis ndim - 2 at 1.
 """
 from __future__ import annotations
 
@@ -17,24 +20,36 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig, ParamDef, is_def
+from repro_torch.models.quant import QUANT_LEAVES, scale_shape
 from repro_torch.models.transformer import param_defs
 
 
-def _leaf(a, want: ParamDef, dtype, device, path: str) -> torch.Tensor:
+def _tensor(a, shape, path: str) -> torch.Tensor:
     a = np.array(a)          # a writable copy: JAX hands out read-only views
-    if tuple(a.shape) != tuple(want.shape):
-        raise ValueError(f"{path}: shape {a.shape} != expected {want.shape}")
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{path}: shape {a.shape} != expected {tuple(shape)}")
     if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _leaf(a, want: ParamDef, dtype, device, path: str):
+    if not isinstance(a, Mapping):
+        return _tensor(a, want.shape, path).to(device=device, dtype=dtype)
+    key = path.rsplit("/", 1)[-1]
+    if key not in QUANT_LEAVES or len(want.shape) < 2 or set(a) != {"q", "s"}:
+        raise ValueError(f"{path}: a quantized leaf (keys {sorted(a)}) where a plain one is expected")
+    q, s = _tensor(a["q"], want.shape, f"{path}/q"), _tensor(a["s"], scale_shape(want.shape), f"{path}/s")
+    if q.dtype != torch.int8 or s.dtype != torch.bfloat16:
+        raise ValueError(f"{path}: quantized leaf of {q.dtype} and {s.dtype}, expected int8 and bf16")
+    return {"q": q.to(device), "s": s.to(device)}
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, device) -> Any:
-    """numpy tree -> port tree on ``device`` in ``cfg.param_dtype``; every
-    leaf's shape is checked against the port's ParamDefs, and a missing or
-    extra key raises."""
+    """numpy tree -> port tree on ``device`` in ``cfg.param_dtype`` (a
+    quantized leaf keeps its int8 values and bf16 scales); every leaf's shape
+    is checked against the port's ParamDefs, and a missing or extra key
+    raises."""
     defs = param_defs(cfg)
 
     def walk(node, d, path):

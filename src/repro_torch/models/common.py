@@ -52,6 +52,7 @@ class ModelConfig:
     kv_quant: bool = False      # int8 KV cache (values + per-(token, head) bf16 scales)
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0
+    weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
     xlstm: Optional[XLSTMCfg] = None
 
     @property
@@ -113,12 +114,17 @@ def map_defs(fn, defs):
     return {k: map_defs(fn, v) for k, v in defs.items()}
 
 
+def init_scale(d: ParamDef) -> float:
+    """Standard deviation of a ``normal`` leaf's draw."""
+    return d.scale if d.scale else 1.0 / math.sqrt(max(1, d.fan_in()))
+
+
 def init_param(gen: torch.Generator, d: ParamDef, dtype, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    scale = d.scale if d.scale else 1.0 / math.sqrt(max(1, d.fan_in()))
+    scale = init_scale(d)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
     return (x * scale).to(dtype)
 

@@ -1,8 +1,9 @@
 """Greedy next-token selection from final hidden states.
 
-Logits are the product in the hidden dtype, then cast to f32 (as the JAX
-package's ``qeinsum(...).astype(f32)``), so bf16 logits round before the
-argmax exactly where the reference's do. Ties go to the FIRST maximum, like
+Logits are the product in the hidden dtype through ``quant.qeinsum`` (a
+weight-only int8 unembed included), then cast to f32, as the JAX package's
+``qeinsum(...).astype(f32)``, so bf16 logits round before the argmax exactly
+where the reference's do. Ties go to the FIRST maximum, like
 ``jnp.argmax``."""
 from __future__ import annotations
 
@@ -11,13 +12,13 @@ from typing import Mapping
 import torch
 
 from repro_torch.models.common import ModelConfig, unembed_weight
+from repro_torch.models.quant import qeinsum
 
 
 def logits(cfg: ModelConfig, params: Mapping, hidden: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (..., V) float32 logits (no softcap: argmax is monotone
     under it, and the JAX package's next-token path skips it too)."""
-    w = unembed_weight(cfg, params)
-    return (hidden @ w.to(hidden.dtype)).float()
+    return qeinsum(hidden, unembed_weight(cfg, params)).float()
 
 
 def first_argmax(x: torch.Tensor) -> torch.Tensor:

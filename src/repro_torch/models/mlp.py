@@ -1,5 +1,6 @@
-"""Dense FFN: gated (SwiGLU) or plain MLP. The products stay ``torch.matmul``,
-as the JAX package leaves them to XLA."""
+"""Dense FFN: gated (SwiGLU) or plain MLP. The products go through
+``quant.qeinsum`` (``torch.matmul``, or the weight-only int8 product), as the
+JAX package leaves them to XLA."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -7,6 +8,7 @@ from typing import Mapping
 import torch
 
 from repro_torch.models.common import ModelConfig, ParamDef, activation
+from repro_torch.models.quant import qeinsum
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -18,7 +20,7 @@ def mlp_defs(cfg: ModelConfig, d_ff: int = 0) -> dict:
 
 
 def mlp(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
-    h = activation(cfg, x @ p["w1"].to(x.dtype))
+    h = activation(cfg, qeinsum(x, p["w1"]))
     if cfg.gated_mlp:
-        h = h * (x @ p["w3"].to(x.dtype))
-    return h @ p["w2"].to(x.dtype)
+        h = h * qeinsum(x, p["w3"])
+    return qeinsum(h, p["w2"])

@@ -117,9 +117,23 @@ def test_launcher_serves_every_request(extra, tmp_path):
     assert trace.stat().st_size > 0 and "router_requests_total" in prom.read_text()
 
 
-def test_launcher_weights_int8_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        serve.main(["--smoke", "--device", "cpu", "--weights-int8"])
+def test_launcher_serves_weights_int8():
+    """``--weights-int8`` on the CPU: every tier serves the one quantized
+    tree (int8 values, bf16 scales), 8 requests, 0 failures."""
+    r = serve.main(["--smoke", "--device", "cpu", "--weights-int8", "--requests", "8"])
+    m = r["metrics"]
+    assert m.total == 8 and m.failure_rate == 0.0, m.summary()
+    assert all(len(out) == 8 for out in r["results"].values())
+    assert r["cfg"].weights_int8
+    w1 = r["params"]["blocks"]["l0_ffn"]["w1"]
+    assert w1["q"].dtype == torch.int8 and w1["s"].dtype == torch.bfloat16
+
+
+def test_launcher_serves_granite():
+    r = serve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--requests", "8"])
+    m = r["metrics"]
+    assert r["cfg"].name == "granite-8b" and m.total == 8 and m.failure_rate == 0.0, m.summary()
+    assert all(len(out) == 8 for out in r["results"].values())
 
 
 def test_import_loads_no_jax():
@@ -136,8 +150,9 @@ def test_import_loads_no_jax():
         "print(len(names), bad)\n"
         "need = {'repro_torch.launch.serve', 'repro_torch.models.quant',\n"
         "        'repro_torch.serving.prefix_cache', 'repro_torch.core.simulator',\n"
-        "        'repro_torch.core.testbed', 'repro_torch.benchmarks.placement'}\n"
-        "sys.exit(1 if bad or len(names) < 64 or not need <= set(names) else 0)\n"
+        "        'repro_torch.core.testbed', 'repro_torch.benchmarks.placement',\n"
+        "        'repro_torch.configs.granite_8b'}\n"
+        "sys.exit(1 if bad or len(names) < 65 or not need <= set(names) else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

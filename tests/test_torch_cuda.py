@@ -1030,3 +1030,74 @@ def test_cuda_placing_batch_matches_cpu_at_7000(cuda_device):
                     assert got.device.type == "cuda" and got.dtype == torch.int32
                     assert torch.equal(got.cpu(), want), (F, D, ff, df)
     assert seen == {0, 1, 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_weight_matches_cpu(cuda_device, dt):
+    """``quantize_weight`` on the card equals the CPU bit for bit (int8
+    values and bf16 scale bits) at granite-8b's w1 (4096, 14336), with a
+    zero column and a column of .5 ties; ``quantize_params`` of a stacked
+    leaf on the card equals the CPU's too."""
+    from repro_torch.models.quant import quantize_params, quantize_weight
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(4096, 14336, generator=g) * 0.015625
+    w[:, 0] = 0.0
+    w[:, 1] = (torch.arange(4096) % 8) - 3.5
+    w[0, 1] = 127.0
+    w = w.to(dt)
+    want, got = quantize_weight(w), quantize_weight(w.to(cuda_device))
+    assert torch.equal(got["q"].cpu(), want["q"])
+    assert torch.equal(got["s"].cpu().view(torch.int16), want["s"].view(torch.int16))
+    stacked = {"w2": torch.randn(3, 1024, 512, generator=g).to(dt)}
+    a, b = quantize_params(stacked)["w2"], quantize_params(_map(stacked, lambda t: t.to(cuda_device)))["w2"]
+    assert torch.equal(b["q"].cpu(), a["q"]) and torch.equal(b["s"].cpu().view(torch.int16),
+                                                              a["s"].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_qeinsum_matches_cpu(cuda_device):
+    """The int8 product on the card (bf16 weights from int8, cuBLAS with f32
+    output, the scales, a bf16 cast) against the CPU's f32 product at
+    granite-8b's widths, bf16 activations, within 2e-2; f32 within 2e-5."""
+    from repro_torch.models.quant import qeinsum, quantize_weight
+
+    g = torch.Generator().manual_seed(1)
+    for xs, ws in (((8, 1, 4096), (4096, 1024)), ((2, 16, 14336), (14336, 4096)),
+                   ((8, 4096), (4096, 49152)), ((4096,), (4096, 49152))):
+        w = quantize_weight(torch.randn(ws, generator=g) / ws[0] ** 0.5)
+        wd = _map(w, lambda t: t.to(cuda_device))
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(xs, generator=g) * 0.25).to(dt)
+            want = qeinsum(x, w)
+            got = qeinsum(x.to(cuda_device), wd)
+            assert got.dtype == dt and got.shape == want.shape
+            err = float((got.cpu().float() - want.float()).abs().max())
+            assert err < TOL[dt], (xs, dt, err)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_weights_engine_matches_cpu_engine(cuda_device):
+    """A paged engine serving granite-8b SMOKE in f32 with int8 weights on
+    the card (every kernel of the path, the product in f32 on int8 weights)
+    and on the CPU, the same quantized tree: identical greedy streams, in
+    16-token chunks on an f32 pool and whole-prompt on an int8 pool with
+    chained tables."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config("granite-8b", smoke=True).replace(attn_chunk=64, weights_int8=True)
+    model = get_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = _map(cpu_params, lambda t: t.to(cuda_device))
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 19, 30, 8)]
+    for kw in (dict(chunk_tokens=16), dict(cache_dtype="int8", chained_tables=True, table_page_entries=2)):
+        kw.update(page_size=8, num_pages=33, max_slots=3, max_seq_len=64, max_new_tokens=6)
+        want = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=cpu_params,
+                                                    device="cpu").generate(prompts)]
+        got = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=gpu_params,
+                                                   device=cuda_device).generate(prompts)]
+        assert got == want, kw
