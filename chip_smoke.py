@@ -30,7 +30,11 @@ result line:
                 lengths, both page-pool writes at granite-8b's and
                 qwen1.5-32b's (1, Lp, KV, 128) with offsets, flash at the
                 16-token bucket over each model's heads beside SDPA,
-                rmsnorm at (8, 4096) and (8, 5120) beside F.rms_norm
+                rmsnorm at (8, 4096) and (8, 5120) beside F.rms_norm; the
+                dense decode and flash also at qwen2-vl-2b's G = 6 over 2
+                KV heads (hd 128; the paged decode and the plain page-pool
+                write too, flash also at S 128 and 256, rmsnorm at 8 and
+                256 rows of 1536) and whisper's G = 1 over 20 (hd 64)
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
@@ -99,19 +103,38 @@ result line:
                 the layers at FULL width (granite bf16 and int8 weights,
                 qwen int8 weights) on a dense engine and an int8 chained
                 pool, for the parity phase
- 11. parity   — served requests re-run teacher-forced through the port's
+ 11. stubs    — the stub-frontend families, every earlier tree off the
+                card. qwen2-vl-2b FULL in bf16 (standard-normal q/k/v
+                biases): launch/serve.main() with 32 requests (dense,
+                32-token chunks), a batch-8 paged step (57 rmsnorm and 28
+                paged decode launches) and a batch-4 dense step (28
+                decode_attention), each timed and profiled; the pools
+                phase's 8 prompts on a paged engine, whole-prompt and in
+                32-token chunks; an image prompt (B 2, S 96, an 8 x 8 image
+                at 16, seeded embeddings, M-RoPE positions) through
+                EmbedsLM.prefill with no flash launch, then 16 decode steps
+                of 28 decode_attention, its logits apart from text-only
+                positions'. whisper-large-v3 FULL in bf16 (standard-normal
+                layernorm biases): seeded frames (4, 1500, 1280) and
+                16-token prompts through EncDecLM.prefill (32 flash, 0
+                rmsnorm), 32 decode steps of 32 decode_attention, the
+                encoder's and a step's time, busy share and device
+                operations, the cross-attention cache's bytes. Then 4
+                layers of qwen2-vl-2b and 4 + 4 of whisper at FULL width
+                for the parity phase
+ 12. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights (int8
                 weight values stay int8, the products in f32): the
-                whole-sequence forward (phases 4, 7, 8, 9 and 10), the dense
-                cache (phases 5 and 9) and the paged int8 pool (phases 6, 7,
-                9 and 10); every
+                whole-sequence forward (phases 4, 7, 8, 9, 10 and 11), the
+                dense cache (phases 5 and 9) and the paged int8 pool
+                (phases 6, 7, 9 and 10); every
                 spec-on and warm stream of phase 7, with the first
                 divergence of spec on from off and of warm from cold and
                 the CPU's lead there. Every flip's
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more)
- 12. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
+ 13. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
                 Python loop of ``StraightLinePolicy`` at N 1024 and at the
                 paper's top ramp (N 7000, availability (0, 0), (4, 8),
                 (64, 512)), its CUDA-event and device times, device
@@ -119,10 +142,12 @@ result line:
                 loop's host time a request; the paper's gates of
                 tests/test_system.py through the port's simulator; the five
                 figure twins' rows
- 13. summary  — the kernels JSON line, then the result line.
-Writes its longer outputs (build log, traces, metrics) under chip_smoke_out/.
+ 14. summary  — the kernels JSON line, then the result line.
+Writes its longer outputs (build log, traces, metrics, and timeline.log:
+every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -140,10 +165,16 @@ BF16_FLOPS_S = 989e12       # H100 SXM dense bf16 tensor cores
 TF32_FLOPS_S = 495e12       # H100 SXM dense TF32 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17
 FLIP_BOUND = 0.25           # max CPU-f32 logit lead over a GPU token that differs
+PROFILED_STEPS = 3          # steps a serving step's profile covers (device time, busy share)
 
 
 def log(msg: str) -> None:
+    """Print ``msg``; once the output directory exists, also append it to
+    chip_smoke_out/timeline.log behind the script's elapsed seconds."""
     print(msg, flush=True)
+    if OUT.is_dir():
+        with open(OUT / "timeline.log", "a") as f:
+            f.write(f"{time.perf_counter() - T_START:9.1f}  {msg}\n")
 
 
 def time_ms(fn, iters: int = 20, reps: int = 25) -> float:
@@ -165,7 +196,7 @@ def time_ms(fn, iters: int = 20, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 50):
+def device_ms(fn, n: int = 20):
     """Device time of one call: the time torch.profiler records on the card
     over ``n`` calls, divided by ``n`` (None if it records none).
     Unlike ``time_ms`` it leaves out the gaps in which the host is still
@@ -205,7 +236,7 @@ def stalled_device_ms(fn, n: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ops(fn, n: int = 20) -> float:
+def device_ops(fn, n: int = 10) -> float:
     """Device operations (kernels, copies, sets) per call, from torch.profiler."""
     import torch
 
@@ -1083,24 +1114,32 @@ def phase_kernels(torch, dev):
     return rows
 
 
-WIDE = {"glm4-9b": (2, 16), "qwen1.5-32b": (40, 1), "granite-8b": (8, 4)}     # (KV, G) at hd 128
+# (KV, G, hd) of the served models' attention; whisper-large-v3 has no paged path
+WIDE = {"glm4-9b": (2, 16, 128), "qwen1.5-32b": (40, 1, 128), "granite-8b": (8, 4, 128),
+        "qwen2-vl-2b": (2, 6, 128), "whisper-large-v3": (20, 1, 64)}
+PAGED_WIDE = ("glm4-9b", "qwen1.5-32b", "granite-8b", "qwen2-vl-2b")
 
 
 def wide_shapes(torch, dev, g, rows, tab_p):
-    """The kernels at the hd-128 models' shapes, each checked against its
-    plain version (bf16 and f32) and timed (events, profiler, stalled
+    """The kernels at the later served models' shapes, each checked against
+    its plain version (bf16 and f32) and timed (events, profiler, stalled
     events) beside its bound, into its row's ``by_shape``: the dense decode
-    at the launcher's cache (4 slots, T = 96) and the paged decode's four
-    legs at batch 8 with the pools phase's lengths, at glm4-9b's G = 16
-    (KV 2), qwen1.5-32b's G = 1 (KV 40) and granite-8b's G = 4 (KV 8), SDPA
-    beside the dense decode; both page-pool writes at granite-8b's and
-    qwen1.5-32b's (1, Lp, KV, 128), at offsets inside the row and past its
-    end, timed at the pools phase's 256-token bucket beside ``index_put_``
-    (the plain write); flash at the 16-token bucket over each model's heads,
-    (1, 16, 32, 128) over glm4-9b's 2 and granite-8b's 8 KV heads and
-    (1, 16, 40, 128) over qwen1.5-32b's 40, beside SDPA; rmsnorm at
-    glm4-9b's and granite-8b's width (8, 4096) and qwen1.5-32b's (8, 5120),
-    beside F.rms_norm."""
+    at the launcher's cache (4 slots, T = 96) at glm4-9b's G = 16 (KV 2),
+    qwen1.5-32b's G = 1 (KV 40), granite-8b's G = 4 (KV 8), qwen2-vl-2b's
+    G = 6 (KV 2), all at hd 128, and whisper-large-v3's G = 1 (KV 20) at hd
+    64, SDPA beside it; the paged decode's four legs at batch 8 with the
+    pools phase's lengths at each of them but whisper's (no paged path);
+    both page-pool writes at granite-8b's, qwen1.5-32b's and qwen2-vl-2b's
+    (1, Lp, KV, 128), at offsets inside the row and past its end and at
+    the pools phase's buckets (Lp 128 and 256), timed at the 256-token
+    bucket beside ``index_put_`` (the plain write; the quantizing write not
+    at qwen2-vl-2b's, served on bf16 pools only); flash at the 16-token
+    bucket over each model's heads, (1, 16, 32, 128) over glm4-9b's 2 and
+    granite-8b's 8 KV heads, (1, 16, 40, 128) over qwen1.5-32b's 40,
+    (1, S, 12, 128) over qwen2-vl-2b's 2 at S 16, 128 and 256, and (1, 16,
+    20, 64) over whisper's 20, beside SDPA; rmsnorm at glm4-9b's and
+    granite-8b's width (8, 4096), qwen1.5-32b's (8, 5120) and qwen2-vl-2b's
+    (8 and 256 rows of 1536), beside F.rms_norm."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -1117,7 +1156,7 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     bf16, f32 = torch.bfloat16, torch.float32
-    hd, ps, tpp = 128, 16, 4
+    ps, tpp = 16, 4
     row = {r["name"]: r for r in rows}
 
     def randn(*shape, dtype=bf16):
@@ -1127,7 +1166,7 @@ def wide_shapes(torch, dev, g, rows, tab_p):
         row[name].setdefault("by_shape", {})[key] = d
         log_shape(name, d["shape"], d)
 
-    for model, (KV, G) in WIDE.items():
+    for model, (KV, G, hd) in WIDE.items():
         # dense decode, the launcher's cache
         B, T, lens_l = 4, 96, [1, 9, 57, 96]
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -1156,6 +1195,8 @@ def wide_shapes(torch, dev, g, rows, tab_p):
             b_ms, b_by, shape=f"q ({B}, 1, {G * KV}, {hd}) bf16, cache ({B}, {T}, {KV}, {hd}), "
             f"lengths {lens_l}", bytes=nbytes, splits=da_ops.plan_splits(B, KV, T, G),
             head_groups=da_ops.head_groups(G)))
+        if model not in PAGED_WIDE:
+            continue
 
         # paged decode, the pools phase's batch: every leg
         B, NPp, lens_l = 8, 129, [120, 128, 129, 144, 161, 176, 193, 208]
@@ -1201,16 +1242,18 @@ def wide_shapes(torch, dev, g, rows, tab_p):
                 bytes=nbytes, splits=pa_ops.plan_page_splits(B, KV, 16, ps, G),
                 head_groups=da_ops.head_groups(G)))
 
-    # both page-pool writes at granite-8b's 8 and qwen1.5-32b's 40 KV heads:
-    # the small pool at offsets inside its 6-page row and past its end, the
-    # pools phase's 129-page pool through a 16-entry row
+    # both page-pool writes at granite-8b's 8, qwen1.5-32b's 40 and
+    # qwen2-vl-2b's 2 KV heads: the small pool at offsets inside its 6-page
+    # row and past its end, the pools phase's 129-page pool through a
+    # 16-entry row at its whole-prompt buckets (Lp 128 and 256)
     NP, NPp = 25, 129
     row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
     row_p = tab_p[7].to(dev)                                # 193 tokens: the 256-token bucket
-    for model in ("granite-8b", "qwen1.5-32b"):
-        KV = WIDE[model][0]
+    for model in ("granite-8b", "qwen1.5-32b", "qwen2-vl-2b"):
+        KV, _, hd = WIDE[model]
         cases = [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16), (NP, row_small, 16, 96, bf16),
-                 (NP, row_small, 64, 32, f32), (NPp, row_p, 256, 0, bf16), (NPp, row_p, 224, 32, bf16)]
+                 (NP, row_small, 64, 32, f32), (NPp, row_p, 128, 0, bf16), (NPp, row_p, 256, 0, bf16),
+                 (NPp, row_p, 256, 0, f32), (NPp, row_p, 224, 32, bf16)]
         ties_total = diffs_total = 0
         for (np_, r, Lp, off, dt) in cases:
             check_write(torch, pa_ops, paged_prefill_write_ref, g, dev, np_, r, Lp, off, dt, KV, hd)
@@ -1241,6 +1284,8 @@ def wide_shapes(torch, dev, g, rows, tab_p):
         add("paged_prefill_write", model, time_shape(
             lambda a=a: pa_ops.paged_prefill_write(*a), lambda a=a: paged_prefill_write_ref(*a), index_put,
             b_ms, b_by, shape=f"k/v (1, {Lp}, {KV}, {hd}) bf16 into ({NPp}, {KV}, {ps}, {hd})", bytes=nbytes))
+        if model == "qwen2-vl-2b":                          # served on bf16 pools only
+            continue
         qpools = [torch.zeros(NPp, KV, ps, hd, dtype=torch.int8, device=dev) for _ in range(2)]
         qscales = [torch.zeros(NPp, KV, ps, 1, dtype=bf16, device=dev) for _ in range(2)]
         nbytes = 2 * (2 * Lp * KV * hd + Lp * KV * (hd + 2)) + 4 * -(-Lp // ps)
@@ -1251,9 +1296,12 @@ def wide_shapes(torch, dev, g, rows, tab_p):
             None, b_ms, b_by, shape=f"k/v (1, {Lp}, {KV}, {hd}) bf16 into int8 ({NPp}, {KV}, {ps}, {hd}) "
             f"+ bf16 scales", bytes=nbytes))
 
-    # flash at the 16-token bucket over each model's heads, hd 128
-    S = 16
-    for model, H, KV in (("glm4-9b", 32, 2), ("granite-8b", 32, 8), ("qwen1.5-32b", 40, 40)):
+    # flash at the 16-token bucket over each model's heads and hd, and at
+    # qwen2-vl-2b's whole-prompt buckets of the pools phase (S 128 and 256)
+    for model, H, S in (("glm4-9b", 32, 16), ("granite-8b", 32, 16), ("qwen1.5-32b", 40, 16),
+                        ("qwen2-vl-2b", 12, 16), ("qwen2-vl-2b", 12, 128), ("qwen2-vl-2b", 12, 256),
+                        ("whisper-large-v3", 20, 16)):
+        KV, _, hd = WIDE[model]
         for dt in (bf16, f32):
             q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
             want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
@@ -1265,24 +1313,28 @@ def wide_shapes(torch, dev, g, rows, tab_p):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         nbytes, ops = 2 * (2 * H + 2 * KV) * S * hd, 4 * H * hd * S * (S + 1) // 2
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_S)
-        add("flash_attention", model, time_shape(
+        add("flash_attention", model if S == 16 else f"{model} S={S}", time_shape(
             lambda a=(q, k, v): fa_ops.flash_attention(*a), lambda a=(qt, kt, vt): attention_ref(*a),
             lambda a=(qt, kt, vt): F.scaled_dot_product_attention(*a, is_causal=True, enable_gqa=True),
             b_ms, b_by, shape=f"q (1, {S}, {H}, {hd}) bf16, k/v (1, {S}, {KV}, {hd})", bytes=nbytes,
             ops=ops))
 
-    # rmsnorm at glm4-9b's and granite-8b's width and at qwen1.5-32b's: the block-per-row path
-    R = 8
-    for model, D in (("glm4-9b", 4096), ("qwen1.5-32b", 5120)):
+    # rmsnorm at glm4-9b's and granite-8b's width and at qwen1.5-32b's (the
+    # block-per-row path), at qwen2-vl-2b's (one warp a row in bf16): a
+    # decode step's 8 rows, and a 256-token prompt's rows
+    for model, R, D in (("glm4-9b", 8, 4096), ("qwen1.5-32b", 8, 5120), ("qwen2-vl-2b", 8, 1536),
+                        ("qwen2-vl-2b", 256, 1536)):
         for dt in (bf16, f32):
             x, w = randn(R, D, dtype=dt), torch.linspace(0.5, 1.5, D, device=dev).to(dt)
             e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
             torch.cuda.synchronize()
-            check_tol(f"rmsnorm {model} R={R} D={D} {dt} (block path)", e, dt)
+            vec = 16 // x.element_size()
+            path = "one-warp" if D % vec == 0 and D // vec <= 256 else "block"
+            check_tol(f"rmsnorm {model} R={R} D={D} {dt} ({path} path)", e, dt)
             row["rmsnorm"]["max_abs_err"] = max(row["rmsnorm"]["max_abs_err"], e)
         x, w = randn(R, D), torch.linspace(0.5, 1.5, D, device=dev).to(bf16)
         b_ms, b_by = bound(2 * (2 * R * D + D), 4 * R * D, F32_FLOPS_S)
-        add("rmsnorm", model, time_shape(
+        add("rmsnorm", model if R == 8 else f"{model} R={R}", time_shape(
             lambda x=x, w=w: rms_ops.rmsnorm(x, w), lambda x=x, w=w: rmsnorm_ref(x, w),
             lambda x=x, w=w, D=D: F.rms_norm(x, (D,), w, 1e-6), b_ms, b_by, shape=f"x ({R}, {D}) bf16"))
 
@@ -1377,27 +1429,16 @@ def phase_step(torch, cfg, params, dev):
         sync()
         step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
         per["decode step"] = delta(a, snap(), STEPS)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                eng.step()
-            sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        top = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
-        dev_us = sum(e.self_device_time_total for e in top)
+        timing = profiled_steps(torch, eng.step)
     for k, v in per.items():
         log(f"  launches per {k}: { {n: c for n, c in v.items() if c} }")
-    busy = (f"{dev_us / wall_us:.4f} ({dev_us:.1f} us of {wall_us:.1f} us over 5 steps, "
-            f"{sum(e.count for e in top) / 5:g} device operations per step)"
-            if dev_us > 0 else "not measured (the profiler saw no device time)")
     log(f"  decode step, batch {B}, {cfg.name} {cfg.n_layers}L d_model {cfg.d_model} "
         f"{str(cfg.compute_dtype).replace('torch.', '')}: {step_ms:.3f} ms (host clock, "
-        f"synchronized, mean of {STEPS}); device busy share {busy}")
-    for e in top[:10]:
-        log(f"    device {e.self_device_time_total / 5:10.1f} us/step  x{e.count / 5:g}/step  {e.key[:90]}")
-    per["timing"] = {"step_ms": step_ms, "device_us": dev_us / 5, "busy": dev_us / wall_us,
-                     "ops": sum(e.count for e in top) / 5}
+        f"synchronized, mean of {STEPS}); {timing['text']}")
+    n = timing["n"]
+    for e in timing.pop("top")[:10]:
+        log(f"    device {e.self_device_time_total / n:10.1f} us/step  x{e.count / n:g}/step  {e.key[:90]}")
+    per["timing"] = dict(timing, step_ms=step_ms)
     return per
 
 
@@ -1488,16 +1529,17 @@ def chunked_write_ops(torch, cfg, params, dev):
     return {"per_layer": now / n, "shifted_row_per_layer": before / n}
 
 
-def dense_step(torch, cfg, params, dev):
-    """The launcher's dense engine shape (4 slots, max_len 96): launches per
-    decode step, one decode_attention per layer, and a batch-4 decode step's
-    time on the host clock (synchronized, mean of 20)."""
+def dense_step(torch, cfg, params, dev, chunk_tokens: int = 0):
+    """The launcher's dense engine shape (4 slots, max_len 96; prefill
+    whole-prompt, or in chunks of ``chunk_tokens``): launches per decode
+    step, one decode_attention per layer, and a batch-4 decode step's time
+    on the host clock (synchronized, mean of 20)."""
     from repro_torch.launch.serve_hybrid import prompt_for
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
 
     B, STEPS = 4, 20
-    eng = InferenceEngine(cfg, EngineConfig(max_slots=B, max_len=96, max_new_tokens=64),
-                          params=params, device=dev)
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=B, max_len=96, max_new_tokens=64,
+                                            chunk_tokens=chunk_tokens), params=params, device=dev)
     for i in range(B):
         eng.submit(prompt_for(i, cfg.vocab_size))
     while eng.waiting or any(eng._chunking):
@@ -1511,12 +1553,36 @@ def dense_step(torch, cfg, params, dev):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     per = {n: (c - a[n]) / STEPS for n, c in read_counts().items()}
+    timing = profiled_steps(torch, eng.step)
+    timing.pop("top")
     log(f"  dense decode step, batch {B}, {cfg.name} {cfg.n_layers}L: {step_ms:.3f} ms (host clock, "
-        f"synchronized, mean of {STEPS}); launches per step { {n: c for n, c in per.items() if c} }")
+        f"synchronized, mean of {STEPS}); {timing['text']}; launches per step "
+        f"{ {n: c for n, c in per.items() if c} }")
     if per["decode_attention"] != cfg.n_layers:
         raise AssertionError(f"dense decode step: {per['decode_attention']} decode_attention launches, "
                              f"expected {cfg.n_layers}")
-    return step_ms, per
+    return step_ms, per, dict(timing, step_ms=step_ms)
+
+
+def profiled_steps(torch, step, n: int = PROFILED_STEPS) -> dict:
+    """``n`` calls of ``step`` under torch.profiler: device time and device
+    operations a call, the device's busy share of the synchronized wall
+    time, and the device events by time (``top``)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
+    dev_us, ops = sum(e.self_device_time_total for e in events), sum(e.count for e in events) / n
+    text = (f"device {dev_us / n:.1f} us, busy share {dev_us / wall_us:.4f} ({dev_us:.1f} us of {wall_us:.1f} "
+            f"us over {n}), {ops:g} device operations a call" if dev_us > 0
+            else "device time not measured (the profiler saw no device time)")
+    return {"device_us": dev_us / n, "busy": dev_us / wall_us, "ops": ops, "text": text, "top": events,
+            "n": n}
 
 
 def launcher_leg(torch, chunk_tokens: int, params, arch: str = "smollm-360m",
@@ -1729,7 +1795,8 @@ def spec_run(torch, cfg, params, dev, kind: str, spec: int, cache_dtype: str = "
         else:
             one = lambda: eng._verify(0, toks, OPT_PROMPT)  # noqa: E731
         served = statistics.median(dt for _, _, dt in passes.calls) * 1e3
-        ops, dms = device_ops(one, 5), device_ms(one, 5)
+        prof = profiled_steps(torch, one, n=2)
+        ops, dms = prof["ops"], (prof["device_us"] / 1e3 if prof["device_us"] > 0 else None)
         cost = (f"; a verify pass {served:.3f} ms on the host clock (median of the served ones, "
                 f"synchronized), {ops:g} device operations, device time "
                 f"{'not measured' if dms is None else f'{dms:.4f} ms'}")
@@ -1965,18 +2032,25 @@ def phase_xlstm(torch, dev):
 
 def seeded_params(torch, cfg, dev, seed: int):
     """Weights drawn on the card from a seeded CUDA generator (never on the
-    CPU), through the quantized init when ``cfg.weights_int8``; bq, bk and
-    bv, where the config has them, overwritten by standard-normal draws so
-    that the biases move the outputs."""
+    CPU), through the quantized init when ``cfg.weights_int8``; every leaf
+    the init sets to zeros (the q/k/v biases, the layernorm biases)
+    overwritten by standard-normal draws, in the tree's order, so that it
+    moves the outputs."""
     from repro_torch.models import get_model
+    from repro_torch.models.common import is_def
 
     gen = torch.Generator(dev).manual_seed(seed)
     model = get_model(cfg)
     params = model.init(gen)
-    mixer = params["blocks"]["l0_mixer"]
-    for name in ("bq", "bk", "bv"):
-        if name in mixer:
-            mixer[name].copy_(torch.randn(mixer[name].shape, generator=gen, device=dev))
+
+    def draw(defs, node):
+        for key, d in defs.items():
+            if not is_def(d):
+                draw(d, node[key])
+            elif d.init == "zeros":
+                node[key].copy_(torch.randn(node[key].shape, generator=gen, device=dev))
+
+    draw(model.param_defs(), params)
     return params
 
 
@@ -2236,6 +2310,238 @@ def phase_int8w(torch, dev):
     return {"served": int8w_parity_models(torch, dev), "counts": counts, "steps": steps}
 
 
+IMAGE = (2, 96, 16, 8, 8)      # the image prompt: B, S, image_start, grid_h, grid_w
+IMAGE_STEPS = 16
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 16, 32
+STUB_PARAMS = {"qwen2-vl-2b": 1_777_088_000, "whisper-large-v3": 1_601_198_080}   # the FULL configs' own
+
+
+def n_params(cfg) -> int:
+    """Parameters of ``cfg`` reckoned from its ParamDefs (nothing drawn)."""
+    from repro_torch.models import get_model
+
+    def count(defs):
+        return sum(count(v) for v in defs.values()) if isinstance(defs, dict) else math.prod(defs.shape)
+
+    return count(get_model(cfg).param_defs())
+
+
+def image_prompt(torch, cfg, params, dev) -> dict:
+    """qwen2-vl-2b's image prompt: seeded inputs_embeds (B, S, d), an image
+    of grid_h x grid_w tokens at image_start, positions from
+    ``mrope_positions_with_image``, through ``EmbedsLM.prefill`` (no flash
+    launch: the image's tokens share a temporal index, which only the plain
+    path masks by) and IMAGE_STEPS decode steps at a scalar cache index (one
+    decode_attention a layer each). Then the whole-sequence forward over
+    the same embeddings with the image's positions and with text-only ones:
+    the prefill's tokens are the first's argmax, and the two differ."""
+    from repro_torch.models import get_model
+    from repro_torch.models.loss import first_argmax
+    from repro_torch.models.vlm import mrope_positions_with_image
+
+    B, S, start, gh, gw = IMAGE
+    L, model = cfg.n_layers, get_model(cfg)
+    gen = torch.Generator(dev).manual_seed(7)
+    emb = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(cfg.compute_dtype)
+    pos = mrope_positions_with_image(B, S, start, gh, gw, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    tok, cache = model.prefill(params, {"inputs_embeds": emb, "positions": pos}, cap=S + IMAGE_STEPS)
+    torch.cuda.synchronize()
+    prefill_ms, pre = (time.perf_counter() - t0) * 1e3, read_counts()
+    if pre["flash_attention"] != 0 or pre["rmsnorm"] != 2 * L + 1:
+        raise AssertionError(f"{cfg.name} image prefill: {pre['flash_attention']} flash and {pre['rmsnorm']} "
+                             f"rmsnorm launches, expected 0 and {2 * L + 1}")
+    outs = [tok]
+    t0 = time.perf_counter()
+    for j in range(IMAGE_STEPS):
+        a = read_counts()
+        tok, cache = model.decode(params, cache, {"token": tok[:, None], "cache_index": S + j})
+        if read_counts()["decode_attention"] - a["decode_attention"] != L:
+            raise AssertionError(f"{cfg.name} image decode step {j}: not {L} decode_attention launches")
+        outs.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / IMAGE_STEPS
+    outs = torch.stack(outs, 1).cpu().tolist()
+    with torch.no_grad():
+        l_img = model.logits(params, model.hidden(params, inputs_embeds=emb, positions=pos)[:, -1])
+        l_txt = model.logits(params, model.hidden(params, inputs_embeds=emb)[:, -1])
+    gap = float((l_img - l_txt).abs().max())
+    same = first_argmax(l_img).cpu().tolist() == [o[0] for o in outs]
+    log(f"  {cfg.name} {L}L image prompt (B {B}, S {S}, {gh} x {gw} image at {start}): prefill "
+        f"{prefill_ms:.3f} ms, launches {({n: c for n, c in pre.items() if c})}; {IMAGE_STEPS} decode steps "
+        f"{step_ms:.3f} ms each (host clock), {L} decode_attention each; last-position logits, image "
+        f"positions against text-only, max |d| {gap:.4f}; prefill tokens == argmax of the forward: {same}")
+    if not (gap > 0.05 and same):
+        raise AssertionError(f"{cfg.name} image prompt: logits gap {gap} to text-only positions, "
+                             f"prefill tokens equal to the forward's argmax: {same}")
+    return {"emb": emb, "pos": pos, "outs": outs, "prefill_counts": pre}
+
+
+def mrope_ops(torch, cfg, dev) -> None:
+    """Device operations of M-RoPE against RoPE on one decode step's q
+    (8, 1, H, hd) in bf16, from torch.profiler: what M-RoPE adds a layer is
+    twice the difference (q and k)."""
+    from repro_torch.models.rotary import apply_mrope, apply_rope, mrope_positions_for, positions_for
+
+    q = torch.randn(8, 1, cfg.n_heads, cfg.hd, device=dev).to(cfg.compute_dtype)
+    pos, pos3 = positions_for(8, 1, 100, dev), mrope_positions_for(8, 1, 100, dev)
+    rope = device_ops(lambda: apply_rope(q, pos, cfg.rope_theta))
+    mrope = device_ops(lambda: apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections))
+    log(f"  device operations a call on q (8, 1, {cfg.n_heads}, {cfg.hd}): RoPE {rope:g}, M-RoPE {mrope:g}: "
+        f"M-RoPE adds {2 * (mrope - rope):g} a layer (q and k)")
+
+
+def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
+    """qwen2-vl-2b FULL in bf16 (standard-normal q/k/v biases): the
+    launcher's 32 requests (dense, 32-token chunks: the whole-prompt dense
+    prefill wants embeddings), a batch-8 paged step (57 rmsnorm and 28
+    paged decode launches) and a batch-4 dense step (28 decode_attention),
+    each timed and profiled; a paged engine serving the pools phase's 8
+    prompts whole-prompt and in 32-token chunks; the image prompt."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen2-vl-2b")
+    params = seeded_params(torch, cfg, dev, 0)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  qwen2-vl-2b FULL: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.hd}, M-RoPE sections "
+        f"{cfg.mrope_sections}, {n} parameters, {2 * n} B in bf16")
+    if not n == n_params(cfg) == STUB_PARAMS[cfg.name]:
+        raise AssertionError(f"qwen2-vl-2b: {n} parameters, reckoned {n_params(cfg)}")
+    mrope_ops(torch, cfg, dev)
+    counts["qwen2vl_launcher_chunk32"] = launcher_leg(torch, 32, params, "qwen2-vl-2b",
+                                                      ("decode_attention", "rmsnorm"))[1]
+    per = phase_step(torch, cfg, params, dev)
+    check_step("qwen2-vl-2b", cfg, per["decode step"])
+    steps["qwen2vl_paged"] = per["timing"]
+    steps["qwen2vl_dense"] = dense_step(torch, cfg, params, dev, chunk_tokens=32)[2]
+    for chunk in (0, 32):
+        run = pools_run(torch, cfg, params, dev, "bf16", False, chunk_tokens=chunk)
+        name = f"qwen2vl_pools_bf16_{'chunk32' if chunk else 'whole_prompt'}"
+        check_served(name, run)
+        for key in ("paged_prefill_write", "paged_attention[flat]") + (() if chunk else ("flash_attention",)):
+            if run["counts"][key] <= 0:
+                raise AssertionError(f"{key} was not launched in {name}")
+        counts[name] = run["counts"]
+    counts["qwen2vl_image_prefill"] = image_prompt(torch, cfg, params, dev)["prefill_counts"]
+
+
+def whisper_run(torch, cfg, params, dev) -> dict:
+    """Seeded frames (B, n_ctx, d) and prompts of WHISPER_PROMPT tokens
+    through ``EncDecLM.prefill`` (one flash launch a decoder layer, no
+    rmsnorm: layernorm is plain torch, the encoder and cross-attention take
+    the plain path), then WHISPER_STEPS decode steps (one decode_attention a
+    layer each): the encoder's time alone, the prefill's, a decode step's
+    on the host clock and under the profiler, and the cache's bytes."""
+    from repro_torch.models import get_model
+    from repro_torch.models import whisper as wh
+
+    B, P, T, L = WHISPER_B, WHISPER_PROMPT, cfg.encoder.n_ctx, cfg.n_layers
+    model = get_model(cfg)
+    gen = torch.Generator(dev).manual_seed(8)
+    frames = torch.randn(B, T, cfg.d_model, generator=gen, device=dev).to(cfg.compute_dtype)
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    enc_ms = []
+    with torch.no_grad():
+        for _ in range(2):                                  # the second without first-call costs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wh.encode(cfg, params, frames)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+        enc = profiled_steps(torch, lambda: wh.encode(cfg, params, frames), n=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    tok, cache = model.prefill(params, {"frames": frames, "tokens": toks}, cap=P + WHISPER_STEPS)
+    torch.cuda.synchronize()
+    prefill_ms, pre = (time.perf_counter() - t0) * 1e3, read_counts()
+    if pre["flash_attention"] != L or pre["rmsnorm"] != 0:
+        raise AssertionError(f"{cfg.name} prefill: {pre['flash_attention']} flash and {pre['rmsnorm']} rmsnorm "
+                             f"launches, expected {L} and 0")
+    outs, state = [tok], {"tok": tok, "cache": cache, "at": P}
+
+    def step():
+        a = read_counts()["decode_attention"]
+        state["tok"], state["cache"] = model.decode(params, state["cache"],
+                                                    {"token": state["tok"][:, None], "cache_index": state["at"]})
+        if read_counts()["decode_attention"] - a != L:
+            raise AssertionError(f"{cfg.name} decode step at {state['at']}: not {L} decode_attention launches")
+        state["at"] += 1
+        outs.append(state["tok"])
+
+    n_timed = WHISPER_STEPS - PROFILED_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    timing = profiled_steps(torch, step)
+    top = {"encoder": (enc.pop("top"), enc["n"]), "decode step": (timing.pop("top"), timing["n"])}
+    blocks = state["cache"]["blocks"]
+    cross = sum(t.numel() * t.element_size() for k, v in blocks.items() if k.endswith("_cross") for t in v.values())
+    self_ = sum(t.numel() * t.element_size() for k, v in blocks.items() if k.endswith("_mixer") for t in v.values())
+    cross_seq, self_tok = cross / B, self_ / (B * (P + WHISPER_STEPS))
+    want = (L * 2 * T * cfg.n_heads * cfg.hd * 2, L * 2 * cfg.n_kv_heads * cfg.hd * 2)
+    log(f"  {cfg.name} {L}+{cfg.encoder.n_layers}L, frames ({B}, {T}, {cfg.d_model}), prompts of {P}: encoder "
+        f"{enc_ms[1]:.3f} ms (first call {enc_ms[0]:.3f}), prefill {prefill_ms:.3f} ms (launches "
+        f"{ {n: c for n, c in pre.items() if c} }); decode step {step_ms:.3f} ms (host clock, synchronized, "
+        f"mean of {n_timed}), {timing['text']}, {L} decode_attention each; cross-attention cache {cross_seq:.0f} B "
+        f"a sequence, self-attention cache {self_tok:.0f} B a token (reckoned {want[0]} and {want[1]}); "
+        f"encoder under the profiler: {enc['text']}")
+    for name, (events, n) in top.items():
+        for e in events[:6]:
+            log(f"    {name}: device {e.self_device_time_total / n:10.1f} us  x{e.count / n:g}  {e.key[:90]}")
+    if (cross_seq, self_tok) != (float(want[0]), float(want[1])):
+        raise AssertionError(f"{cfg.name} cache bytes {cross_seq}, {self_tok}, reckoned {want}")
+    return {"frames": frames, "prompts": toks.cpu().tolist(), "outs": torch.stack(outs, 1).cpu().tolist(),
+            "prefill_counts": pre, "timing": dict(timing, step_ms=step_ms, encoder_ms=enc_ms[1],
+                                                  encoder_device_us=enc["device_us"], prefill_ms=prefill_ms)}
+
+
+def phase_stubs(torch, dev):
+    """The two stub-frontend families, each tree freed before the next:
+    qwen2-vl-2b FULL (``stubs_qwen2_vl``), whisper-large-v3 FULL
+    (``whisper_run``); then 4 layers of qwen2-vl-2b and 4 encoder and 4
+    decoder layers of whisper at FULL width (other draws) served for the
+    parity phase: the qwen dense engine's 8 launcher prompts in 32-token
+    chunks and its image prompt, whisper's prefill and decode."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    counts, steps = {}, {}
+    stubs_qwen2_vl(torch, dev, counts, steps)
+    free_card(torch)
+    cfg = get_config("whisper-large-v3")
+    params = seeded_params(torch, cfg, dev, 0)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  whisper-large-v3 FULL: {cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, hd {cfg.hd}, {cfg.encoder.n_ctx} frames, {n} parameters, "
+        f"{2 * n} B in bf16")
+    if not n == n_params(cfg) == STUB_PARAMS[cfg.name]:
+        raise AssertionError(f"whisper-large-v3: {n} parameters, reckoned {n_params(cfg)}")
+    run = whisper_run(torch, cfg, params, dev)
+    counts["whisper_prefill"], steps["whisper"] = run["prefill_counts"], run["timing"]
+    del params, run
+    free_card(torch)
+
+    q4 = get_config("qwen2-vl-2b").replace(n_layers=4)
+    w4 = cfg.replace(n_layers=4, encoder=dataclasses.replace(cfg.encoder, n_layers=4))
+    log(f"  parity models: qwen2-vl-2b 4L {n_params(q4)} parameters, whisper 4+4L {n_params(w4)}")
+    pq, pw = seeded_params(torch, q4, dev, 1), seeded_params(torch, w4, dev, 1)
+    served = {"qwen": {"cfg": q4, "params": pq, "dense": dense_run(torch, q4, pq, dev, 32, ("decode_attention",)),
+                       "image": image_prompt(torch, q4, pq, dev)},
+              "whisper": {"cfg": w4, "params": pw, "run": whisper_run(torch, w4, pw, dev)}}
+    for r in (served["qwen"]["image"], served["whisper"]["run"]):
+        for key in ("emb", "pos", "frames"):
+            if key in r:
+                r[key] = r[key].cpu()
+    offload(torch, list(served.values()))
+    return {"served": served, "counts": counts, "steps": steps}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2248,32 +2554,47 @@ def teacher_forced_rows(torch, cfg, params, prompt, out, layout: str):
     """Logit rows of the port's plain path on the CPU for the prompt and
     every served token but the last, fed one decode step at a time: a dense
     cache, or a paged int8 pool on 16-token pages."""
+    return teacher_forced_batch(torch, cfg, params, [prompt], [out], layout)[0]
+
+
+def teacher_forced_batch(torch, cfg, params, prompts, outs, layout: str):
+    """``teacher_forced_rows`` for streams of one prompt length and one
+    output length, decoded together: a dense cache of len(prompts) slots,
+    or one paged pool with a row of pages a stream (each prompt prefilled
+    into its row). Returns one (len(out), V) tensor a stream."""
     from repro_torch.models import attention as attn
     from repro_torch.models import get_model
     from repro_torch.models import transformer as tf
     from repro_torch.models.rotary import positions_for
 
     model = get_model(cfg)
-    n = len(prompt) + len(out)
+    B, L = len(prompts), len(prompts[0])
+    if {len(p) for p in prompts} != {L} or len({len(o) for o in outs}) != 1:
+        raise ValueError("teacher_forced_batch: streams of unequal lengths")
+    n = L + len(outs[0])
+    prompt_t = torch.tensor(prompts)
     if layout == "dense":
-        cache = model.init_cache(1, n, "cpu")
-        pidx = 0
+        cache = model.init_cache(B, n, "cpu")
+        h, cache = tf.forward(cfg, params, prompt_t, positions_for(B, L), mode="prefill", cache=cache,
+                              cache_index=0)
     else:
         pages = -(-n // 16)
-        cache = model.init_paged_cache(1 + pages, 16, "cpu")
-        row = torch.arange(1, pages + 1, dtype=torch.int32)
-        pidx = attn.PagedPrefillIndex(row, 0)
-    L = len(prompt)
-    h, cache = tf.forward(cfg, params, torch.tensor([prompt]), positions_for(1, L), mode="prefill",
-                          cache=cache, cache_index=pidx)
-    rows = [model.logits(params, h[0, -1])]
-    for j, tok in enumerate(out[:-1]):
-        pos = torch.tensor([L + j], dtype=torch.int32)
-        idx = pos if layout == "dense" else attn.PagedIndex(pos, row[None, :])
-        h, cache = tf.forward(cfg, params, torch.tensor([[tok]]), pos[:, None], mode="decode",
-                              cache=cache, cache_index=idx)
-        rows.append(model.logits(params, h[0, -1]))
-    return rows
+        cache = model.init_paged_cache(1 + B * pages, 16, "cpu")
+        rows_t = torch.arange(1, 1 + B * pages, dtype=torch.int32).view(B, pages)
+        hs = []
+        for b in range(B):
+            h, cache = tf.forward(cfg, params, prompt_t[b:b + 1], positions_for(1, L), mode="prefill",
+                                  cache=cache, cache_index=attn.PagedPrefillIndex(rows_t[b], 0))
+            hs.append(h)
+        h = torch.cat(hs)
+    rows = [model.logits(params, h[:, -1])]
+    for j in range(len(outs[0]) - 1):
+        pos = torch.full((B,), L + j, dtype=torch.int32)
+        idx = pos if layout == "dense" else attn.PagedIndex(pos, rows_t)
+        tok = torch.tensor([[o[j]] for o in outs])
+        h, cache = tf.forward(cfg, params, tok, pos[:, None], mode="decode", cache=cache, cache_index=idx)
+        rows.append(model.logits(params, h[:, -1]))
+    return list(torch.stack(rows, 1))
 
 
 class Parity:
@@ -2380,7 +2701,8 @@ def first_divergence(label: str, a_outs, b_outs, rows) -> None:
 
 def parity_options(torch, par, opts):
     """Every spec-on and warm stream of the options phase against the CPU f32
-    forward (the int8 spec leg through a paged int8 pool, step by step),
+    forward (the int8 spec leg through a paged int8 pool, its 8 streams
+    decoded together step by step),
     held to FLIP_BOUND; then the first divergence of spec on from spec off
     and of warm from cold, with the CPU's lead at that step."""
     from repro_torch.models import get_model
@@ -2398,9 +2720,9 @@ def parity_options(torch, par, opts):
                 par.check(f"smollm-options {r['name']}", i, rows[key][i], out)
         r = spec["paged_int8"]
         cfg8 = cfg32.replace(kv_quant=True)
-        for i, (prompt, out) in enumerate(zip(r["prompts"], r["outs"])):
-            par.check(f"smollm-options {r['name']}", i,
-                      teacher_forced_rows(torch, cfg8, p32, prompt, out, "paged"), out)
+        int8_rows = teacher_forced_batch(torch, cfg8, p32, r["prompts"], r["outs"], "paged")
+        for i, (rows_i, out) in enumerate(zip(int8_rows, r["outs"])):
+            par.check(f"smollm-options {r['name']}", i, rows_i, out)
         for key in ("on_chunk0", "on_chunk32"):
             r = prefix[key]
             for t, (prompts, outs) in enumerate(r["turns"]):
@@ -2508,6 +2830,40 @@ def parity_int8w(torch, par, int8w):
             par.check(f"{name} pools int8 chained", 0, teacher_forced_rows(
                 torch, cfg32.replace(kv_quant=True), p32, d["prompts"][0], d["outs"][0], "paged"),
                 d["outs"][0])
+
+
+def parity_stubs(torch, par, stubs):
+    """qwen2-vl-2b at 4 layers and whisper at 4 + 4 layers, FULL width, on
+    the CPU in f32: the qwen dense engine's 8 streams and its image prompt's
+    two streams (the prompt's embeddings and positions, then each served
+    token's embedding at the next cache index in all three streams) through
+    the whole-sequence forward, whisper's 4 streams through the encoder and
+    the decoder's whole-sequence forward; held to FLIP_BOUND."""
+    from repro_torch.models import get_model
+
+    q, w = stubs["served"]["qwen"], stubs["served"]["whisper"]
+    with torch.no_grad():
+        cfg32, p32 = par.f32(q["cfg"]), par.to_cpu(q["params"])
+        model = get_model(cfg32)
+        d = q["dense"]
+        for i, (rows, out) in enumerate(zip(par.batch_rows(model, p32, d["prompts"], d["outs"]), d["outs"])):
+            par.check("qwen2vl-4L dense chunk32", i, rows, out)
+        im = q["image"]
+        B, S = im["emb"].shape[:2]
+        outs = torch.tensor(im["outs"])
+        n = outs.shape[1] - 1
+        emb = torch.cat([im["emb"].float(), p32["embedding"][outs[:, :-1]]], 1)
+        pos = torch.cat([im["pos"], torch.arange(S, S + n, dtype=torch.int32)[None, None].expand(3, B, n)], 2)
+        rows = model.logits(p32, model.hidden(p32, inputs_embeds=emb, positions=pos)[:, S - 1:])
+        for b in range(B):
+            par.check("qwen2vl-4L image", b, rows[b], im["outs"][b])
+        cfg32, p32, r = par.f32(w["cfg"]), par.to_cpu(w["params"]), w["run"]
+        model = get_model(cfg32)
+        P = len(r["prompts"][0])
+        h = model.hidden(p32, [p + o[:-1] for p, o in zip(r["prompts"], r["outs"])], r["frames"].float())
+        rows = model.logits(p32, h[:, P - 1:])
+        for b, out in enumerate(r["outs"]):
+            par.check("whisper-4+4L", b, rows[b], out)
 
 
 def _map(tree, fn):
@@ -2680,7 +3036,7 @@ def phase_sched(torch, dev) -> None:
     for mod in (fig4_interactive, fig5_elastic, fig6_7_platforms, fig8_response):
         mod.main()
     placement.main([])
-    log(f"  phase 12 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
+    log(f"  phase 13 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
         f"figure twins {time.perf_counter() - t2:.1f} s")
 
 
@@ -2696,6 +3052,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     OUT.mkdir(exist_ok=True)
+    (OUT / "timeline.log").write_text("")
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2780,24 +3137,33 @@ def main() -> int:
         f"GiB allocated) [at {time.perf_counter() - T_START:.1f} s]")
     int8w = phase_int8w(torch, dev)
 
-    # 11. parity
-    log(f"phase 11 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    # 11. stubs: the two stub-frontend families, every earlier tree off the card
+    log(f"phase 11 stubs: qwen2-vl-2b and whisper-large-v3 FULL bf16 ("
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated) [at {time.perf_counter() - T_START:.1f} s]")
+    t_stubs = time.perf_counter()
+    stubs = phase_stubs(torch, dev)
+    log(f"  stubs phase {time.perf_counter() - t_stubs:.1f} s")
+
+    # 12. parity
+    log(f"phase 12 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
     t_parity = time.perf_counter()
     par = Parity(torch)
-    parity_smollm(torch, par, [chunked, whole], [l_chunk, l_whole], pools)
-    parity_options(torch, par, opts)
-    parity_xlstm(torch, par, xlstm)
-    parity_glm4(torch, par, glm4)
-    parity_int8w(torch, par, int8w)
+    for name, fn, args in (("smollm", parity_smollm, ([chunked, whole], [l_chunk, l_whole], pools)),
+                           ("options", parity_options, (opts,)), ("xlstm", parity_xlstm, (xlstm,)),
+                           ("glm4", parity_glm4, (glm4,)), ("int8w", parity_int8w, (int8w,)),
+                           ("stubs", parity_stubs, (stubs,))):
+        t0 = time.perf_counter()
+        fn(torch, par, *args)
+        log(f"  parity {name}: {time.perf_counter() - t0:.1f} s")
     par.report()
     t_summary = time.perf_counter()
 
-    # 12. sched
-    log(f"phase 12 sched: placing_batch_torch on the card, the paper's gates and figure twins "
+    # 13. sched
+    log(f"phase 13 sched: placing_batch_torch on the card, the paper's gates and figure twins "
         f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
     phase_sched(torch, dev)
 
-    # 13. summary
+    # 14. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -2805,7 +3171,7 @@ def main() -> int:
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
-            **int8w["counts"]}
+            **int8w["counts"], **stubs["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",

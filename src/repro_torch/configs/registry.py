@@ -5,7 +5,15 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import glm4_9b, granite_8b, qwen15_32b, smollm_360m, xlstm_350m
+from repro_torch.configs import (
+    glm4_9b,
+    granite_8b,
+    qwen2_vl_2b,
+    qwen15_32b,
+    smollm_360m,
+    whisper_large_v3,
+    xlstm_350m,
+)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -14,6 +22,8 @@ _MODULES = {
     "glm4-9b": glm4_9b,
     "qwen1.5-32b": qwen15_32b,
     "granite-8b": granite_8b,
+    "qwen2-vl-2b": qwen2_vl_2b,
+    "whisper-large-v3": whisper_large_v3,
 }
 
 

@@ -1,4 +1,4 @@
-from repro_torch.models.api import DecoderLM, get_model
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.api import DecoderLM, EmbedsLM, EncDecLM, get_model
+from repro_torch.models.common import EncoderCfg, ModelConfig
 
-__all__ = ["DecoderLM", "ModelConfig", "get_model"]
+__all__ = ["DecoderLM", "EmbedsLM", "EncDecLM", "EncoderCfg", "ModelConfig", "get_model"]

@@ -1,5 +1,8 @@
 """Model API the serving engines talk to (the torch twin of
-``repro/models/api.py``, decoder-LM dense and paged paths).
+``repro/models/api.py``): the decoder LM's dense and paged paths, the VLM
+backbone ``EmbedsLM`` (a prompt of precomputed embeddings and M-RoPE
+positions) and the encoder-decoder ``EncDecLM`` (whisper: frames and
+tokens), each chosen by ``get_model``.
 
     model = get_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))   # int8 with cfg.weights_int8
@@ -10,6 +13,8 @@
     tok, cache = model.decode(params, cache, batch)          # either layout
     toks, cache = model.verify(params, batch, cache)         # speculative, one slot's view
     toks, pool = model.verify_paged(params, batch, pool)
+    tok, cache = EmbedsLM(cfg).prefill(params, {"inputs_embeds": e, "positions": p})
+    tok, cache = EncDecLM(cfg).prefill(params, {"frames": f, "tokens": t})
 
 Batches hold tensors on the model's device, or host values the functions
 move there. Caches and page pools are updated in place.
@@ -23,10 +28,11 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig, init_tree
 from repro_torch.models.loss import logits, next_tokens, next_tokens_all
 from repro_torch.models.quant import check_int8_family, init_quantized
-from repro_torch.models.rotary import positions_for
+from repro_torch.models.rotary import mrope_positions_for, positions_for
 
 
 def _last_valid(h: torch.Tensor, n_valid) -> torch.Tensor:
@@ -81,48 +87,87 @@ class DecoderLM:
         return tf.init_paged_cache(self.cfg, num_pages, page_size, device, batch)
 
     # -- steps ---------------------------------------------------------------
-    def hidden(self, params, tokens) -> torch.Tensor:
-        """Final hidden states of a whole sequence, causal, no cache: the
-        teacher-forcing path (B, S) -> (B, S, d)."""
-        dev = params["embedding"].device
+    def _positions(self, batch: int, seq: int, offset=0, device=None) -> torch.Tensor:
+        """Standard positions offset + arange(seq): (batch, seq), or the
+        three text-only M-RoPE streams (3, batch, seq)."""
+        if self.cfg.pos == "mrope":
+            return mrope_positions_for(batch, seq, offset, device)
+        return positions_for(batch, seq, offset, device)
+
+    def _prompt_positions(self, positions, B: int, S: int, dev):
+        """A whole sequence's positions and whether they are the index's:
+        the caller's (any values, so False), else the standard ones (True).
+        Only index positions let attention take the index-masked flash
+        kernel; the flag is known on the host, nothing is read back."""
+        if positions is None:
+            return self._positions(B, S, device=dev), True
+        return torch.as_tensor(positions, device=dev), False
+
+    def _inputs(self, tokens, inputs_embeds, dev):
+        """tokens (B, S) or inputs_embeds (B, S, d) on ``dev``, the other
+        None, and (B, S)."""
+        if inputs_embeds is not None:
+            inputs_embeds = torch.as_tensor(inputs_embeds, device=dev)
+            return None, inputs_embeds, *inputs_embeds.shape[:2]
         tokens = _tokens(tokens, dev)
-        B, S = tokens.shape
-        h, _ = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev), mode="train")
+        return tokens, None, *tokens.shape
+
+    def hidden(self, params, tokens=None, positions=None, inputs_embeds=None) -> torch.Tensor:
+        """Final hidden states of a whole sequence, causal, no cache: the
+        teacher-forcing path, tokens (B, S) or ``inputs_embeds`` (B, S, d)
+        -> (B, S, d). ``positions`` as ``prefill`` takes them."""
+        dev = params["embedding"].device
+        tokens, inputs_embeds, B, S = self._inputs(tokens, inputs_embeds, dev)
+        pos, index = self._prompt_positions(positions, B, S, dev)
+        h, _ = tf.forward(self.cfg, params, tokens, pos, mode="train", inputs_embeds=inputs_embeds,
+                          index_positions=index)
         return h
 
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params, hidden)
 
+    def _prompt_cache(self, cache, B: int, cap: int, dev):
+        """The cache a whole-prompt prefill writes from position 0: the
+        given one with its recurrent state zeroed (as the fresh cache the
+        JAX package builds starts), or a fresh one of capacity ``cap``."""
+        if cache is None:
+            return self.init_cache(B, cap, dev)
+        for key in tf.recurrent_keys(self.cfg):
+            for leaf in cache["blocks"][key].values():
+                leaf.zero_()
+        return cache
+
     def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
         """Dense whole-prompt prefill. batch: tokens (B, Lp) right-padded,
         n_valid (B,) optional (pad positions are identity for every
-        recurrent update, and the token comes from the last valid position).
-        ``cache`` (B-slot leaves, e.g. one slot's view of an engine's stacked
-        cache) is written IN PLACE from position 0, and its recurrent state
-        is zeroed first, as the fresh cache the JAX package builds starts;
-        without it a fresh cache of capacity ``cap`` (default Lp) is made.
-        Returns (next_token (B,), cache)."""
+        recurrent update, and the token comes from the last valid position),
+        positions (B, S) optional ((3, B, S) under M-RoPE; default
+        ``arange``). ``cache`` (B-slot leaves, e.g. one slot's view of an
+        engine's stacked cache) is written IN PLACE from position 0, and its
+        recurrent state is zeroed first; without it a fresh cache of
+        capacity ``cap`` (default Lp) is made. Returns (next_token (B,),
+        cache)."""
+        return self._prefill(params, batch, cache, cap, tokens=batch["tokens"])
+
+    def _prefill(self, params, batch: Mapping, cache, cap: int, tokens=None, inputs_embeds=None):
+        """``prefill``'s body over tokens (B, Lp) or inputs_embeds (B, Lp, d)."""
         dev = params["embedding"].device
-        tokens = _tokens(batch["tokens"], dev)
-        B, S = tokens.shape
-        if cache is None:
-            cache = self.init_cache(B, cap or S, dev)
-        else:
-            for key in tf.recurrent_keys(self.cfg):
-                for leaf in cache["blocks"][key].values():
-                    leaf.zero_()
+        tokens, inputs_embeds, B, S = self._inputs(tokens, inputs_embeds, dev)
+        cache = self._prompt_cache(cache, B, cap or S, dev)
         n_valid = batch.get("n_valid")
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev),
-                              mode="prefill", cache=cache, cache_index=0, n_valid=n_valid)
+        pos, index = self._prompt_positions(batch.get("positions"), B, S, dev)
+        h, cache = tf.forward(self.cfg, params, tokens, pos, mode="prefill", cache=cache, cache_index=0,
+                              n_valid=n_valid, inputs_embeds=inputs_embeds, index_positions=index)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache
 
     def prefill_paged(self, params, batch: Mapping, cache):
         """Paged prefill of ONE sequence straight into the shared page pool.
 
         batch: tokens (1, Lp) right-padded to a bucket length, n_valid (1,),
-        tab_row (P,) block-table row, slot (the decode slot). Recurrent
-        mixers run from zero state and land their final state at ``slot``.
-        Returns (next_token (1,), cache)."""
+        tab_row (P,) block-table row, slot (the decode slot), positions
+        optional, as ``prefill`` takes them. Recurrent mixers run from zero
+        state and land their final state at ``slot``. Returns (next_token
+        (1,), cache)."""
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -133,8 +178,9 @@ class DecoderLM:
             slot=int(batch["slot"]),
         )
         n_valid = batch.get("n_valid")
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, device=dev),
-                              mode="prefill", cache=cache, cache_index=pidx, n_valid=n_valid)
+        pos, index = self._prompt_positions(batch.get("positions"), B, S, dev)
+        h, cache = tf.forward(self.cfg, params, tokens, pos, mode="prefill", cache=cache,
+                              cache_index=pidx, n_valid=n_valid, index_positions=index)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache
 
     def init_chunk_state(self, device):
@@ -169,7 +215,7 @@ class DecoderLM:
         offset = int(batch["offset"])
         n_valid = batch.get("n_valid")
         h, cache, chunk_state = tf.forward(
-            self.cfg, params, tokens, positions_for(B, S, offset, device=dev), mode="prefill",
+            self.cfg, params, tokens, self._positions(B, S, offset, dev), mode="prefill",
             cache=cache, cache_index=attn_mod.ChunkPrefillIndex(offset), n_valid=n_valid,
             chunk_state=chunk_state)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
@@ -195,7 +241,7 @@ class DecoderLM:
         )
         n_valid = batch.get("n_valid")
         h, cache, chunk_state = tf.forward(
-            self.cfg, params, tokens, positions_for(B, S, offset, device=dev), mode="prefill",
+            self.cfg, params, tokens, self._positions(B, S, offset, dev), mode="prefill",
             cache=cache, cache_index=cidx, n_valid=n_valid, chunk_state=chunk_state)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
 
@@ -214,7 +260,7 @@ class DecoderLM:
         if B != 1:
             raise ValueError("verify runs ONE slot's stripe; B must be 1")
         offset = int(batch["offset"])
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
+        h, cache = tf.forward(self.cfg, params, tokens, self._positions(B, S, offset, dev),
                               mode="prefill", cache=cache,
                               cache_index=attn_mod.ChunkPrefillIndex(offset))
         return next_tokens_all(self.cfg, params, h), cache
@@ -234,7 +280,7 @@ class DecoderLM:
         offset = int(batch["offset"])
         vidx = attn_mod.PagedVerifyIndex(
             tab_row=torch.as_tensor(batch["tab_row"], dtype=torch.int32, device=dev), offset=offset)
-        h, cache = tf.forward(self.cfg, params, tokens, positions_for(B, S, offset, device=dev),
+        h, cache = tf.forward(self.cfg, params, tokens, self._positions(B, S, offset, dev),
                               mode="prefill", cache=cache, cache_index=vidx)
         return next_tokens_all(self.cfg, params, h), cache
 
@@ -243,8 +289,10 @@ class DecoderLM:
         (B, 1), lengths (B,) tokens already in cache, block_tab (B, P), or
         with ``l2_tab`` (n_rows, tpp) the (B, W1) first level of a chained
         table. Dense: token (B, 1) and ``lengths`` (B,) per-slot write
-        positions, or a scalar ``cache_index`` for an aligned batch. Returns
-        (next_tokens (B,), cache)."""
+        positions, or a scalar ``cache_index`` for an aligned batch. Positions
+        follow the cache index, under M-RoPE in all three streams (after an
+        image prompt too, as in the JAX package). Returns (next_tokens (B,),
+        cache)."""
         dev = params["embedding"].device
         tok = _tokens(batch["token"], dev)
         B, S = tok.shape
@@ -262,10 +310,91 @@ class DecoderLM:
         else:
             idx = int(batch["cache_index"])
             pos = positions_for(B, S, idx, device=dev)
+        if self.cfg.pos == "mrope":
+            pos = pos[None].expand(3, B, S)
         h, cache = tf.forward(self.cfg, params, tok, pos, mode="decode", cache=cache,
                               cache_index=idx)
         return next_tokens(self.cfg, params, h), cache
 
 
+@dataclass
+class EmbedsLM(DecoderLM):
+    """VLM backbone: a prompt arrives as precomputed patch and token
+    embeddings (the vision frontend is a stub). Token prompts take the
+    decoder LM's paths, with text-only M-RoPE positions."""
+
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+        """Dense whole-prompt prefill of inputs_embeds (B, S, d), with
+        positions (3, B, S) optional (``vlm.mrope_positions_with_image`` for
+        an image prompt; default text-only) and n_valid optional; ``cache``
+        and ``cap`` as ``DecoderLM.prefill`` takes them. A batch without
+        ``inputs_embeds`` raises KeyError, as the JAX package's does.
+        Returns (next_token (B,), cache)."""
+        return self._prefill(params, batch, cache, cap, inputs_embeds=batch["inputs_embeds"])
+
+
+@dataclass
+class EncDecLM(DecoderLM):
+    """Whisper-style encoder-decoder; frames are stub (precomputed)
+    embeddings. Parameters {"decoder", "encoder"}; the dense cache carries
+    each decoder layer's cross K/V of ``cfg.encoder.n_ctx`` frames. Only the
+    dense whole-prompt prefill and the aligned decode exist, as in the JAX
+    package (no paged cache, no chunked prefill)."""
+
+    def param_defs(self):
+        return wh.param_defs(self.cfg)
+
+    def cache_defs(self, batch: int, cap: int):
+        return tf.cache_defs(self.cfg, batch, cap, enc_len=self.cfg.encoder.n_ctx)
+
+    def init_cache(self, batch: int, cap: int, device):
+        return tf.init_cache(self.cfg, batch, cap, device, enc_len=self.cfg.encoder.n_ctx)
+
+    def hidden(self, params, tokens, frames) -> torch.Tensor:
+        """The decoder's final hidden states over tokens (B, S) after the
+        encoder over frames (B, T, d): the teacher-forcing path."""
+        dev = params["decoder"]["embedding"].device
+        tokens = _tokens(tokens, dev)
+        B, S = tokens.shape
+        h, _ = wh.forward(self.cfg, params, frames=torch.as_tensor(frames, device=dev), tokens=tokens,
+                          positions=positions_for(B, S, device=dev), mode="train")
+        return h
+
+    def logits(self, params, hidden) -> torch.Tensor:
+        return logits(self.cfg, params["decoder"], hidden)
+
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+        """batch: frames (B, n_ctx, d), tokens (B, Lp) right-padded, n_valid
+        (B,) optional. The encoder runs over the frames, each decoder layer
+        caches its cross K/V, and the tokens' K/V go into the cache from
+        position 0 (a fresh cache of capacity ``cap``, default Lp, when none
+        is given). Returns (next_token (B,), cache)."""
+        dev = params["decoder"]["embedding"].device
+        tokens = _tokens(batch["tokens"], dev)
+        B, S = tokens.shape
+        frames = torch.as_tensor(batch["frames"], device=dev)
+        cache = self._prompt_cache(cache, B, cap or S, dev)
+        n_valid = batch.get("n_valid")
+        h, cache = wh.forward(self.cfg, params, frames=frames, tokens=tokens,
+                              positions=positions_for(B, S, device=dev), mode="prefill", cache=cache,
+                              cache_index=0, n_valid=n_valid)
+        return next_tokens(self.cfg, params["decoder"], _last_valid(h, n_valid)), cache
+
+    def decode(self, params, cache, batch: Mapping):
+        """One aligned decode step: token (B, 1) at the scalar
+        ``cache_index``. Returns (next_tokens (B,), cache)."""
+        dev = params["decoder"]["embedding"].device
+        tok = _tokens(batch["token"], dev)
+        B, S = tok.shape
+        idx = int(batch["cache_index"])
+        h, cache = wh.forward(self.cfg, params, tokens=tok, positions=positions_for(B, S, idx, dev),
+                              mode="decode", cache=cache, cache_index=idx)
+        return next_tokens(self.cfg, params["decoder"], h), cache
+
+
 def get_model(cfg: ModelConfig) -> DecoderLM:
+    if cfg.encoder is not None:
+        return EncDecLM(cfg)
+    if cfg.inputs == "embeds":
+        return EmbedsLM(cfg)
     return DecoderLM(cfg)

@@ -1,7 +1,8 @@
 """GQA attention over a dense KV cache (one stripe of ``cap`` positions per
 slot) or the paged KV pool: prefill (whole prompt or chunk) and batched
 decode, with f32/bf16 or int8 storage, plus the plain query-chunked
-attention the model runs where the JAX package runs its jnp path.
+attention the model runs where the JAX package runs its jnp path, and the
+encoder-decoder cross-attention (plain torch, as its JAX twin is jnp).
 
 The caches and pools are preallocated tensors updated IN PLACE (the JAX
 package donates and returns new buffers instead): every write below mutates
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig, ParamDef
 from repro_torch.models.quant import dequantize_kv, qeinsum, quantize_kv
-from repro_torch.models.rotary import apply_rope
+from repro_torch.models.rotary import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -30,8 +31,10 @@ class TensorSpec(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def attention_defs(cfg: ModelConfig) -> dict:
-    H, KV, hd, d = cfg.n_heads, min(cfg.n_kv_heads, cfg.n_heads), cfg.hd, cfg.d_model
+def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Projections of one attention layer; cross-attention has KV = H."""
+    H, hd, d = cfg.n_heads, cfg.hd, cfg.d_model
+    KV = H if cross else min(cfg.n_kv_heads, H)
     defs = {
         "wq": ParamDef((d, H * hd)),
         "wk": ParamDef((d, KV * hd)),
@@ -266,11 +269,13 @@ def chunked_attention(
     allow_kernel: bool = True,
 ) -> torch.Tensor:
     """Query-chunked attention; returns (B, S, H, hd). A square causal
-    attention with standard positions and no softcap goes to the flash
-    kernel (the plain version on the CPU) — where the JAX package's
-    ``use_pallas`` path takes ``flash_attention_bhsd``, except that a softcap
-    keeps the plain path here, since the kernel has none. ``allow_kernel=False``
-    forces the plain path (a chunk of queries over a longer context)."""
+    attention with no softcap goes to the flash kernel (the plain version on
+    the CPU), which masks by index — where the JAX package's ``use_pallas``
+    path takes ``flash_attention_bhsd``, except that a softcap keeps the
+    plain path here, since the kernel has none. ``allow_kernel=False`` forces
+    the plain path, masked by ``pos_q >= pos_k``: a chunk of queries over a
+    longer context, or positions that are not ``arange(S)`` in every row
+    (an image prompt's temporal stream repeats an index)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if causal and S > 1 and allow_kernel and S == k.shape[1] and not cfg.logit_softcap:
@@ -340,6 +345,14 @@ def decode_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torc
 # ---------------------------------------------------------------------------
 
 
+def _apply_pos(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.pos == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
+
+
 def _project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor, n_heads: int):
     B, S, _ = x.shape
     H = n_heads
@@ -363,22 +376,29 @@ def self_attention(
     mode: str,                      # train | prefill | decode
     cache: Optional[Mapping] = None,
     cache_index=None,
+    causal: bool = True,
+    index_positions: bool = True,
 ):
-    """Returns (out, cache); the cache's pools are updated in place."""
+    """Returns (out, cache); the cache's pools are updated in place.
+    positions: (B, S), or (3, B, S) under M-RoPE, whose temporal stream
+    (the first) drives the masks, as in the JAX package. The caller sets
+    ``index_positions`` False when a whole-sequence pass's positions may
+    differ from ``arange(S)`` in some row: the flash kernel, which masks by
+    index, is then left for the plain path. ``causal=False`` (the encoder)
+    attends everywhere."""
     H = cfg.n_heads
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, H)
-    if cfg.pos != "rope":
-        raise NotImplementedError(f"pos={cfg.pos!r} is not ported yet")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    pos_t = positions[0] if cfg.pos == "mrope" else positions     # temporal stream for masks
+    q = _apply_pos(cfg, q, positions)
+    k = _apply_pos(cfg, k, positions)
 
     if mode == "train":
-        o = chunked_attention(cfg, q, k, v, positions, positions)
+        o = chunked_attention(cfg, q, k, v, pos_t, pos_t, causal=causal, allow_kernel=index_positions)
     elif mode == "prefill" and isinstance(cache_index, PagedPrefillIndex):
         # truly paged prefill: K/V scatter straight through the block table
         paged_write_prompt(cfg, cache, k, v, cache_index.tab_row)
-        o = chunked_attention(cfg, q, k, v, positions, positions)
+        o = chunked_attention(cfg, q, k, v, pos_t, pos_t, causal=causal, allow_kernel=index_positions)
     elif mode == "prefill" and isinstance(cache_index, PagedChunkPrefillIndex):
         # chunked paged prefill: scatter this chunk at its page-aligned
         # offset, then attend over the dense gathered context view
@@ -388,7 +408,7 @@ def self_attention(
         ck, cv = pa_ops.paged_gather_context(cache["k"], cache["v"], cache_index.tab_row,
                                              pool_ks=cache.get("k_scale"),
                                              pool_vs=cache.get("v_scale"))
-        o = context_attention(cfg, q, ck.to(x.dtype), cv.to(x.dtype), positions)
+        o = context_attention(cfg, q, ck.to(x.dtype), cv.to(x.dtype), pos_t)
     elif mode == "prefill" and isinstance(cache_index, PagedVerifyIndex):
         # speculative verify: scatter the k + 1 verify tokens at a mid-page
         # offset, then attend over the gathered context by absolute position
@@ -403,17 +423,17 @@ def self_attention(
         ck, cv = pa_ops.paged_gather_context(cache["k"], cache["v"], cache_index.tab_row,
                                              pool_ks=cache.get("k_scale"),
                                              pool_vs=cache.get("v_scale"))
-        o = context_attention(cfg, q, ck.to(x.dtype), cv.to(x.dtype), positions)
+        o = context_attention(cfg, q, ck.to(x.dtype), cv.to(x.dtype), pos_t)
     elif mode == "prefill" and isinstance(cache_index, ChunkPrefillIndex):
         # chunked dense prefill: write this chunk into the slot's stripe at
         # ``offset`` and attend over the whole stripe by absolute position
         cache_kv(cfg, cache, k, v, cache_index.offset)
         ck, cv = read_kv(cfg, cache, x.dtype)
-        o = context_attention(cfg, q, ck, cv, positions)
+        o = context_attention(cfg, q, ck, cv, pos_t)
     elif mode == "prefill":
         # whole-prompt dense prefill into the stripe at 0 (or the given index)
         cache_kv(cfg, cache, k, v, 0 if cache_index is None else cache_index)
-        o = chunked_attention(cfg, q, k, v, positions, positions)
+        o = chunked_attention(cfg, q, k, v, pos_t, pos_t, causal=causal, allow_kernel=index_positions)
     elif mode == "decode" and isinstance(cache_index, PagedIndex):
         if S != 1:
             raise ValueError(f"paged decode takes one token per slot, got S={S}")
@@ -439,3 +459,26 @@ def self_attention(
         raise ValueError(f"mode={mode!r}")
     out = qeinsum(o.reshape(B, S, H * cfg.hd), p["wo"])
     return out, cache
+
+
+def cross_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor, kv: Mapping) -> torch.Tensor:
+    """Encoder-decoder cross-attention of x (B, S, d) over the encoder's
+    precomputed K/V {"k", "v"} (B, T, H, hd): every query sees every frame
+    (the plain path; the flash kernel is causal)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = qeinsum(x, p["wq"]).reshape(B, S, H, hd)
+    k, v = kv["k"].to(x.dtype), kv["v"].to(x.dtype)
+    pos_q = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    pos_k = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
+    o = chunked_attention(cfg, q, k, v, pos_q, pos_k, causal=False)
+    return qeinsum(o.reshape(B, S, H * hd), p["wo"])
+
+
+def cross_kv(cfg: ModelConfig, p: Mapping, enc_out: torch.Tensor) -> dict:
+    """The encoder output (B, T, d) projected once to cross-attention K/V
+    {"k", "v"} (B, T, H, hd)."""
+    B, T, _ = enc_out.shape
+    H, hd = cfg.n_heads, cfg.hd
+    return {"k": qeinsum(enc_out, p["wk"]).reshape(B, T, H, hd),
+            "v": qeinsum(enc_out, p["wv"]).reshape(B, T, H, hd)}

@@ -7,7 +7,8 @@ has no bf16: a bf16 leaf arrives either as the ``ml_dtypes`` bfloat16 array
 JAX hands out, or as its raw bits in a ``uint16`` array; both become
 ``torch.bfloat16`` bit for bit. The stacked layout is kept: ``blocks/l0_*``
 leaves carry the leading superblock axis, and ``embedding``, ``unembed`` and
-``final_norm`` sit at the top level. A tree that went through the JAX
+``final_norm`` sit at the top level (under ``decoder``, beside the
+``encoder``'s ``blocks`` and ``final_norm``, for an encoder-decoder). A tree that went through the JAX
 package's ``quantize_params`` carries a {"q", "s"} dict at each
 ``QUANT_LEAVES`` key: int8 values of the leaf's shape, which stay int8, and
 bf16 scales of that shape with axis ndim - 2 at 1.
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig, ParamDef, is_def
 from repro_torch.models.quant import QUANT_LEAVES, scale_shape
-from repro_torch.models.transformer import param_defs
+from repro_torch.models.api import get_model
 
 
 def _tensor(a, shape, path: str) -> torch.Tensor:
@@ -50,7 +51,7 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device) -> Any:
     quantized leaf keeps its int8 values and bf16 scales); every leaf's shape
     is checked against the port's ParamDefs, and a missing or extra key
     raises."""
-    defs = param_defs(cfg)
+    defs = get_model(cfg).param_defs()
 
     def walk(node, d, path):
         if is_def(d):

@@ -1,7 +1,8 @@
 """Shared model substrate: config, parameter definitions, norms, embeddings.
 
 The torch twin of ``repro/models/common.py`` for the families ported so far:
-the attention-only decoder and xLSTM.
+the attention-only decoder, xLSTM, the VLM backbone (token or embedding
+inputs, M-RoPE) and the whisper encoder-decoder (layernorm, cross-attention).
 Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes and
 init rules from one source of truth, as in the JAX package.
 """
@@ -28,9 +29,20 @@ class XLSTMCfg:
 
 
 @dataclass(frozen=True)
+class EncoderCfg:
+    """Encoder stack of an encoder-decoder model (whisper). The frontend is a
+    stub: callers give precomputed frame embeddings of length ``n_ctx``."""
+
+    n_layers: int
+    n_ctx: int
+    n_heads: int
+    d_ff: int
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm (the families ported so far)
+    family: str                 # dense | ssm | vlm | audio (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,9 +52,10 @@ class ModelConfig:
     head_dim: int = 0           # 0 -> d_model // n_heads
     block_pattern: tuple = ("attn",)  # mixer types per superblock
     qkv_bias: bool = False
-    pos: str = "rope"
+    pos: str = "rope"           # rope | mrope | none
     rope_theta: float = 10000.0
-    norm: str = "rmsnorm"
+    mrope_sections: tuple = (16, 24, 24)   # M-RoPE frequency slots of the (t, h, w) streams
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
     act: str = "silu"
     gated_mlp: bool = True
     tie_embeddings: bool = False
@@ -54,6 +67,9 @@ class ModelConfig:
     logit_softcap: float = 0.0
     weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
     xlstm: Optional[XLSTMCfg] = None
+    encoder: Optional[EncoderCfg] = None
+    cross_attn: bool = False    # decoder layers carry cross-attention (encoder-decoder)
+    inputs: str = "tokens"      # tokens | embeds (the VLM backbone)
 
     @property
     def hd(self) -> int:
@@ -152,13 +168,24 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (out * w.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (biased variance), cast back."""
+    return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(), eps).to(x.dtype)
+
+
 def norm_defs(cfg: ModelConfig, d: int = 0) -> dict:
-    return {"w": ParamDef((d or cfg.d_model,), "ones")}
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"w": ParamDef((d,), "ones"), "b": ParamDef((d,), "zeros")}
+    return {"w": ParamDef((d,), "ones")}
 
 
 def apply_norm(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm={cfg.norm!r} is not ported yet")
+    """layernorm in plain torch, as the JAX package runs it in jnp whatever
+    ``use_pallas`` says; rmsnorm through its kernel (the plain version on
+    the CPU)."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"])
     from repro_torch.kernels.rmsnorm import ops as rms_ops
 
     return rms_ops.rmsnorm(x, p["w"])

@@ -50,7 +50,11 @@ class WeightsInt8Error(ValueError):
 
 
 def check_int8_family(cfg) -> None:
-    """Raise ``WeightsInt8Error`` unless every mixer of ``cfg`` is attention."""
+    """Raise ``WeightsInt8Error`` unless every mixer of ``cfg`` is attention
+    and its prompts are tokens for a decoder alone (weight-only int8 of the
+    VLM and encoder-decoder families is not ported)."""
+    if cfg.encoder is not None or cfg.inputs != "tokens":
+        raise WeightsInt8Error(f"{cfg.name}: weight-only int8 of the {cfg.family} family is not ported")
     other = sorted({kind for kind in cfg.block_pattern if kind != "attn"})
     if other:
         raise WeightsInt8Error(

@@ -1,8 +1,10 @@
 """Decoder stack: the superblock pattern run as a Python loop over the stacked
 superblock parameters (the JAX package scans them with ``lax.scan``).
 
-Mixers ported so far: attention (with a gated MLP), and the xLSTM family's
-mLSTM and sLSTM (no FFN, ``d_ff = 0``).
+Mixers ported so far: attention (with a gated or a plain GELU MLP), and the
+xLSTM family's mLSTM and sLSTM (no FFN, ``d_ff = 0``). With
+``cfg.cross_attn`` (the whisper decoder) every layer also attends over the
+encoder's output, whose K/V the prefill computes and keeps in the cache.
 
 Parameters, caches and pools keep the JAX package's stacked layout: every
 leaf under ``blocks`` carries a leading (n_superblocks,) axis, so a layer's
@@ -45,6 +47,9 @@ def superblock_defs(cfg: ModelConfig) -> dict:
     for i, kind in enumerate(cfg.block_pattern):
         defs[f"l{i}_norm"] = norm_defs(cfg)
         defs[f"l{i}_mixer"] = attn.attention_defs(cfg) if kind == "attn" else RECURRENT[kind][0](cfg)
+        if cfg.cross_attn:
+            defs[f"l{i}_cross_norm"] = norm_defs(cfg)
+            defs[f"l{i}_cross"] = attn.attention_defs(cfg, cross=True)
         if cfg.d_ff > 0:
             defs[f"l{i}_ffn_norm"] = norm_defs(cfg)
             defs[f"l{i}_ffn"] = mlp_defs(cfg)
@@ -58,16 +63,22 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _stacked(cfg: ModelConfig, per_layer) -> dict:
+def _stacked(cfg: ModelConfig, per_layer, cross=None) -> dict:
     """{"blocks": {l<i>_mixer: leaves}} with the superblock axis prepended;
-    ``per_layer(kind)`` gives a layer's TensorSpecs (None: no entry)."""
+    ``per_layer(kind)`` gives a layer's TensorSpecs (None: no entry), and
+    ``cross`` (with ``cfg.cross_attn``) those of its ``l<i>_cross`` entry."""
     n = cfg.n_superblocks
+
+    def stack(specs):
+        return {name: attn.TensorSpec((n,) + s.shape, s.dtype) for name, s in specs.items()}
+
     blocks = {}
     for i, kind in enumerate(cfg.block_pattern):
         specs = per_layer(kind)
         if specs is not None:
-            blocks[f"l{i}_mixer"] = {name: attn.TensorSpec((n,) + s.shape, s.dtype)
-                                     for name, s in specs.items()}
+            blocks[f"l{i}_mixer"] = stack(specs)
+        if cross is not None:
+            blocks[f"l{i}_cross"] = stack(cross)
     return {"blocks": blocks}
 
 
@@ -78,24 +89,35 @@ def _init(defs: dict, device) -> dict:
     }}
 
 
-def cache_defs(cfg: ModelConfig, batch: int, cap: int) -> dict:
+def cache_defs(cfg: ModelConfig, batch: int, cap: int, enc_len: int = 0) -> dict:
     """Dense decode cache: every attention layer has a (batch, cap) stripe
     per slot, every recurrent layer its state per slot, stacked on the
-    superblock axis."""
+    superblock axis. With ``cfg.cross_attn`` every layer also keeps the
+    cross-attention K/V of ``enc_len`` encoder frames per slot, (batch,
+    enc_len, H, hd) in the compute dtype."""
     _check_pattern(cfg)
+    cross = None
+    if cfg.cross_attn:
+        if enc_len <= 0:
+            raise ValueError(f"{cfg.name}: a cross-attention cache needs enc_len > 0")
+        spec = attn.TensorSpec((batch, enc_len, cfg.n_heads, cfg.hd), cfg.compute_dtype)
+        cross = {"k": spec, "v": spec}
     return _stacked(cfg, lambda kind: attn.kv_cache_defs(cfg, batch, cap) if kind == "attn"
-                    else RECURRENT[kind][1](cfg, batch))
+                    else RECURRENT[kind][1](cfg, batch), cross)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cap: int, device) -> dict:
-    return _init(cache_defs(cfg, batch, cap), device)
+def init_cache(cfg: ModelConfig, batch: int, cap: int, device, enc_len: int = 0) -> dict:
+    return _init(cache_defs(cfg, batch, cap, enc_len), device)
 
 
 def paged_cache_defs(cfg: ModelConfig, num_pages: int, page_size: int, batch: int = 1) -> dict:
     """Paged decode cache: every attention layer has its page pool, every
     recurrent layer its state per slot (``batch`` slots), stacked on the
-    superblock axis."""
+    superblock axis. Cross-attention has no paged layout, as in the JAX
+    package."""
     _check_pattern(cfg)
+    if cfg.cross_attn:
+        raise NotImplementedError("paged cache does not support cross-attention")
     return _stacked(cfg, lambda kind: attn.paged_kv_pool_defs(cfg, num_pages, page_size)
                     if kind == "attn" else RECURRENT[kind][1](cfg, batch))
 
@@ -143,9 +165,14 @@ def _write(dst: Mapping, src: Mapping, at: Optional[int] = None) -> None:
 
 
 def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: str,
-                cache_sb: Optional[Mapping], cache_index, valid=None, chunk_sb=None):
+                cache_sb: Optional[Mapping], cache_index, valid=None, chunk_sb=None,
+                enc_out=None, causal: bool = True, index_positions: bool = True):
     """One superblock. Returns (x, new_chunk) where ``new_chunk`` holds the
     recurrent carry after this chunk when ``chunk_sb`` was given.
+
+    Cross-attention (``cfg.cross_attn``): train projects ``enc_out`` to K/V;
+    prefill does so and copies them into the cache; decode reads them from
+    the cache.
 
     Chunked prefill (a ``ChunkPrefillIndex`` or ``PagedChunkPrefillIndex``
     with a carry): recurrent mixers resume from and return ``chunk_sb``; the
@@ -161,7 +188,8 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
         h = apply_norm(cfg, p[f"l{i}_norm"], x)
         c_in = cache_sb[key] if cache_sb is not None else None
         if kind == "attn":
-            h, _ = attn.self_attention(cfg, p[key], h, positions, mode, c_in, cache_index)
+            h, _ = attn.self_attention(cfg, p[key], h, positions, mode, c_in, cache_index,
+                                       causal=causal, index_positions=index_positions)
         else:
             mixer = RECURRENT[kind][2]
             if chunk_pf and chunk_sb is not None:
@@ -176,48 +204,82 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
                 if c_in is not None:
                     _write(c_in, c_out)
         x = x + h
+        if cfg.cross_attn:
+            h = apply_norm(cfg, p[f"l{i}_cross_norm"], x)
+            if mode == "decode":
+                kv = cache_sb[f"l{i}_cross"]
+            else:
+                kv = attn.cross_kv(cfg, p[f"l{i}_cross"], enc_out)
+                if mode == "prefill":
+                    _write(cache_sb[f"l{i}_cross"], kv)
+            x = x + attn.cross_attention(cfg, p[f"l{i}_cross"], h, kv)
         if cfg.d_ff > 0:
             h = apply_norm(cfg, p[f"l{i}_ffn_norm"], x)
             x = x + mlp(cfg, p[f"l{i}_ffn"], h)
     return x, new_chunk
 
 
+def run_stack(cfg: ModelConfig, blocks: Mapping, x: torch.Tensor, positions, mode: str,
+              cache: Optional[Mapping] = None, cache_index=None, valid=None,
+              chunk_state: Optional[Mapping] = None, enc_out=None, causal: bool = True,
+              index_positions: bool = True):
+    """The superblocks over x, in order. Returns (x, new chunk state or
+    None); the cache's leaves are updated in place."""
+    new_state = {}
+    for sb in range(cfg.n_superblocks):
+        p_sb = _index(blocks, sb)
+        c_sb = _index(cache["blocks"], sb) if cache is not None else None
+        s_sb = _index(chunk_state["blocks"], sb) if chunk_state is not None else None
+        x, s_new = _superblock(cfg, p_sb, x, positions, mode, c_sb, cache_index, valid, s_sb,
+                               enc_out, causal, index_positions)
+        for key, leaves in s_new.items():
+            new_state.setdefault(key, {n: [] for n in leaves})
+            for n, t in leaves.items():
+                new_state[key][n].append(t)
+    if chunk_state is None:
+        return x, None
+    return x, {"blocks": {key: {n: torch.stack(ts) for n, ts in leaves.items()}
+                          for key, leaves in new_state.items()}}
+
+
 def forward(
     cfg: ModelConfig,
     params: Mapping,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor],
     positions: torch.Tensor,
     mode: str = "train",
     cache: Optional[Mapping] = None,
     cache_index=None,
     n_valid=None,
     chunk_state: Optional[Mapping] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    enc_out: Optional[torch.Tensor] = None,
+    index_positions: bool = True,
 ):
     """Returns (hidden (B, S, d) after the final norm, cache), or with
     ``chunk_state`` (chunked prefill) (hidden, cache, new_chunk_state). The
-    cache's leaves are updated in place.
+    cache's leaves are updated in place. ``inputs_embeds`` (B, S, d) stands
+    in for the embedded ``tokens`` (the VLM backbone); ``enc_out`` is the
+    encoder's output the cross-attention layers attend over (train and
+    prefill). ``index_positions`` False says that ``positions`` may differ
+    from ``arange(S)`` in some row (they came from the caller), which keeps
+    whole-sequence attention off the index-masked flash kernel.
 
     ``n_valid`` (B,) marks right-padded prefill: tokens at positions >=
     n_valid[b] are padding and identity for every recurrent state update
     (causal attention keeps them out of every valid row by itself)."""
-    x = embed_tokens(cfg, params, tokens)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(cfg.compute_dtype)
+    else:
+        x = embed_tokens(cfg, params, tokens)
     valid = None
     if n_valid is not None:
         S = x.shape[1]
         nv = torch.as_tensor(n_valid, dtype=torch.int32, device=x.device).reshape(-1, 1)
         valid = torch.arange(S, dtype=torch.int32, device=x.device)[None, :] < nv
-    new_state = {}
-    for sb in range(cfg.n_superblocks):
-        p_sb = _index(params["blocks"], sb)
-        c_sb = _index(cache["blocks"], sb) if cache is not None else None
-        s_sb = _index(chunk_state["blocks"], sb) if chunk_state is not None else None
-        x, s_new = _superblock(cfg, p_sb, x, positions, mode, c_sb, cache_index, valid, s_sb)
-        for key, leaves in s_new.items():
-            new_state.setdefault(key, {n: [] for n in leaves})
-            for n, t in leaves.items():
-                new_state[key][n].append(t)
+    x, new_state = run_stack(cfg, params["blocks"], x, positions, mode, cache, cache_index, valid,
+                             chunk_state, enc_out, index_positions=index_positions)
     h = apply_norm(cfg, params["final_norm"], x)
     if chunk_state is None:
         return h, cache
-    stacked = {key: {n: torch.stack(ts) for n, ts in leaves.items()} for key, leaves in new_state.items()}
-    return h, cache, {"blocks": stacked}
+    return h, cache, new_state

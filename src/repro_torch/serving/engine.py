@@ -122,7 +122,7 @@ class Sequence:
 
 
 def _attention_only(cfg) -> bool:
-    return getattr(cfg, "encoder", None) is None and all(k == "attn" for k in cfg.block_pattern)
+    return cfg.encoder is None and all(k == "attn" for k in cfg.block_pattern)
 
 
 def copy_fork(cfg, cache, src_pages: List[int], dst_pages: List[int], src_slot: int,
@@ -218,9 +218,12 @@ class _EngineBase:
         """Snap the chunk size to a positive multiple of the bucket unit,
         capped at the length cap. The dense engine requires the cap to be a
         chunk multiple (its stripe writes would otherwise clamp at the
-        edge); the paged engine's tail overruns land on the null page."""
+        edge); the paged engine's tail overruns land on the null page.
+        Chunked prefill is decoder-only, as in the JAX package."""
         if not chunk_tokens:
             return 0
+        if self.cfg.encoder is not None:
+            raise ValueError("chunked prefill is decoder-only (no enc-dec support)")
         ct = min(-(-chunk_tokens // unit) * unit, cap)
         if require_divisible and cap % ct != 0:
             raise ValueError(f"chunk_tokens={ct} must divide the length cap {cap} "

@@ -1101,3 +1101,168 @@ def test_cuda_int8_weights_engine_matches_cpu_engine(cuda_device):
         got = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=gpu_params,
                                                    device=cuda_device).generate(prompts)]
         assert got == want, kw
+
+
+def _launches(fn):
+    """Launches of the rmsnorm, flash and dense decode kernels during ``fn()``."""
+    from repro_torch.kernels import _build
+
+    wrappers = {"rmsnorm": rms_ops.rmsnorm, "flash": fa_ops.flash_attention_bhsd,
+                "decode": da_ops.decode_attention}
+    for w in wrappers.values():
+        _build.reset_launches(w)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def _close_trees(a, b, tol=1e-4):
+    if isinstance(a, dict):
+        for k in a:
+            _close_trees(a[k], b[k], tol)
+    else:
+        assert (a.cpu().float() - b.float()).abs().max() < tol
+
+
+def _rotary_f64(x, ang):
+    """x (B, S, H, hd) rotated by the angles (B, S, hd/2), all in f64."""
+    x1, x2 = torch.chunk(x.double(), 2, dim=-1)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _rotary_bound(x, ang, want, dt):
+    """Per-element bound on the f32 rotary's error against the f64 one: the
+    f32 angle (frequency and product) within 4 units of rounding of the
+    angle, cos, sin and the rotation's products within 8 more, times
+    |x1| + |x2|; in bf16 the output's rounding (2^-8 of it) on top. It grows
+    with the position, as every f32 RoPE's error does."""
+    u = 2.0 ** -24
+    x1, x2 = torch.chunk(x.double().abs(), 2, dim=-1)
+    per = (4 * u * ang.abs() + 8 * u)[..., None, :] * (x1 + x2)
+    per = torch.cat([per, per], dim=-1)
+    return per if dt == torch.float32 else 1.01 * per + 2.0 ** -8 * want.abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_apply_mrope_matches_cpu(cuda_device, dt):
+    """M-RoPE (plain torch) on the card and on the CPU, each against the
+    same rotation in f64, at qwen2-vl-2b's width, x (2, 96, 12, 128), at an
+    8 x 8 image prompt's positions plus offsets up to 32000 (the model's
+    context is 32768): every element within ``_rotary_bound``, which scales
+    with the angle; the card's and the CPU's largest errors are printed."""
+    from repro_torch.models.rotary import apply_mrope
+    from repro_torch.models.vlm import mrope_positions_with_image
+
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(2, 96, 12, 128, generator=g).to(dt)
+    pos = mrope_positions_with_image(2, 96, 16, 8, 8) + torch.randint(0, 32000, (3, 2, 1), generator=g,
+                                                                      dtype=torch.int32)
+    sections = (16, 24, 24)
+    inv = 1.0 / (1e6 ** (torch.arange(0, 128, 2, dtype=torch.float64) / 128))
+    ang = pos.double()[..., None] * inv
+    bounds = [0, 16, 40, 64]
+    ang = torch.cat([ang[i, ..., bounds[i]:bounds[i + 1]] for i in range(3)], dim=-1)
+    want = _rotary_f64(x, ang)
+    bound = _rotary_bound(x, ang, want, dt)
+    cpu = apply_mrope(x, pos, 1e6, sections)
+    card = apply_mrope(x.to(cuda_device), pos.to(cuda_device), 1e6, sections).cpu()
+    for name, got in (("cpu", cpu), ("card", card)):
+        d = (got.double() - want).abs()
+        print(f"apply_mrope {dt} {name}: max |d| {float(d.max()):.3e}, max |d| / bound "
+              f"{float((d / bound).max()):.3f}")
+        assert got.dtype == dt and bool((d <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_apply_rope_matches_cpu(cuda_device, dt):
+    """RoPE (plain torch, every decoder model's) on the card and on the CPU,
+    each against the rotation in f64, x (2, 96, 12, 128) at positions
+    offset by up to 32000, theta 1e4 and 1e6: every element within
+    ``_rotary_bound``."""
+    from repro_torch.models.rotary import apply_rope, positions_for
+
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 96, 12, 128, generator=g).to(dt)
+    pos = positions_for(2, 96) + torch.randint(0, 32000, (2, 1), generator=g, dtype=torch.int32)
+    for theta in (1e4, 1e6):
+        inv = 1.0 / (theta ** (torch.arange(0, 128, 2, dtype=torch.float64) / 128))
+        ang = pos.double()[..., None] * inv
+        want = _rotary_f64(x, ang)
+        bound = _rotary_bound(x, ang, want, dt)
+        for name, got in (("cpu", apply_rope(x, pos, theta)),
+                          ("card", apply_rope(x.to(cuda_device), pos.to(cuda_device), theta).cpu())):
+            d = (got.double() - want).abs()
+            print(f"apply_rope theta {theta:g} {dt} {name}: max |d| {float(d.max()):.3e}, max |d| / bound "
+                  f"{float((d / bound).max()):.3f}")
+            assert got.dtype == dt and bool((d <= bound).all())
+
+
+@pytest.mark.cuda
+def test_cuda_qwen2_vl_matches_cpu(cuda_device):
+    """qwen2-vl-2b SMOKE in f32 (standard-normal q/k/v biases) on the card
+    against the CPU through ``EmbedsLM.prefill``: a text prompt's token
+    embeddings at the default positions (one flash and two rmsnorm launches
+    a layer), an image prompt's at its M-RoPE positions (no flash launch), and four decode steps after it (one decode_attention a
+    layer each): equal tokens, caches within 1e-4."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.vlm import mrope_positions_with_image
+
+    cfg = get_config("qwen2-vl-2b", smoke=True)
+    model, L = get_model(cfg), cfg.n_layers
+    cpu = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for name in ("bq", "bk", "bv"):
+        cpu["blocks"]["l0_mixer"][name].copy_(torch.randn(cpu["blocks"]["l0_mixer"][name].shape, generator=g))
+    gpu = _map(cpu, lambda t: t.to(cuda_device))
+    text = cpu["embedding"][torch.randint(1, cfg.vocab_size, (2, 16), generator=g)]
+    want, wc = model.prefill(cpu, {"inputs_embeds": text})
+    (got, gc), n = _launches(lambda: model.prefill(gpu, {"inputs_embeds": text.to(cuda_device)}))
+    assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 2 * L + 1, "flash": L, "decode": 0}
+    _close_trees(gc, wc)
+    emb, pos = torch.randn(2, 24, cfg.d_model, generator=g), mrope_positions_with_image(2, 24, 4, 4, 4)
+    want, wc = model.prefill(cpu, {"inputs_embeds": emb, "positions": pos}, cap=28)
+    (got, gc), n = _launches(lambda: model.prefill(gpu, {"inputs_embeds": emb.to(cuda_device),
+                                                         "positions": pos.to(cuda_device)}, cap=28))
+    assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 2 * L + 1, "flash": 0, "decode": 0}
+    for j in range(4):
+        want, wc = model.decode(cpu, wc, {"token": want[:, None], "cache_index": 24 + j})
+        (got, gc), n = _launches(lambda b={"token": got[:, None], "cache_index": 24 + j}, c=gc:
+                                 model.decode(gpu, c, b))
+        assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 2 * L + 1, "flash": 0, "decode": L}
+    _close_trees(gc, wc)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_matches_cpu(cuda_device):
+    """whisper-large-v3 SMOKE in f32 (standard-normal layernorm biases) on
+    the card against the CPU: ``EncDecLM.prefill`` over seeded frames (one
+    flash launch a decoder layer, no rmsnorm) and four decode steps (one
+    decode_attention a layer each): equal tokens, caches (cross K/V
+    included) within 1e-4."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config("whisper-large-v3", smoke=True)
+    model, L = get_model(cfg), cfg.n_layers
+    cpu = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for part in (cpu["decoder"], cpu["encoder"]):
+        for leaves in list(part["blocks"].values()) + [part["final_norm"]]:
+            if "b" in leaves:
+                leaves["b"].copy_(torch.randn(leaves["b"].shape, generator=g))
+    gpu = _map(cpu, lambda t: t.to(cuda_device))
+    frames, toks = torch.randn(2, cfg.encoder.n_ctx, cfg.d_model, generator=g), torch.randint(1, 500, (2, 7))
+    want, wc = model.prefill(cpu, {"frames": frames, "tokens": toks}, cap=12)
+    (got, gc), n = _launches(lambda: model.prefill(gpu, {"frames": frames.to(cuda_device), "tokens": toks},
+                                                   cap=12))
+    assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 0, "flash": L, "decode": 0}
+    for j in range(4):
+        want, wc = model.decode(cpu, wc, {"token": want[:, None], "cache_index": 7 + j})
+        (got, gc), n = _launches(lambda b={"token": got[:, None], "cache_index": 7 + j}, c=gc:
+                                 model.decode(gpu, c, b))
+        assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 0, "flash": 0, "decode": L}
+    _close_trees(gc, wc)
