@@ -34,7 +34,10 @@ result line:
                 dense decode and flash also at qwen2-vl-2b's G = 6 over 2
                 KV heads (hd 128; the paged decode and the plain page-pool
                 write too, flash also at S 128 and 256, rmsnorm at 8 and
-                256 rows of 1536) and whisper's G = 1 over 20 (hd 64)
+                256 rows of 1536) and whisper's G = 1 over 20 (hd 64); the
+                dense decode, the paged decode's four legs and flash at
+                dbrx-132b's G = 6 and llama4-maverick's G = 5 over 8 KV
+                heads (hd 128), rmsnorm at (8, 6144)
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
@@ -94,12 +97,14 @@ result line:
                 rmsnorm and 36 paged decode launches, time, busy share,
                 device operations, side by side), a batch-4 dense step each
                 (36 decode_attention), launch/serve.main() with 32 requests
-                each, whole-prompt, --weights-int8 on the int8 tree.
+                each on the first 12 layers (--layers), whole-prompt,
+                --weights-int8 on the int8 tree.
                 qwen1.5-32b FULL with int8 weights drawn on the card by the
                 quantized init (standard-normal q/k/v biases; its bytes and
                 its peak memory against the tree): a paged step (129 + 64),
-                a dense step (64), the launcher with --weights-int8, the
-                pools phase's 8 prompts on an int8 chained pool. Then 4 of
+                a dense step (64), the launcher with --weights-int8 on the
+                first 16 layers, the
+                pools phase's 8 prompts on an int8 chained pool. Then 2 of
                 the layers at FULL width (granite bf16 and int8 weights,
                 qwen int8 weights) on a dense engine and an int8 chained
                 pool, for the parity phase
@@ -122,7 +127,26 @@ result line:
                 operations, the cross-attention cache's bytes. Then 4
                 layers of qwen2-vl-2b and 4 + 4 of whisper at FULL width
                 for the parity phase
- 12. parity   — served requests re-run teacher-forced through the port's
+ 12. moe      — the MoE family, every earlier tree off the card (the
+                host's MemAvailable logged first). dbrx-132b at 8 of its
+                40 layers and llama4-maverick at 2 of its 48, FULL width
+                in bf16, each drawn on the card by the blocked init (its
+                bytes against the reckoning, its peak below the tree + 4
+                GiB) and freed before the next: a batch-8 paged step (17
+                rmsnorm + 8 paged decode; 5 + 2), the share of expert
+                assignments dropped in one more step, a batch-4 dense step
+                (8; 2 decode_attention), launch/serve.main() with --layers
+                and 32 requests (whole-prompt), the pools phase's 8
+                prompts (dbrx in 32-token chunks on a bf16 flat pool,
+                llama4 whole-prompt on an int8 chained pool), 0 failures.
+                Then the parity legs' replays, kept on the card: a
+                prefill of 16-token prompts and 10 decode steps with no
+                engine, every MoE call's routing recorded; dbrx at 2
+                layers with no drop possible (leg A, 4 prompts) and at its
+                binding capacity (leg B, 8 prompts: C < T in the prefill
+                and in every step); llama4 at 1 layer with no drop
+                possible (leg C, 4 prompts)
+ 13. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights (int8
                 weight values stay int8, the products in f32): the
                 whole-sequence forward (phases 4, 7, 8, 9, 10 and 11), the
@@ -133,8 +157,16 @@ result line:
                 the CPU's lead there. Every flip's
                 CPU lead must stay within FLIP_BOUND, except on the bf16
                 xLSTM legs, whose leads are recorded beside the CPU's own
-                bf16 forward (bf16 alone moves that model's logits by more)
- 13. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
+                bf16 forward (bf16 alone moves that model's logits by more).
+                Then the earlier trees are dropped from the host and the
+                MoE legs run: C (only when MemAvailable exceeds its f32
+                tree by LEG_C_MARGIN, else logged as waiting), A and B,
+                each replayed step by step on the CPU teacher-forced and
+                its routing compared call by call: each decision that
+                differs from the card's must sit at a CPU gap below
+                ROUTE_GAP unless an earlier difference moved its inputs;
+                rows that no difference moved are held to FLIP_BOUND
+ 14. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
                 Python loop of ``StraightLinePolicy`` at N 1024 and at the
                 paper's top ramp (N 7000, availability (0, 0), (4, 8),
                 (64, 512)), its CUDA-event and device times, device
@@ -142,7 +174,7 @@ result line:
                 loop's host time a request; the paper's gates of
                 tests/test_system.py through the port's simulator; the five
                 figure twins' rows
- 14. summary  — the kernels JSON line, then the result line.
+ 15. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -177,7 +209,7 @@ def log(msg: str) -> None:
             f.write(f"{time.perf_counter() - T_START:9.1f}  {msg}\n")
 
 
-def time_ms(fn, iters: int = 20, reps: int = 25) -> float:
+def time_ms(fn, iters: int = 20, reps: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
     by CUDA events, after a warm-up call."""
     import torch
@@ -1116,8 +1148,9 @@ def phase_kernels(torch, dev):
 
 # (KV, G, hd) of the served models' attention; whisper-large-v3 has no paged path
 WIDE = {"glm4-9b": (2, 16, 128), "qwen1.5-32b": (40, 1, 128), "granite-8b": (8, 4, 128),
-        "qwen2-vl-2b": (2, 6, 128), "whisper-large-v3": (20, 1, 64)}
-PAGED_WIDE = ("glm4-9b", "qwen1.5-32b", "granite-8b", "qwen2-vl-2b")
+        "qwen2-vl-2b": (2, 6, 128), "whisper-large-v3": (20, 1, 64), "dbrx-132b": (8, 6, 128),
+        "llama4-maverick": (8, 5, 128)}
+PAGED_WIDE = ("glm4-9b", "qwen1.5-32b", "granite-8b", "qwen2-vl-2b", "dbrx-132b", "llama4-maverick")
 
 
 def wide_shapes(torch, dev, g, rows, tab_p):
@@ -1136,10 +1169,14 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     at qwen2-vl-2b's, served on bf16 pools only); flash at the 16-token
     bucket over each model's heads, (1, 16, 32, 128) over glm4-9b's 2 and
     granite-8b's 8 KV heads, (1, 16, 40, 128) over qwen1.5-32b's 40,
-    (1, S, 12, 128) over qwen2-vl-2b's 2 at S 16, 128 and 256, and (1, 16,
-    20, 64) over whisper's 20, beside SDPA; rmsnorm at glm4-9b's and
-    granite-8b's width (8, 4096), qwen1.5-32b's (8, 5120) and qwen2-vl-2b's
-    (8 and 256 rows of 1536), beside F.rms_norm."""
+    (1, S, 12, 128) over qwen2-vl-2b's 2 at S 16, 128 and 256, (1, 16,
+    20, 64) over whisper's 20, (1, 16, 48, 128) and (1, 16, 40, 128) over
+    dbrx-132b's and llama4-maverick's 8, beside SDPA; rmsnorm at glm4-9b's
+    and granite-8b's width (8, 4096), qwen1.5-32b's and llama4-maverick's
+    (8, 5120), qwen2-vl-2b's (8 and 256 rows of 1536) and dbrx-132b's (8,
+    6144), beside F.rms_norm. The MoE models' decode shapes: dbrx-132b's
+    G = 6 and llama4-maverick's G = 5, each over 8 KV heads, hd 128, dense
+    and all four paged legs."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -1300,7 +1337,7 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     # qwen2-vl-2b's whole-prompt buckets of the pools phase (S 128 and 256)
     for model, H, S in (("glm4-9b", 32, 16), ("granite-8b", 32, 16), ("qwen1.5-32b", 40, 16),
                         ("qwen2-vl-2b", 12, 16), ("qwen2-vl-2b", 12, 128), ("qwen2-vl-2b", 12, 256),
-                        ("whisper-large-v3", 20, 16)):
+                        ("whisper-large-v3", 20, 16), ("dbrx-132b", 48, 16), ("llama4-maverick", 40, 16)):
         KV, _, hd = WIDE[model]
         for dt in (bf16, f32):
             q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
@@ -1323,7 +1360,7 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     # block-per-row path), at qwen2-vl-2b's (one warp a row in bf16): a
     # decode step's 8 rows, and a 256-token prompt's rows
     for model, R, D in (("glm4-9b", 8, 4096), ("qwen1.5-32b", 8, 5120), ("qwen2-vl-2b", 8, 1536),
-                        ("qwen2-vl-2b", 256, 1536)):
+                        ("qwen2-vl-2b", 256, 1536), ("dbrx-132b", 8, 6144)):
         for dt in (bf16, f32):
             x, w = randn(R, D, dtype=dt), torch.linspace(0.5, 1.5, D, device=dev).to(dt)
             e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
@@ -1390,10 +1427,11 @@ def serve_leg(torch, chunk_tokens: int, params):
     return r, counts
 
 
-def phase_step(torch, cfg, params, dev):
+def phase_step(torch, cfg, params, dev, after=None):
     """Launches per prefill and per decode step, a batch-8 decode step's
     time on the host clock (synchronized), and the device's busy share over
-    those steps from torch.profiler."""
+    those steps from torch.profiler. ``after(engine)``, when given, runs on
+    the engine after the profiled steps; its result lands under "after"."""
     from repro_torch.launch.serve_hybrid import MAXLEN, PROMPT, PS, prompt_for
     from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
 
@@ -1430,6 +1468,7 @@ def phase_step(torch, cfg, params, dev):
         step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
         per["decode step"] = delta(a, snap(), STEPS)
         timing = profiled_steps(torch, eng.step)
+        extra = after(eng) if after is not None else None
     for k, v in per.items():
         log(f"  launches per {k}: { {n: c for n, c in v.items() if c} }")
     log(f"  decode step, batch {B}, {cfg.name} {cfg.n_layers}L d_model {cfg.d_model} "
@@ -1439,6 +1478,8 @@ def phase_step(torch, cfg, params, dev):
     for e in timing.pop("top")[:10]:
         log(f"    device {e.self_device_time_total / n:10.1f} us/step  x{e.count / n:g}/step  {e.key[:90]}")
     per["timing"] = dict(timing, step_ms=step_ms)
+    if after is not None:
+        per["after"] = extra
     return per
 
 
@@ -1969,8 +2010,8 @@ def xlstm_paged_run(torch, cfg, params, dev, chunk_tokens: int):
 
 def dense_run(torch, cfg, params, dev, chunk_tokens: int, need=("mlstm_chunkwise",)):
     """A dense engine at the launcher's shapes (4 slots, max_len 96, the
-    launcher's 8-token prompts of requests 0-7), generate(); every kernel
-    in ``need`` must have been launched."""
+    launcher's 8-token prompts of requests 0-7), generate(); every kernel in
+    ``need`` must have been launched."""
     import numpy as np
 
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
@@ -2190,6 +2231,9 @@ def qeinsum_gap(torch, w) -> None:
 
 
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
+# depth of the phase-10 launcher bursts (the first layers of the FULL trees
+# the phase's steps run whole), for the script's time limit
+LAUNCHER_LAYERS = {"granite-8b": 12, "qwen1.5-32b": 16}
 
 
 def free_card(torch) -> None:
@@ -2233,7 +2277,7 @@ def int8w_granite(torch, dev, counts, steps) -> None:
     for name, (c, p) in legs.items():
         extra = ("--weights-int8",) if c.weights_int8 else ()
         counts[f"granite_{name}_launcher_whole_prompt"] = launcher_leg(
-            torch, 0, p, "granite-8b", INT8W_NEED, extra)[1]
+            torch, 0, p, "granite-8b", INT8W_NEED, extra + ("--layers", str(LAUNCHER_LAYERS["granite-8b"])))[1]
 
 
 def int8w_qwen(torch, dev, counts, steps) -> None:
@@ -2263,7 +2307,8 @@ def int8w_qwen(torch, dev, counts, steps) -> None:
     check_step("qwen1.5-32b int8w", cfg, per["decode step"])
     steps["qwen_int8w"] = dict(per["timing"], dense_ms=dense_step(torch, cfg, params, dev)[0])
     counts["qwen_int8w_launcher_whole_prompt"] = launcher_leg(
-        torch, 0, params, "qwen1.5-32b", INT8W_NEED, ("--weights-int8",))[1]
+        torch, 0, params, "qwen1.5-32b", INT8W_NEED,
+        ("--weights-int8", "--layers", str(LAUNCHER_LAYERS["qwen1.5-32b"])))[1]
     i8 = pools_run(torch, cfg, params, dev, "int8", True)
     check_served("qwen int8w pools int8 chained", i8)
     for key in ("paged_prefill_write_quant", "paged_attention[int8+chained]"):
@@ -2277,20 +2322,20 @@ def int8w_qwen(torch, dev, counts, steps) -> None:
 
 
 def int8w_parity_models(torch, dev) -> dict:
-    """4 of the layers at FULL width for the parity phase: granite-8b in
+    """2 of the layers at FULL width for the parity phase: granite-8b in
     bf16 and with int8 weights, qwen1.5-32b with int8 weights, each on a
     dense engine (whole-prompt) and an int8 chained pool, then moved to the
     host."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.quant import quantize_params
 
-    g4 = get_config("granite-8b").replace(n_layers=4)
-    q4 = get_config("qwen1.5-32b").replace(n_layers=4, weights_int8=True)
-    p4 = seeded_params(torch, g4, dev, 1)
+    g2 = get_config("granite-8b").replace(n_layers=2)
+    q2 = get_config("qwen1.5-32b").replace(n_layers=2, weights_int8=True)
+    p2 = seeded_params(torch, g2, dev, 1)
     served = {}
-    for name, c, p in (("granite-4L-bf16", g4, p4),
-                       ("granite-4L-int8w", g4.replace(weights_int8=True), quantize_params(p4)),
-                       ("qwen-4L-int8w", q4, seeded_params(torch, q4, dev, 1))):
+    for name, c, p in (("granite-2L-bf16", g2, p2),
+                       ("granite-2L-int8w", g2.replace(weights_int8=True), quantize_params(p2)),
+                       ("qwen-2L-int8w", q2, seeded_params(torch, q2, dev, 1))):
         served[name] = {"cfg": c, "params": p, "dense": dense_run(torch, c, p, dev, 0, INT8W_NEED[:2]),
                         "int8": pools_run(torch, c, p, dev, "int8", True)}
         check_served(f"{name} pools int8", served[name]["int8"])
@@ -2540,6 +2585,295 @@ def phase_stubs(torch, dev):
                 r[key] = r[key].cpu()
     offload(torch, list(served.values()))
     return {"served": served, "counts": counts, "steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# MoE: dbrx-132b and llama4-maverick at FULL width, cut in depth
+# ---------------------------------------------------------------------------
+
+# layers served at FULL width, and the bf16 tree's bytes reckoned by hand
+MOE_RUNS = {"dbrx-132b": (8, 54_611_619_840), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
+ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
+                     # down to bf16 routing when the CPU's gap at that decision is below this
+REPLAY_STEPS = 10    # decode steps of each parity leg's replay
+LEG_C_MARGIN = 16e9  # host bytes leg C needs free beyond its f32 tree
+
+
+def mem_available() -> int:
+    """The host's MemAvailable (/proc/meminfo), in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable line in /proc/meminfo")
+
+
+def release_host() -> str:
+    """Collect garbage and hand the C heap's free pages back to the system
+    (``malloc_trim``); returns MemAvailable and this process's resident
+    bytes, for the log."""
+    import ctypes
+    import gc
+    import resource
+
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    rss = int(Path("/proc/self/statm").read_text().split()[1]) * resource.getpagesize()
+    return f"host MemAvailable {mem_available()} B, resident {rss} B"
+
+
+class RoutingLog:
+    """While on, records each ``moe_core`` call's router logits (f32, on
+    the host), capacity and padding mask: the routing the port's plain
+    ``moe.route`` recomputes from them."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls, self.orig = moe, [], moe.moe_core
+
+    def __enter__(self):
+        orig = self.orig
+
+        def recording(cfg, x_flat, logits, w1, w3, w2, capacity, valid=None):
+            self.calls.append((logits.detach().float().cpu(), capacity,
+                               None if valid is None else valid.cpu()))
+            return orig(cfg, x_flat, logits, w1, w3, w2, capacity, valid=valid)
+
+        self.moe.moe_core = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_core = self.orig
+
+
+def routed(torch, cfg, call):
+    """The plain routing of one recorded call and its kept (expert, token)
+    pairs, an (E, T) bool."""
+    from repro_torch.models import moe
+
+    logits, cap, valid = call
+    r = moe.route(cfg, logits, cap, valid)
+    kept = torch.zeros(r["assigned"].shape, dtype=torch.bool)
+    kept.scatter_(1, r["sel_idx"], r["sel_valid"])
+    return r, kept
+
+
+def drop_share(torch, cfg, calls) -> dict:
+    """Expert assignments made and dropped over recorded calls."""
+    made = kept = 0
+    for call in calls:
+        r, k = routed(torch, cfg, call)
+        made, kept = made + int(r["assigned"].sum()), kept + int(k.sum())
+    return {"assignments": made, "dropped": made - kept, "share": (made - kept) / max(1, made)}
+
+
+def swap_gap(torch, score, cpu, card):
+    """Along dim 0 of masks shaped as the CPU's ``score``: the score of the
+    best item the CPU took and the card did not, less that of the worst the
+    card took and the CPU did not; the least change that swaps them."""
+    hi = torch.where(cpu & ~card, score, -math.inf).amax(0)
+    lo = torch.where(card & ~cpu, score, math.inf).amin(0)
+    return hi - lo
+
+
+def routing_check(torch, cfg, card_calls, cpu_calls, B: int, P: int):
+    """The card's routing (bf16 hidden states) against the CPU's (f32), call
+    by call, over a replay of B streams: a prefill of P tokens each, then a
+    token a stream each decode step, cfg.n_layers MoE calls a pass. Every
+    token whose kept experts differ is traced to a decision: a token's own
+    top-k choice, or an expert's capacity cut (the same tokens assigned).
+    Its CPU gap is the least change that swaps what the two sides chose:
+    the best router probability (top-k) or gate score (capacity) the CPU
+    took and the card did not, less the worst the card took and the CPU did
+    not. A decision whose inputs an earlier difference already moved is
+    excused; every other one must sit at a CPU gap below ROUTE_GAP, else
+    this raises. A difference moves the token's
+    stream from its position on in a layer below the last (attention), its
+    own row alone in the last layer. Returns the (B, rows) mask of logit
+    rows a difference moved, and a summary."""
+    L, k = cfg.n_layers, cfg.moe.top_k
+    if len(card_calls) != len(cpu_calls) or len(card_calls) % L:
+        raise AssertionError(f"{len(card_calls)} MoE calls on the card, {len(cpu_calls)} on the CPU")
+    n_rows = len(card_calls) // L
+    attn = torch.full((B,), P + n_rows)                   # first position whose inputs are moved
+    row = torch.zeros(B, P + n_rows, dtype=torch.bool)    # positions whose last-layer output alone is
+    st = {"calls": 0, "decisions": 0, "excused": 0, "widest": 0.0, "first": None}
+    for c, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        ra, ka = routed(torch, cfg, a)
+        rb, kb = routed(torch, cfg, b)
+        diff = (ka != kb).any(0)                          # (T,) tokens whose kept experts differ
+        if not diff.any():
+            continue
+        step, T = c // L, diff.numel()
+        if T != (B * P if step == 0 else B):
+            raise AssertionError(f"call {c}: {T} tokens, expected {B * P if step == 0 else B}")
+        tok = torch.arange(T)
+        bs, ps = (tok // P, tok % P) if step == 0 else (tok, torch.full((B,), P + step - 1))
+        moved = ps >= attn[bs]
+        own = (ra["assigned"] != rb["assigned"]).any(0)
+        gaps = [swap_gap(torch, rb["probs"].T, rb["assigned"], ra["assigned"])[own & ~moved]]
+        cut = ((ka != kb).any(1) & (ra["assigned"] == rb["assigned"]).all(1)
+               & ~(rb["assigned"] & moved[None]).any(1))
+        gaps.append(swap_gap(torch, (rb["assigned"].float() + rb["w_te"]).T, kb.T, ka.T)[cut])
+        g = torch.cat(gaps)
+        st["calls"] += 1
+        st["decisions"] += g.numel()
+        st["excused"] += int((own & moved).sum())
+        st["first"] = c if st["first"] is None else st["first"]
+        if g.numel():
+            st["widest"] = max(st["widest"], float(g.max()))
+            if float(g.max()) > ROUTE_GAP:
+                raise AssertionError(f"call {c} (layer {c % L}, pass {step}): routing differs at a CPU gap "
+                                     f"{float(g.max())} above {ROUTE_GAP}")
+        if c % L < L - 1:
+            attn.scatter_reduce_(0, bs[diff], ps[diff], "amin")
+        else:
+            row[bs[diff], ps[diff]] = True
+    pos = P - 1 + torch.arange(n_rows)
+    return (pos[None] >= attn[:, None]) | row[:, pos], st
+
+
+def moe_dropped(torch, cfg, eng) -> dict:
+    """One more decode step of ``eng`` (all 8 slots live), its routing
+    recorded: the share of expert assignments dropped at capacity."""
+    from repro_torch.models.moe import capacity_for
+
+    with RoutingLog() as rl:
+        eng.step()
+    torch.cuda.synchronize()
+    d = drop_share(torch, cfg, rl.calls)
+    log(f"  {cfg.name} {cfg.n_layers}L decode step routing (8 tokens, top-{cfg.moe.top_k} of "
+        f"{cfg.moe.n_experts}, C = {capacity_for(cfg, 8)}): {d['assignments']} expert assignments over "
+        f"{len(rl.calls)} MoE layers, {d['dropped']} dropped ({d['share']:.4f})")
+    return d
+
+
+def moe_served(torch, dev, arch, counts, steps) -> None:
+    """One MoE model at FULL width, cut to MOE_RUNS' depth, in bf16: drawn
+    on the card by the blocked init (its bytes against the reckoning, its
+    peak below the tree + 4 GiB), a batch-8 paged step (2L + 1 rmsnorm and
+    L paged decode launches, time, busy share, device operations, the
+    dropped share of one more step), a batch-4 dense step (L
+    decode_attention), the launcher's 32 requests with --layers
+    (whole-prompt), the pools phase's 8 prompts (dbrx in 32-token chunks on
+    a bf16 flat pool, llama4 whole-prompt on an int8 chained pool), 0
+    failures; then the tree is freed."""
+    from repro_torch.configs.registry import get_config
+
+    L, want = MOE_RUNS[arch]
+    tag = arch.split("-")[0]
+    cfg = get_config(arch).replace(n_layers=L)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, 0)
+    torch.cuda.synchronize()
+    t_draw, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    tb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.moe
+    log(f"  {arch} FULL width, {L} of {get_config(arch).n_layers} layers: d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), "
+        f"{m.n_experts} experts top-{m.top_k}, d_ff {cfg.d_ff}; {tb} B in bf16 (reckoned {want} B), drawn "
+        f"on the card in {t_draw:.3f} s; max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; "
+        f"{before / 2**30:.3f} GiB allocated before), tree + 4 GiB = {(tb + 4 * 2**30) / 2**30:.3f} GiB")
+    if not tb == want == 2 * n_params(cfg):
+        raise AssertionError(f"{arch} {L}L: {tb} B, reckoned {want}, {n_params(cfg)} parameters")
+    if peak >= tb + 4 * 2**30:
+        raise AssertionError(f"{arch} init peak {peak} B, not below the tree {tb} B + 4 GiB")
+    per = phase_step(torch, cfg, params, dev, after=lambda eng: moe_dropped(torch, cfg, eng))
+    check_step(arch, cfg, per["decode step"])
+    steps[f"{tag}_paged"] = dict(per["timing"], dropped=per["after"])
+    steps[f"{tag}_dense"] = dense_step(torch, cfg, params, dev)[2]
+    counts[f"{tag}_launcher_whole_prompt"] = launcher_leg(
+        torch, 0, params, arch, ("decode_attention", "flash_attention", "rmsnorm"), ("--layers", str(L)))[1]
+    if tag == "dbrx":
+        run, name = pools_run(torch, cfg, params, dev, "bf16", False, chunk_tokens=32), "pools_bf16_flat_chunk32"
+        keys = ("paged_prefill_write", "paged_attention[flat]")
+    else:
+        run, name = pools_run(torch, cfg, params, dev, "int8", True), "pools_int8_chained"
+        keys = ("paged_prefill_write_quant", "paged_attention[int8+chained]")
+    check_served(f"{tag} {name}", run)
+    for key in keys:
+        if run["counts"][key] <= 0:
+            raise AssertionError(f"{key} was not launched in {tag} {name}")
+    counts[f"{tag}_{name}"] = run["counts"]
+    del params
+    free_card(torch)
+
+
+def ample(cfg):
+    """``cfg`` with no drop possible: capacity factor n_experts / top_k, so
+    capacity_for(n) = n in both packages."""
+    import dataclasses
+
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def moe_replay(torch, cfg, params, dev, prompts, steps: int) -> dict:
+    """``DecoderLM.prefill`` of equal-length prompts on a dense cache, then
+    ``steps`` greedy decode steps, no engine and no idle slot, every MoE
+    call's routing recorded."""
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import capacity_for
+
+    model = get_model(cfg)
+    B, L = len(prompts), len(prompts[0])
+    cache = model.init_cache(B, L + steps + 1, dev)
+    with RoutingLog() as rl:
+        tok, cache = model.prefill(params, {"tokens": torch.tensor(prompts)}, cache)
+        outs = [tok]
+        for j in range(steps):
+            tok, cache = model.decode(params, cache, {"token": tok[:, None], "cache_index": L + j})
+            outs.append(tok)
+    torch.cuda.synchronize()
+    outs = torch.stack(outs, 1).cpu().tolist()
+    n = cfg.n_layers
+    d = {"prefill": drop_share(torch, cfg, rl.calls[:n]), "decode": drop_share(torch, cfg, rl.calls[n:])}
+    log(f"  {cfg.name} {cfg.n_layers}L replay at capacity factor {cfg.moe.capacity_factor}: {B} prompts of "
+        f"{L} tokens (C = {capacity_for(cfg, B * L)}), {steps} decode steps (C = {capacity_for(cfg, B)}); "
+        + "; ".join(f"{k} {v['dropped']} of {v['assignments']} expert assignments dropped ({v['share']:.4f})"
+                    for k, v in d.items()))
+    return {"cfg": cfg, "prompts": prompts, "outs": outs, "calls": rl.calls, "dropped": d}
+
+
+def moe_parity_models(torch, dev) -> dict:
+    """The parity legs' replays on the card (``moe_replay``, REPLAY_STEPS
+    steps), kept there for the parity phase: dbrx-132b at 2 layers, FULL
+    width (other draws), with no drop possible (leg A: 4 prompts of 16
+    tokens) and at the default, binding capacity (leg B: 8 such prompts, so
+    that decode binds too, C = 4 < T = 8); llama4-maverick at 1 layer with
+    no drop possible (leg C: 4 prompts)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+
+    def prompts(cfg, n):
+        return [[int(t) for t in np.random.default_rng(2000 + i).integers(1, cfg.vocab_size, 16)]
+                for i in range(n)]
+
+    cfg2 = get_config("dbrx-132b").replace(n_layers=2)
+    p2 = seeded_params(torch, cfg2, dev, 1)
+    served = {"dbrx": {"params": p2, "A": moe_replay(torch, ample(cfg2), p2, dev, prompts(cfg2, 4), REPLAY_STEPS),
+                       "B": moe_replay(torch, cfg2, p2, dev, prompts(cfg2, 8), REPLAY_STEPS)}}
+    cfg1 = get_config("llama4-maverick-400b-a17b").replace(n_layers=1)
+    p1 = seeded_params(torch, cfg1, dev, 1)
+    served["llama4"] = {"params": p1, "C": moe_replay(torch, ample(cfg1), p1, dev, prompts(cfg1, 4), REPLAY_STEPS)}
+    return served
+
+
+def phase_moe(torch, dev) -> dict:
+    """The MoE family, every earlier tree off the card: dbrx-132b at 8 and
+    llama4-maverick at 2 of their layers, FULL width, each freed before the
+    next; then the parity legs' runs (``moe_parity_models``)."""
+    counts, steps = {}, {}
+    for arch in MOE_RUNS:
+        t0 = time.perf_counter()
+        moe_served(torch, dev, arch, counts, steps)
+        log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = moe_parity_models(torch, dev)
+    log(f"  parity legs' runs on the card: {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts, "steps": steps, "served": served}
 
 
 def _leaves(tree):
@@ -2811,7 +3145,7 @@ def parity_glm4(torch, par, glm4):
 
 def parity_int8w(torch, par, int8w):
     """granite-8b (bf16 and int8 weights) and qwen1.5-32b (int8 weights) at
-    FULL width, 4 layers: the dense engine's 8 streams through the
+    FULL width, 2 layers: the dense engine's 8 streams through the
     whole-sequence forward, the first int8 chained paged stream (a
     120-token prompt) through a paged int8 pool step by step, on the CPU in
     f32 (``qeinsum`` in f32 on the int8 values), held to FLIP_BOUND."""
@@ -2864,6 +3198,80 @@ def parity_stubs(torch, par, stubs):
         rows = model.logits(p32, h[:, P - 1:])
         for b, out in enumerate(r["outs"]):
             par.check("whisper-4+4L", b, rows[b], out)
+
+
+def moe_replay_parity(torch, par, p32, r, name: str) -> None:
+    """One parity leg: the CPU replays the card's prefill and decode steps
+    teacher-forced (``teacher_forced_batch``, a dense cache), its routing
+    recorded and held to the card's by ``routing_check``. Rows that no
+    routing difference moved are held to FLIP_BOUND; the others are
+    recorded without the bound."""
+    cfg32 = par.f32(r["cfg"])
+    with RoutingLog() as rl:
+        rows = teacher_forced_batch(torch, cfg32, p32, r["prompts"], r["outs"], "dense")
+    moved, st = routing_check(torch, cfg32, r["calls"], rl.calls, len(r["prompts"]), len(r["prompts"][0]))
+    d = drop_share(torch, cfg32, rl.calls)
+    card = sum(v["dropped"] for v in r["dropped"].values())
+    log(f"  {name}: {len(rl.calls)} MoE calls, CPU {d['dropped']} of {d['assignments']} assignments dropped "
+        f"(card {card}); routing differs from the card's in {st['calls']} calls (first {st['first']}), "
+        f"{st['decisions']} decisions at a near-tie (widest CPU gap {st['widest']:.6f}, ROUTE_GAP "
+        f"{ROUTE_GAP}), {st['excused']} after moved inputs; {int(moved.sum())} of {moved.numel()} rows moved")
+    for i, (rows_i, out) in enumerate(zip(rows, r["outs"])):
+        held, after = (~moved[i]).nonzero().flatten().tolist(), moved[i].nonzero().flatten().tolist()
+        par.check(name, i, rows_i[held], [out[j] for j in held])
+        if after:
+            par.check(f"{name}-after-routing-difference", i, rows_i[after], [out[j] for j in after], bound=False)
+
+
+def parity_moe(torch, par, moe) -> None:
+    """The MoE legs, each a replay held by ``moe_replay_parity``, each tree
+    brought to the host in f32 and freed after its legs. Leg C first
+    (llama4 1L, no drop possible), when the host's MemAvailable exceeds its
+    f32 tree by LEG_C_MARGIN, else recorded as waiting; then legs A (dbrx
+    2L, no drop possible) and B (the same weights at binding capacity)."""
+    d, ll = moe["served"]["dbrx"], moe["served"]["llama4"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        need = 2 * sum(t.numel() * t.element_size() for t in _leaves(ll["params"])) + LEG_C_MARGIN
+        avail = mem_available()
+        if avail > need:
+            p32 = par.to_cpu(ll["params"])
+            ll["params"] = None
+            free_card(torch)
+            moe_replay_parity(torch, par, p32, ll["C"], "llama4-1L-C")
+            del p32
+            moe["leg_c"] = f"ran: MemAvailable {avail} B against {need:.0f} B"
+        else:
+            ll["params"] = None
+            free_card(torch)
+            moe["leg_c"] = f"waits: MemAvailable {avail} B, its f32 tree and margin need {need:.0f} B"
+        log(f"  parity leg C (llama4 1L) {moe['leg_c']}: {time.perf_counter() - t0:.1f} s; {release_host()}")
+        t0 = time.perf_counter()
+        p32 = par.to_cpu(d["params"])
+        d["params"] = None
+        free_card(torch)
+        moe_replay_parity(torch, par, p32, d["A"], "dbrx-2L-A")
+        moe_replay_parity(torch, par, p32, d["B"], "dbrx-2L-B")
+        del p32
+        log(f"  parity moe legs A and B: {time.perf_counter() - t0:.1f} s; {release_host()}")
+
+
+def drop_trees(*runs) -> None:
+    """Drop the weights the runs hold (every nested ``params``), so that the
+    host can take the MoE legs' f32 trees."""
+
+    def walk(x):
+        if isinstance(x, dict):
+            if "params" in x:
+                x["params"] = None
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    for r in runs:
+        walk(r)
 
 
 def _map(tree, fn):
@@ -3036,7 +3444,7 @@ def phase_sched(torch, dev) -> None:
     for mod in (fig4_interactive, fig5_elastic, fig6_7_platforms, fig8_response):
         mod.main()
     placement.main([])
-    log(f"  phase 13 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
+    log(f"  phase 14 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
         f"figure twins {time.perf_counter() - t2:.1f} s")
 
 
@@ -3144,8 +3552,15 @@ def main() -> int:
     stubs = phase_stubs(torch, dev)
     log(f"  stubs phase {time.perf_counter() - t_stubs:.1f} s")
 
-    # 12. parity
-    log(f"phase 12 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    # 12. moe: the MoE family at FULL width, cut in depth, every earlier tree off the card
+    log(f"phase 12 moe: dbrx-132b 8L and llama4-maverick 2L FULL width bf16 ({torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB allocated; host MemAvailable {mem_available()} B) [at {time.perf_counter() - T_START:.1f} s]")
+    t_moe = time.perf_counter()
+    moe = phase_moe(torch, dev)
+    log(f"  moe phase {time.perf_counter() - t_moe:.1f} s")
+
+    # 13. parity
+    log(f"phase 13 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
     t_parity = time.perf_counter()
     par = Parity(torch)
     for name, fn, args in (("smollm", parity_smollm, ([chunked, whole], [l_chunk, l_whole], pools)),
@@ -3155,15 +3570,20 @@ def main() -> int:
         t0 = time.perf_counter()
         fn(torch, par, *args)
         log(f"  parity {name}: {time.perf_counter() - t0:.1f} s")
+    drop_trees(chunked, whole, l_chunk, l_whole, opts, xlstm, glm4, int8w, stubs)
+    t0 = time.perf_counter()
+    log(f"  earlier trees dropped: {release_host()}")
+    parity_moe(torch, par, moe)
+    log(f"  parity moe: {time.perf_counter() - t0:.1f} s")
     par.report()
     t_summary = time.perf_counter()
 
-    # 13. sched
-    log(f"phase 13 sched: placing_batch_torch on the card, the paper's gates and figure twins "
+    # 14. sched
+    log(f"phase 14 sched: placing_batch_torch on the card, the paper's gates and figure twins "
         f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
     phase_sched(torch, dev)
 
-    # 14. summary
+    # 15. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -3171,7 +3591,7 @@ def main() -> int:
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
-            **int8w["counts"], **stubs["counts"]}
+            **int8w["counts"], **stubs["counts"], **moe["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",

@@ -1,0 +1,27 @@
+"""dbrx-132b [moe] — 16 experts top-4, fine-grained (hf:databricks/dbrx-base).
+
+40L d_model=6144 48H (GQA kv=8) d_ff=10752 vocab=100352, MoE 16e top-4.
+"""
+import torch
+
+from repro_torch.models.common import ModelConfig, MoECfg
+
+FULL = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=10752,
+    vocab_size=100352,
+    moe=MoECfg(n_experts=16, top_k=4, every_k=1, fsdp_experts=True),
+    rope_theta=500000.0,
+)
+
+SMOKE = FULL.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=512,
+    moe=MoECfg(n_experts=4, top_k=2, every_k=1),
+    param_dtype=torch.float32, compute_dtype=torch.float32,
+    attn_chunk=8,
+)

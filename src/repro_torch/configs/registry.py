@@ -6,8 +6,10 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs import (
+    dbrx_132b,
     glm4_9b,
     granite_8b,
+    llama4_maverick,
     qwen2_vl_2b,
     qwen15_32b,
     smollm_360m,
@@ -24,6 +26,8 @@ _MODULES = {
     "granite-8b": granite_8b,
     "qwen2-vl-2b": qwen2_vl_2b,
     "whisper-large-v3": whisper_large_v3,
+    "dbrx-132b": dbrx_132b,
+    "llama4-maverick-400b-a17b": llama4_maverick,
 }
 
 

@@ -27,6 +27,13 @@ metrics registry as Prometheus text.
 tree fits one card), or ``quantize_params`` of the ``params`` passed in.
 Attention-only decoders; xlstm-350m raises ``WeightsInt8Error``.
 
+``--layers N`` serves the first N layers of the configuration at its full
+width (default: all of them): neither MoE model fits one card whole
+(dbrx-132b is 263 GB in bf16, llama4-maverick 1.56 TB). N must be a
+multiple of the configuration's block pattern, at most its depth. ``params`` passed
+in must hold at least N layers; the first N serve. The MoE family has no weight-only
+int8 path yet (``WeightsInt8Error``).
+
 Where the JAX launcher always serves the smoke configuration, this one
 serves the FULL model (bf16) unless ``--smoke`` is given; ``--device``
 defaults to the card.
@@ -67,7 +74,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument("--smoke", action="store_true",
                     help="the smoke configuration instead of the FULL model")
-    return ap.parse_args(argv)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers at the configuration's width (0 = all)")
+    args = ap.parse_args(argv)
+    if args.layers:
+        from repro_torch.configs.registry import get_config
+
+        cfg = get_config(args.arch, smoke=args.smoke)
+        step = len(cfg.block_pattern)
+        if not 0 < args.layers <= cfg.n_layers or args.layers % step:
+            ap.error(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers in blocks of {step}; "
+                     f"N must be a multiple of {step} from {step} to {cfg.n_layers}")
+    return args
 
 
 def main(argv: Optional[List[str]] = None, params=None) -> dict:
@@ -101,6 +119,8 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke).replace(attn_chunk=64)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     if args.weights_int8:
         check_int8_family(cfg)
         cfg = cfg.replace(weights_int8=True)
@@ -120,6 +140,7 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
     interactive = InferenceEngine(cfg, ecfg(1), params=params, device=dev)
     batch_tier = InferenceEngine(cfg, ecfg(4), params=params, device=dev)
     print(f"tiers ready in {time.time()-t0:.1f}s ({cfg.name}, {'smoke' if args.smoke else 'FULL'}, "
+          f"{cfg.n_layers} layers, "
           f"{str(cfg.compute_dtype).replace('torch.', '')}, {dev}, weights_int8={args.weights_int8})")
     if dev.type == "cuda":
         from repro_torch.kernels import _build

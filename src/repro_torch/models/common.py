@@ -1,8 +1,9 @@
 """Shared model substrate: config, parameter definitions, norms, embeddings.
 
 The torch twin of ``repro/models/common.py`` for the families ported so far:
-the attention-only decoder, xLSTM, the VLM backbone (token or embedding
-inputs, M-RoPE) and the whisper encoder-decoder (layernorm, cross-attention).
+the attention-only decoder, its mixture-of-experts FFN, xLSTM, the VLM
+backbone (token or embedding inputs, M-RoPE) and the whisper encoder-decoder
+(layernorm, cross-attention).
 Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes and
 init rules from one source of truth, as in the JAX package.
 """
@@ -19,6 +20,16 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 # Config
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    every_k: int = 1            # MoE FFN on layers where (layer_idx % every_k == every_k - 1)
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01
+    fsdp_experts: bool = False  # a sharding knob of the JAX package; no effect on one device
 
 
 @dataclass(frozen=True)
@@ -42,7 +53,7 @@ class EncoderCfg:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm | vlm | audio (the families ported so far)
+    family: str                 # dense | moe | ssm | vlm | audio (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -66,6 +77,7 @@ class ModelConfig:
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0
     weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
+    moe: Optional[MoECfg] = None
     xlstm: Optional[XLSTMCfg] = None
     encoder: Optional[EncoderCfg] = None
     cross_attn: bool = False    # decoder layers carry cross-attention (encoder-decoder)
@@ -88,6 +100,12 @@ class ModelConfig:
                 f"pattern length {len(self.block_pattern)}"
             )
         return self.n_layers // len(self.block_pattern)
+
+    def layer_has_moe(self, pos_in_superblock: int) -> bool:
+        if self.moe is None:
+            return False
+        k = self.moe.every_k
+        return pos_in_superblock % k == k - 1
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -135,14 +153,42 @@ def init_scale(d: ParamDef) -> float:
     return d.scale if d.scale else 1.0 / math.sqrt(max(1, d.fan_in()))
 
 
+# f32 scratch elements a step of a blocked draw (and of the blocked quantizer)
+BLOCK = 1 << 26
+
+
+def draw_normal(gen: torch.Generator, out: torch.Tensor, scale: float) -> torch.Tensor:
+    """Fill ``out`` with ``scale`` times standard-normal draws made in f32
+    and cast to its dtype. A tensor of more than ``BLOCK`` values is drawn
+    in blocks along its leading axes (slices of the first axis, or of the
+    second within one slice of the first, and so on), so the f32 scratch
+    stays near ``BLOCK`` values whatever the leaf: dbrx-132b's stacked
+    expert leaf would otherwise need a 33.8 GB f32 draw. A tensor within
+    ``BLOCK`` is one draw."""
+    if out.numel() <= BLOCK or out.ndim < 2:
+        x = torch.randn(out.shape, generator=gen, dtype=torch.float32, device=out.device)
+        return out.copy_(x * scale)
+    step = BLOCK // out[0].numel()
+    if step == 0:
+        for i in range(out.shape[0]):
+            draw_normal(gen, out[i], scale)
+    else:
+        for r in range(0, out.shape[0], step):
+            draw_normal(gen, out[r:r + step], scale)
+    return out
+
+
 def init_param(gen: torch.Generator, d: ParamDef, dtype, device) -> torch.Tensor:
+    """One leaf: zeros, ones, or normal draws at ``init_scale(d)``. A normal
+    leaf within ``BLOCK`` values is one f32 draw (every leaf at smoke size,
+    so the CPU's draws are those of the whole-leaf draw); a larger one is
+    drawn in blocks (``draw_normal``), so its values on the card are its own
+    draw and the peak stays near the tree plus one block."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    scale = init_scale(d)
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return draw_normal(gen, torch.empty(d.shape, dtype=dtype, device=device), init_scale(d))
 
 
 def init_tree(gen: torch.Generator, defs, dtype, device) -> Any:

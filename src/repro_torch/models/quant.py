@@ -31,7 +31,7 @@ from typing import Any, Mapping, Union
 
 import torch
 
-from repro_torch.models.common import ParamDef, init_param, init_scale, is_def
+from repro_torch.models.common import BLOCK, ParamDef, draw_normal, init_param, init_scale, is_def
 
 QuantW = Mapping  # {"q": int8, "s": bf16}
 
@@ -39,22 +39,27 @@ QuantW = Mapping  # {"q": int8, "s": bf16}
 # the embedding gather and 1-D params stay floating point)
 QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "unembed"}
 
-# f32 scratch elements a step of the blocked quantizer and draw (256 MB)
-BLOCK = 1 << 26
-
 
 class WeightsInt8Error(ValueError):
-    """Weight-only int8 asked of a model that the JAX package cannot serve
-    that way either: its recurrent mixers read ``wq``/``wk``/``wv`` with a
-    plain product, which a quantized dict breaks."""
+    """Weight-only int8 asked of a model that the port does not serve that
+    way: recurrent mixers read ``wq``/``wk``/``wv`` with a plain product,
+    which a quantized dict breaks (in the JAX package alike), and the VLM,
+    encoder-decoder and MoE families' int8 paths are not ported."""
 
 
 def check_int8_family(cfg) -> None:
     """Raise ``WeightsInt8Error`` unless every mixer of ``cfg`` is attention
-    and its prompts are tokens for a decoder alone (weight-only int8 of the
-    VLM and encoder-decoder families is not ported)."""
+    with a dense FFN and its prompts are tokens for a decoder alone
+    (weight-only int8 of the VLM, encoder-decoder and MoE families is not
+    ported; ``qeinsum`` takes a 2-D weight, and the expert products' 3-D
+    quantized leaves wait for ROADMAP's "weight-only int8 of the MoE
+    family")."""
     if cfg.encoder is not None or cfg.inputs != "tokens":
         raise WeightsInt8Error(f"{cfg.name}: weight-only int8 of the {cfg.family} family is not ported")
+    if cfg.moe is not None:
+        raise WeightsInt8Error(
+            f"{cfg.name}: weight-only int8 of the MoE family (3-D expert products) is not ported; "
+            f"ROADMAP Queue 1: weight-only int8 of the MoE family")
     other = sorted({kind for kind in cfg.block_pattern if kind != "attn"})
     if other:
         raise WeightsInt8Error(
@@ -151,26 +156,17 @@ def init_quantized(gen: torch.Generator, defs: Any, dtype, device) -> Any:
     draws are the whole-leaf draws' when every block holds a multiple of 16
     values (torch's CPU normal fill); on the card they are their own."""
 
-    def draw_into(d: ParamDef, out: torch.Tensor) -> torch.Tensor:
-        scale = init_scale(d)
-        step = max(1, BLOCK // max(1, out[0].numel()))
-        for r in range(0, out.shape[0], step):
-            x = torch.randn(out[r:r + step].shape, generator=gen, dtype=torch.float32, device=device)
-            out[r:r + step] = (x * scale).to(dtype)
-        return out
-
     def leaf(key: str, d: ParamDef):
         if d.init != "normal":
             return init_param(gen, d, dtype, device)
         if key not in QUANT_LEAVES or len(d.shape) < 2:
-            return draw_into(d, torch.empty(d.shape, dtype=dtype, device=device))
+            return draw_normal(gen, torch.empty(d.shape, dtype=dtype, device=device), init_scale(d))
         qw = _empty_quant(d.shape, device)
         n = math.prod(d.shape[:-2])
         qs, ss = qw["q"].reshape(n, *d.shape[-2:]), qw["s"].reshape(n, 1, d.shape[-1])
-        sub = ParamDef(d.shape[-2:], d.init, d.scale)
         w = torch.empty(d.shape[-2:], dtype=dtype, device=device)
         for i in range(n):
-            _quantize_into(draw_into(sub, w), qs[i], ss[i])
+            _quantize_into(draw_normal(gen, w, init_scale(d)), qs[i], ss[i])
         return qw
 
     def walk(node, key: str = ""):

@@ -1,7 +1,8 @@
 """Decoder stack: the superblock pattern run as a Python loop over the stacked
 superblock parameters (the JAX package scans them with ``lax.scan``).
 
-Mixers ported so far: attention (with a gated or a plain GELU MLP), and the
+Mixers ported so far: attention (with a gated or a plain GELU MLP, or the
+mixture-of-experts FFN on the layers ``cfg.layer_has_moe`` names), and the
 xLSTM family's mLSTM and sLSTM (no FFN, ``d_ff = 0``). With
 ``cfg.cross_attn`` (the whisper decoder) every layer also attends over the
 encoder's output, whose K/V the prefill computes and keeps in the cache.
@@ -29,6 +30,7 @@ from repro_torch.models.common import (
     stack_defs,
 )
 from repro_torch.models.mlp import mlp, mlp_defs
+from repro_torch.models.moe import moe_defs, moe_ffn
 
 RECURRENT = {"mlstm": (xl.mlstm_defs, xl.mlstm_cache_defs, xl.mlstm_mixer),
              "slstm": (xl.slstm_defs, xl.slstm_cache_defs, xl.slstm_mixer)}
@@ -52,7 +54,7 @@ def superblock_defs(cfg: ModelConfig) -> dict:
             defs[f"l{i}_cross"] = attn.attention_defs(cfg, cross=True)
         if cfg.d_ff > 0:
             defs[f"l{i}_ffn_norm"] = norm_defs(cfg)
-            defs[f"l{i}_ffn"] = mlp_defs(cfg)
+            defs[f"l{i}_ffn"] = moe_defs(cfg) if cfg.layer_has_moe(i) else mlp_defs(cfg)
     return defs
 
 
@@ -215,7 +217,11 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
             x = x + attn.cross_attention(cfg, p[f"l{i}_cross"], h, kv)
         if cfg.d_ff > 0:
             h = apply_norm(cfg, p[f"l{i}_ffn_norm"], x)
-            x = x + mlp(cfg, p[f"l{i}_ffn"], h)
+            if cfg.layer_has_moe(i):
+                h, _ = moe_ffn(cfg, p[f"l{i}_ffn"], h, valid=valid)   # serving drops the aux loss
+            else:
+                h = mlp(cfg, p[f"l{i}_ffn"], h)
+            x = x + h
     return x, new_chunk
 
 

@@ -1266,3 +1266,90 @@ def test_cuda_whisper_matches_cpu(cuda_device):
                                  model.decode(gpu, c, b))
         assert torch.equal(got.cpu(), want) and n == {"rmsnorm": 0, "flash": 0, "decode": L}
     _close_trees(gc, wc)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def _moe_layer(E, k, T, d=256, f=512, seed=0):
+    """An MoE layer's f32 weights and input on the CPU, unit-scale outputs."""
+    from repro_torch.configs import dbrx_132b
+    from repro_torch.models.common import MoECfg
+
+    cfg = dbrx_132b.SMOKE.replace(d_model=d, d_ff=f, moe=MoECfg(n_experts=E, top_k=k))
+    g = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn(d, E, generator=g) / d ** 0.5,
+         "w1": torch.randn(E, d, f, generator=g) / d ** 0.5,
+         "w3": torch.randn(E, d, f, generator=g) / d ** 0.5,
+         "w2": torch.randn(E, f, d, generator=g) / f ** 0.5}
+    return cfg, p, torch.randn(2, T // 2, d, generator=g)
+
+
+def _kept(cfg, p, x):
+    """Each token's kept experts, as a (T, E) bool: routing from the layer's
+    own router logits (the plain functions, on x's device)."""
+    from repro_torch.models import moe
+
+    xf = x.reshape(-1, x.shape[-1])
+    T = xf.shape[0]
+    r = moe.route(cfg, xf.float() @ p["router"].float(), moe.capacity_for(cfg, T))
+    kept = torch.zeros(cfg.moe.n_experts, T, dtype=torch.bool, device=x.device)
+    kept.scatter_(1, r["sel_idx"], r["sel_valid"])
+    return kept.T.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,k", [(16, 4), (128, 1)])
+def test_cuda_moe_ffn_matches_cpu(cuda_device, E, k):
+    """``moe_ffn`` on the card in bf16 against the CPU in f32, d 256, f 512,
+    64 tokens at the default capacity factor: on every token whose kept
+    experts agree (most of them; bf16 router inputs may move a near tie),
+    outputs within bf16's 2e-2; two calls on the card give the same bits."""
+    from repro_torch.models import moe
+
+    cfg, p, x = _moe_layer(E, k, 64)
+    want, aux = moe.moe_ffn(cfg, p, x)
+    gp = {n: t.to(cuda_device, torch.bfloat16) for n, t in p.items()}
+    gx = x.to(cuda_device, torch.bfloat16)
+    got, gaux = moe.moe_ffn(cfg.replace(compute_dtype=torch.bfloat16), gp, gx)
+    again, _ = moe.moe_ffn(cfg.replace(compute_dtype=torch.bfloat16), gp, gx)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    same = (_kept(cfg, p, x) == _kept(cfg, gp, gx)).all(1)
+    d = (got.float().cpu() - want).abs().reshape(-1, x.shape[-1]).amax(1)
+    print(f"moe_ffn E {E} top-{k}: {int(same.sum())} of {same.numel()} tokens route alike, max |d| there "
+          f"{float(d[same].max()):.3e}, aux {float(aux):.5f} / {float(gaux):.5f}")
+    assert int(same.sum()) >= 0.9 * same.numel()
+    assert float(d[same].max()) < TOL[torch.bfloat16] * max(1.0, float(want.abs().max()))
+    assert abs(float(aux) - float(gaux)) < 0.05 * float(aux)
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_init_peak(cuda_device):
+    """``DecoderLM.init`` of one dbrx-132b layer at full width with 4
+    experts (a (1, 4, 6144, 10752) expert leaf, 264 M values, over BLOCK)
+    and a 1024-token vocabulary: the peak stays within the tree plus 1 GiB
+    (a whole-leaf f32 draw would add 2 GiB), and the leaf's draws have the
+    init's scale."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.common import MoECfg
+
+    cfg = get_config("dbrx-132b").replace(n_layers=1, vocab_size=1024, moe=MoECfg(n_experts=4, top_k=2))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init(torch.Generator(cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = sum(t.numel() * t.element_size() for t in _tree_leaves(params))
+    w1 = params["blocks"]["l0_ffn"]["w1"]
+    std = float(w1[0, 3].float().std()) * 6144 ** 0.5
+    print(f"blocked init: tree {tree} B, peak {peak} B (+{(peak - tree) / 2**20:.1f} MiB), w1 std x sqrt(d) {std:.4f}")
+    assert peak < tree + 2**30 and abs(std - 1.0) < 0.01
+    del params
+    torch.cuda.empty_cache()
