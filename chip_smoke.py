@@ -36,8 +36,10 @@ result line:
                 write too, flash also at S 128 and 256, rmsnorm at 8 and
                 256 rows of 1536) and whisper's G = 1 over 20 (hd 64); the
                 dense decode, the paged decode's four legs and flash at
-                dbrx-132b's G = 6 and llama4-maverick's G = 5 over 8 KV
-                heads (hd 128), rmsnorm at (8, 6144)
+                dbrx-132b's G = 6, llama4-maverick's G = 5 and
+                jamba-1.5-large's G = 8 over 8 KV heads (hd 128), rmsnorm
+                at (8, 6144) and (8, 8192), flash over jamba's 64 heads at
+                S 16 and 256, both page-pool writes at its (1, Lp, 8, 128)
   4. serve    — launch/serve_hybrid.main() at FULL smollm-360m width in bf16
                 (random weights from a seeded generator): 24 requests through
                 the StraightLine router onto paged engines, chunked prefill;
@@ -84,7 +86,8 @@ result line:
                 decode step (81 rmsnorm and 40 paged decode launches, its
                 time and busy share), a batch-4 dense step (40
                 decode_attention), launch/serve.main(["--arch", "glm4-9b"])
-                with 32 requests, whole-prompt; the pools phase's 8 prompts
+                with 32 requests on the first 20 layers (--layers),
+                whole-prompt; the pools phase's 8 prompts
                 on a paged engine in 32-token chunks on a bf16 flat pool and
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
                 the 40 layers at FULL width (other draws) on a dense engine
@@ -128,25 +131,41 @@ result line:
                 layers of qwen2-vl-2b and 4 + 4 of whisper at FULL width
                 for the parity phase
  12. moe      — the MoE family, every earlier tree off the card (the
-                host's MemAvailable logged first). dbrx-132b at 8 of its
+                host's MemAvailable logged first). dbrx-132b at 4 of its
                 40 layers and llama4-maverick at 2 of its 48, FULL width
                 in bf16, each drawn on the card by the blocked init (its
                 bytes against the reckoning, its peak below the tree + 4
-                GiB) and freed before the next: a batch-8 paged step (17
-                rmsnorm + 8 paged decode; 5 + 2), the share of expert
+                GiB) and freed before the next: a batch-8 paged step (9
+                rmsnorm + 4 paged decode; 5 + 2), the share of expert
                 assignments dropped in one more step, a batch-4 dense step
-                (8; 2 decode_attention), launch/serve.main() with --layers
+                (4; 2 decode_attention), launch/serve.main() with --layers
                 and 32 requests (whole-prompt), the pools phase's 8
                 prompts (dbrx in 32-token chunks on a bf16 flat pool,
-                llama4 whole-prompt on an int8 chained pool), 0 failures.
-                Then the parity legs' replays, kept on the card: a
-                prefill of 16-token prompts and 10 decode steps with no
-                engine, every MoE call's routing recorded; dbrx at 2
-                layers with no drop possible (leg A, 4 prompts) and at its
-                binding capacity (leg B, 8 prompts: C < T in the prefill
-                and in every step); llama4 at 1 layer with no drop
-                possible (leg C, 4 prompts)
- 13. parity   — served requests re-run teacher-forced through the port's
+                llama4 whole-prompt on an int8 chained pool), 0 failures
+ 13. hybrid   — jamba-1.5-large-398b (Mamba + attention 7:1, MoE on every
+                other layer), every earlier tree off the card (the host's
+                MemAvailable logged first), at FULL width in bf16 cut to
+                the first 4 layers of its superblock (Mamba, Mamba + MoE,
+                Mamba, attention + MoE), drawn on the card by the blocked
+                init (standard-normal conv_b, dt_bias and A_log; its bytes
+                against the reckoning, its peak below the tree + 4 GiB): a
+                batch-8 paged step (9 rmsnorm + 1 paged decode, time, busy
+                share, device operations, one Mamba layer's decode call
+                beside it), a batch-4 dense step (1 decode_attention),
+                launch/serve.main() with --layers 4 and 32 requests
+                (whole-prompt), the pools phase's 8 prompts whole-prompt on
+                an int8 chained pool (flash; the Mamba scan in 2 chunks at
+                bucket 256) and in 32-token chunks on a bf16 flat pool (the
+                Mamba carry across chunks), 0 failures. Then the parity
+                legs' replays, kept on the card: a prefill of 16-token
+                prompts and 10 decode steps with no engine, every MoE
+                call's routing recorded; jamba at its first 2 layers
+                (Mamba, Mamba + MoE) with no drop possible (leg J, 4
+                prompts); dbrx at 2 layers with no drop possible (leg A, 4
+                prompts) and at its binding capacity (leg B, 8 prompts: C
+                < T in the prefill and in every step); llama4 at 1 layer
+                with no drop possible (leg C, 4 prompts)
+ 14. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights (int8
                 weight values stay int8, the products in f32): the
                 whole-sequence forward (phases 4, 7, 8, 9, 10 and 11), the
@@ -159,14 +178,17 @@ result line:
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more).
                 Then the earlier trees are dropped from the host and the
-                MoE legs run: C (only when MemAvailable exceeds its f32
-                tree by LEG_C_MARGIN, else logged as waiting), A and B,
-                each replayed step by step on the CPU teacher-forced and
-                its routing compared call by call: each decision that
-                differs from the card's must sit at a CPU gap below
-                ROUTE_GAP unless an earlier difference moved its inputs;
-                rows that no difference moved are held to FLIP_BOUND
- 14. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
+                replayed legs run: J (always), C (only when MemAvailable
+                exceeds its f32 tree by LEG_C_MARGIN, else logged as
+                waiting), A and B, each replayed step by step on the CPU
+                teacher-forced and its routing compared call by call: each
+                decision that differs from the card's must sit at a CPU gap
+                below ROUTE_GAP unless an earlier difference moved its
+                inputs; rows that no difference moved are held to
+                FLIP_BOUND. The 4-layer jamba stream is not held to the
+                CPU (its f32 tree, 92.1 GB, exceeds the host's room); its
+                attention layer's kernels are held in phase 3 at its shapes
+ 15. sched    — no kernel: ``placing_batch_torch`` on the card equal to the
                 Python loop of ``StraightLinePolicy`` at N 1024 and at the
                 paper's top ramp (N 7000, availability (0, 0), (4, 8),
                 (64, 512)), its CUDA-event and device times, device
@@ -174,7 +196,7 @@ result line:
                 loop's host time a request; the paper's gates of
                 tests/test_system.py through the port's simulator; the five
                 figure twins' rows
- 15. summary  — the kernels JSON line, then the result line.
+ 16. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -1149,8 +1171,9 @@ def phase_kernels(torch, dev):
 # (KV, G, hd) of the served models' attention; whisper-large-v3 has no paged path
 WIDE = {"glm4-9b": (2, 16, 128), "qwen1.5-32b": (40, 1, 128), "granite-8b": (8, 4, 128),
         "qwen2-vl-2b": (2, 6, 128), "whisper-large-v3": (20, 1, 64), "dbrx-132b": (8, 6, 128),
-        "llama4-maverick": (8, 5, 128)}
-PAGED_WIDE = ("glm4-9b", "qwen1.5-32b", "granite-8b", "qwen2-vl-2b", "dbrx-132b", "llama4-maverick")
+        "llama4-maverick": (8, 5, 128), "jamba-1.5-large": (8, 8, 128)}
+PAGED_WIDE = ("glm4-9b", "qwen1.5-32b", "granite-8b", "qwen2-vl-2b", "dbrx-132b", "llama4-maverick",
+              "jamba-1.5-large")
 
 
 def wide_shapes(torch, dev, g, rows, tab_p):
@@ -1171,12 +1194,15 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     granite-8b's 8 KV heads, (1, 16, 40, 128) over qwen1.5-32b's 40,
     (1, S, 12, 128) over qwen2-vl-2b's 2 at S 16, 128 and 256, (1, 16,
     20, 64) over whisper's 20, (1, 16, 48, 128) and (1, 16, 40, 128) over
-    dbrx-132b's and llama4-maverick's 8, beside SDPA; rmsnorm at glm4-9b's
+    dbrx-132b's and llama4-maverick's 8, (1, 16, 64, 128) and (1, 256,
+    64, 128) over jamba-1.5-large's 8, beside SDPA; rmsnorm at glm4-9b's
     and granite-8b's width (8, 4096), qwen1.5-32b's and llama4-maverick's
-    (8, 5120), qwen2-vl-2b's (8 and 256 rows of 1536) and dbrx-132b's (8,
-    6144), beside F.rms_norm. The MoE models' decode shapes: dbrx-132b's
-    G = 6 and llama4-maverick's G = 5, each over 8 KV heads, hd 128, dense
-    and all four paged legs."""
+    (8, 5120), qwen2-vl-2b's (8 and 256 rows of 1536), dbrx-132b's (8,
+    6144) and jamba-1.5-large's (8, 8192), beside F.rms_norm. The MoE
+    models' decode shapes: dbrx-132b's G = 6 and llama4-maverick's G = 5,
+    each over 8 KV heads, hd 128, dense and all four paged legs; and
+    jamba-1.5-large's G = 8 over 8 (the 8-row head group), with both
+    page-pool writes at its (1, Lp, 8, 128)."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -1279,14 +1305,15 @@ def wide_shapes(torch, dev, g, rows, tab_p):
                 bytes=nbytes, splits=pa_ops.plan_page_splits(B, KV, 16, ps, G),
                 head_groups=da_ops.head_groups(G)))
 
-    # both page-pool writes at granite-8b's 8, qwen1.5-32b's 40 and
-    # qwen2-vl-2b's 2 KV heads: the small pool at offsets inside its 6-page
-    # row and past its end, the pools phase's 129-page pool through a
-    # 16-entry row at its whole-prompt buckets (Lp 128 and 256)
+    # both page-pool writes at granite-8b's 8, qwen1.5-32b's 40,
+    # qwen2-vl-2b's 2 and jamba-1.5-large's 8 KV heads: the small pool at
+    # offsets inside its 6-page row and past its end, the pools phase's
+    # 129-page pool through a 16-entry row at its whole-prompt buckets (Lp
+    # 128 and 256)
     NP, NPp = 25, 129
     row_small = torch.tensor([9, 3, 17, 4, 22, 0], dtype=torch.int32, device=dev)
     row_p = tab_p[7].to(dev)                                # 193 tokens: the 256-token bucket
-    for model in ("granite-8b", "qwen1.5-32b", "qwen2-vl-2b"):
+    for model in ("granite-8b", "qwen1.5-32b", "qwen2-vl-2b", "jamba-1.5-large"):
         KV, _, hd = WIDE[model]
         cases = [(NP, row_small, 32, 0, bf16), (NP, row_small, 32, 32, bf16), (NP, row_small, 16, 96, bf16),
                  (NP, row_small, 64, 32, f32), (NPp, row_p, 128, 0, bf16), (NPp, row_p, 256, 0, bf16),
@@ -1337,7 +1364,8 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     # qwen2-vl-2b's whole-prompt buckets of the pools phase (S 128 and 256)
     for model, H, S in (("glm4-9b", 32, 16), ("granite-8b", 32, 16), ("qwen1.5-32b", 40, 16),
                         ("qwen2-vl-2b", 12, 16), ("qwen2-vl-2b", 12, 128), ("qwen2-vl-2b", 12, 256),
-                        ("whisper-large-v3", 20, 16), ("dbrx-132b", 48, 16), ("llama4-maverick", 40, 16)):
+                        ("whisper-large-v3", 20, 16), ("dbrx-132b", 48, 16), ("llama4-maverick", 40, 16),
+                        ("jamba-1.5-large", 64, 16), ("jamba-1.5-large", 64, 256)):
         KV, _, hd = WIDE[model]
         for dt in (bf16, f32):
             q, k, v = randn(1, S, H, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
@@ -1360,7 +1388,7 @@ def wide_shapes(torch, dev, g, rows, tab_p):
     # block-per-row path), at qwen2-vl-2b's (one warp a row in bf16): a
     # decode step's 8 rows, and a 256-token prompt's rows
     for model, R, D in (("glm4-9b", 8, 4096), ("qwen1.5-32b", 8, 5120), ("qwen2-vl-2b", 8, 1536),
-                        ("qwen2-vl-2b", 256, 1536), ("dbrx-132b", 8, 6144)):
+                        ("qwen2-vl-2b", 256, 1536), ("dbrx-132b", 8, 6144), ("jamba-1.5-large", 8, 8192)):
         for dt in (bf16, f32):
             x, w = randn(R, D, dtype=dt), torch.linspace(0.5, 1.5, D, device=dev).to(dt)
             e = err(rms_ops.rmsnorm(x, w), rmsnorm_ref(x, w))
@@ -1573,8 +1601,8 @@ def chunked_write_ops(torch, cfg, params, dev):
 def dense_step(torch, cfg, params, dev, chunk_tokens: int = 0):
     """The launcher's dense engine shape (4 slots, max_len 96; prefill
     whole-prompt, or in chunks of ``chunk_tokens``): launches per decode
-    step, one decode_attention per layer, and a batch-4 decode step's time
-    on the host clock (synchronized, mean of 20)."""
+    step, one decode_attention per attention layer, and a batch-4 decode
+    step's time on the host clock (synchronized, mean of 20)."""
     from repro_torch.launch.serve_hybrid import prompt_for
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
 
@@ -1599,9 +1627,9 @@ def dense_step(torch, cfg, params, dev, chunk_tokens: int = 0):
     log(f"  dense decode step, batch {B}, {cfg.name} {cfg.n_layers}L: {step_ms:.3f} ms (host clock, "
         f"synchronized, mean of {STEPS}); {timing['text']}; launches per step "
         f"{ {n: c for n, c in per.items() if c} }")
-    if per["decode_attention"] != cfg.n_layers:
+    if per["decode_attention"] != attn_layers(cfg):
         raise AssertionError(f"dense decode step: {per['decode_attention']} decode_attention launches, "
-                             f"expected {cfg.n_layers}")
+                             f"expected {attn_layers(cfg)}")
     return step_ms, per, dict(timing, step_ms=step_ms)
 
 
@@ -2105,12 +2133,13 @@ def phase_glm4(torch, dev):
     """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
     rmsnorm and 40 paged decode launches, its time and the device's busy
     share), a batch-4 dense step (40 decode_attention launches), the
-    launcher's 32 requests on dense engines (whole-prompt prefill: flash and
-    decode_attention at G = 16), the pools phase's 8 prompts on a paged
-    engine in 32-token chunks on a bf16 flat pool and whole-prompt on an
-    int8 chained pool, 0 failures on each. Then the same FULL width at 4 of
-    the 40 layers (other seeded draws) served on the card for the parity
-    phase: a dense engine, whole-prompt, and both paged legs."""
+    launcher's 32 requests on dense engines on the first 20 layers
+    (whole-prompt prefill: flash and decode_attention at G = 16), the pools
+    phase's 8 prompts on a paged engine in 32-token chunks on a bf16 flat
+    pool and whole-prompt on an int8 chained pool, 0 failures on each. Then
+    the same FULL width at 4 of the 40 layers (other seeded draws) served
+    on the card for the parity phase: a dense engine, whole-prompt, and
+    both paged legs."""
     import gc
 
     from repro_torch.configs.registry import get_config
@@ -2128,7 +2157,8 @@ def phase_glm4(torch, dev):
                              f"{per['paged_attention']} paged decode launches, expected {2 * L + 1} and {L}")
     dense_step(torch, cfg, params, dev)
     launcher, l_counts = launcher_leg(torch, 0, params, "glm4-9b",
-                                      ("decode_attention", "flash_attention", "rmsnorm"))
+                                      ("decode_attention", "flash_attention", "rmsnorm"),
+                                      ("--layers", str(LAUNCHER_LAYERS["glm4-9b"])))
     bf = pools_run(torch, cfg, params, dev, "bf16", False, chunk_tokens=32)
     i8 = pools_run(torch, cfg, params, dev, "int8", True)
     for name, run, keys in (("glm4 pools bf16 flat chunk32", bf, ("paged_prefill_write", "paged_attention[flat]")),
@@ -2188,11 +2218,21 @@ def check_tree_bytes(name: str, cfg, params) -> int:
     return got
 
 
+def attn_layers(cfg) -> int:
+    """Attention layers of ``cfg`` (every layer but a hybrid's Mamba ones)."""
+    return cfg.n_superblocks * cfg.block_pattern.count("attn")
+
+
+def moe_layers(cfg) -> int:
+    """Layers of ``cfg`` with the MoE FFN: MoE calls a forward pass."""
+    return cfg.n_superblocks * sum(cfg.layer_has_moe(i) for i in range(len(cfg.block_pattern)))
+
+
 def check_step(name: str, cfg, per) -> None:
-    L = cfg.n_layers
-    if per["rmsnorm"] != 2 * L + 1 or per["paged_attention"] != L:
+    L, A = cfg.n_layers, attn_layers(cfg)
+    if per["rmsnorm"] != 2 * L + 1 or per["paged_attention"] != A:
         raise AssertionError(f"{name} paged decode step: {per['rmsnorm']} rmsnorm and "
-                             f"{per['paged_attention']} paged decode launches, expected {2 * L + 1} and {L}")
+                             f"{per['paged_attention']} paged decode launches, expected {2 * L + 1} and {A}")
 
 
 QEINSUM_ULP = 0.55     # one rounding from f32 (0.501 and 0.508 read on the H100); two give about 1
@@ -2231,9 +2271,9 @@ def qeinsum_gap(torch, w) -> None:
 
 
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
-# depth of the phase-10 launcher bursts (the first layers of the FULL trees
-# the phase's steps run whole), for the script's time limit
-LAUNCHER_LAYERS = {"granite-8b": 12, "qwen1.5-32b": 16}
+# depth of the phase-9 and phase-10 launcher bursts (the first layers of the
+# FULL trees the phases' steps run whole), for the script's time limit
+LAUNCHER_LAYERS = {"glm4-9b": 20, "granite-8b": 12, "qwen1.5-32b": 16}
 
 
 def free_card(torch) -> None:
@@ -2592,7 +2632,7 @@ def phase_stubs(torch, dev):
 # ---------------------------------------------------------------------------
 
 # layers served at FULL width, and the bf16 tree's bytes reckoned by hand
-MOE_RUNS = {"dbrx-132b": (8, 54_611_619_840), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
+MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
 REPLAY_STEPS = 10    # decode steps of each parity leg's replay
@@ -2679,19 +2719,22 @@ def swap_gap(torch, score, cpu, card):
 def routing_check(torch, cfg, card_calls, cpu_calls, B: int, P: int):
     """The card's routing (bf16 hidden states) against the CPU's (f32), call
     by call, over a replay of B streams: a prefill of P tokens each, then a
-    token a stream each decode step, cfg.n_layers MoE calls a pass. Every
-    token whose kept experts differ is traced to a decision: a token's own
+    token a stream each decode step, ``moe_layers(cfg)`` MoE calls a pass.
+    Every token whose kept experts differ is traced to a decision: a token's own
     top-k choice, or an expert's capacity cut (the same tokens assigned).
     Its CPU gap is the least change that swaps what the two sides chose:
     the best router probability (top-k) or gate score (capacity) the CPU
     took and the card did not, less the worst the card took and the CPU did
     not. A decision whose inputs an earlier difference already moved is
     excused; every other one must sit at a CPU gap below ROUTE_GAP, else
-    this raises. A difference moves the token's
-    stream from its position on in a layer below the last (attention), its
-    own row alone in the last layer. Returns the (B, rows) mask of logit
-    rows a difference moved, and a summary."""
-    L, k = cfg.n_layers, cfg.moe.top_k
+    this raises. A difference moves the token's stream from its position on
+    in a layer below the last (attention, and a hybrid's Mamba recurrence),
+    its own row alone in the last layer. Returns the (B, rows) mask of logit
+    rows a difference moved, and a summary. The last MoE layer must be the
+    model's last layer (dbrx, llama4 and a 2-layer jamba)."""
+    L, k = moe_layers(cfg), cfg.moe.top_k
+    if not cfg.layer_has_moe(len(cfg.block_pattern) - 1):
+        raise ValueError(f"{cfg.name}: its last layer has no MoE FFN")
     if len(card_calls) != len(cpu_calls) or len(card_calls) % L:
         raise AssertionError(f"{len(card_calls)} MoE calls on the card, {len(cpu_calls)} on the CPU")
     n_rows = len(card_calls) // L
@@ -2827,7 +2870,7 @@ def moe_replay(torch, cfg, params, dev, prompts, steps: int) -> dict:
             outs.append(tok)
     torch.cuda.synchronize()
     outs = torch.stack(outs, 1).cpu().tolist()
-    n = cfg.n_layers
+    n = moe_layers(cfg)
     d = {"prefill": drop_share(torch, cfg, rl.calls[:n]), "decode": drop_share(torch, cfg, rl.calls[n:])}
     log(f"  {cfg.name} {cfg.n_layers}L replay at capacity factor {cfg.moe.capacity_factor}: {B} prompts of "
         f"{L} tokens (C = {capacity_for(cfg, B * L)}), {steps} decode steps (C = {capacity_for(cfg, B)}); "
@@ -2838,23 +2881,30 @@ def moe_replay(torch, cfg, params, dev, prompts, steps: int) -> dict:
 
 def moe_parity_models(torch, dev) -> dict:
     """The parity legs' replays on the card (``moe_replay``, REPLAY_STEPS
-    steps), kept there for the parity phase: dbrx-132b at 2 layers, FULL
-    width (other draws), with no drop possible (leg A: 4 prompts of 16
-    tokens) and at the default, binding capacity (leg B: 8 such prompts, so
-    that decode binds too, C = 4 < T = 8); llama4-maverick at 1 layer with
-    no drop possible (leg C: 4 prompts)."""
+    steps), kept there for the parity phase (76.3 GB of bf16 trees):
+    jamba-1.5-large at its first 2 layers (Mamba, then Mamba + MoE), FULL
+    width, with no drop possible (leg J: 4 prompts of 16 tokens); dbrx-132b
+    at 2 layers, FULL width (other draws), with no drop possible (leg A: 4
+    such prompts) and at the default, binding capacity (leg B: 8 such
+    prompts, so that decode binds too, C = 4 < T = 8); llama4-maverick at 1
+    layer with no drop possible (leg C: 4 prompts)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import first_layers
 
     def prompts(cfg, n):
         return [[int(t) for t in np.random.default_rng(2000 + i).integers(1, cfg.vocab_size, 16)]
                 for i in range(n)]
 
+    cfgj = first_layers(get_config("jamba-1.5-large-398b"), HYBRID_PARITY_LAYERS)
+    pj = seeded_params(torch, cfgj, dev, 1)
+    served = {"jamba": {"params": pj, "J": moe_replay(torch, ample(cfgj), pj, dev, prompts(cfgj, 4),
+                                                      REPLAY_STEPS)}}
     cfg2 = get_config("dbrx-132b").replace(n_layers=2)
     p2 = seeded_params(torch, cfg2, dev, 1)
-    served = {"dbrx": {"params": p2, "A": moe_replay(torch, ample(cfg2), p2, dev, prompts(cfg2, 4), REPLAY_STEPS),
-                       "B": moe_replay(torch, cfg2, p2, dev, prompts(cfg2, 8), REPLAY_STEPS)}}
+    served["dbrx"] = {"params": p2, "A": moe_replay(torch, ample(cfg2), p2, dev, prompts(cfg2, 4), REPLAY_STEPS),
+                      "B": moe_replay(torch, cfg2, p2, dev, prompts(cfg2, 8), REPLAY_STEPS)}
     cfg1 = get_config("llama4-maverick-400b-a17b").replace(n_layers=1)
     p1 = seeded_params(torch, cfg1, dev, 1)
     served["llama4"] = {"params": p1, "C": moe_replay(torch, ample(cfg1), p1, dev, prompts(cfg1, 4), REPLAY_STEPS)}
@@ -2862,18 +2912,111 @@ def moe_parity_models(torch, dev) -> dict:
 
 
 def phase_moe(torch, dev) -> dict:
-    """The MoE family, every earlier tree off the card: dbrx-132b at 8 and
+    """The MoE family, every earlier tree off the card: dbrx-132b at 4 and
     llama4-maverick at 2 of their layers, FULL width, each freed before the
-    next; then the parity legs' runs (``moe_parity_models``)."""
+    next. The parity legs' runs (``moe_parity_models``) come after the
+    hybrid phase, whose tree needs the card to itself."""
     counts, steps = {}, {}
     for arch in MOE_RUNS:
         t0 = time.perf_counter()
         moe_served(torch, dev, arch, counts, steps)
         log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts, "steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# Hybrid: jamba-1.5-large at FULL width, cut to the first layers of its superblock
+# ---------------------------------------------------------------------------
+
+# layers served at FULL width (Mamba, Mamba + MoE, Mamba, attention + MoE:
+# every kind of layer jamba has), and the bf16 tree's bytes reckoned by hand
+# (23,021,379,584 parameters); one superblock (8 layers, 90.5 GB) does not fit
+HYBRID_LAYERS, HYBRID_BYTES = 4, 46_042_759_168
+HYBRID_PARITY_LAYERS = 2     # the parity leg: Mamba, then Mamba + MoE (48.7 GB in f32)
+
+
+def mamba_decode_cost(torch, cfg, params, dev) -> dict:
+    """One Mamba layer's decode call on its own (layer 0's weights, batch 8,
+    one token, a seeded state): device operations and device time a call,
+    from torch.profiler."""
+    from repro_torch.models import mamba as mam
+
+    p0 = {k: v[0] for k, v in params["blocks"]["l0_mixer"].items()}
+    g = torch.Generator(dev).manual_seed(5)
+    cache = {n: torch.randn(s.shape, generator=g, device=dev).to(s.dtype)
+             for n, s in mam.mamba_cache_defs(cfg, 8).items()}
+    x = torch.randn(8, 1, cfg.d_model, generator=g, device=dev).to(cfg.compute_dtype)
+
+    def call():
+        return mam.mamba_mixer(cfg, p0, x, "decode", cache)
+
+    return {"ops": device_ops(call), "device_ms": device_ms(call)}
+
+
+def phase_hybrid(torch, dev) -> dict:
+    """jamba-1.5-large at FULL width in bf16, cut to the first HYBRID_LAYERS
+    layers of its superblock, every earlier tree off the card: drawn on the
+    card by the blocked init (conv_b, dt_bias and A_log standard normal; its
+    bytes against the reckoning, its peak below the tree + 4 GiB); a batch-8
+    paged step (2L + 1 rmsnorm and one paged decode launch), one Mamba
+    layer's decode call measured on its own beside it; a batch-4 dense step
+    (one decode_attention); launch/serve.main() with --layers and 32
+    requests (whole-prompt); the pools phase's 8 prompts whole-prompt on an
+    int8 chained pool (flash, the quantizing write, the Mamba scan in 2
+    chunks at bucket 256) and in 32-token chunks on a bf16 flat pool (the
+    Mamba carry across chunks), 0 failures; then the tree is freed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import first_layers
+
+    arch = "jamba-1.5-large-398b"
+    full = get_config(arch)
+    cfg = first_layers(full, HYBRID_LAYERS)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    served = moe_parity_models(torch, dev)
-    log(f"  parity legs' runs on the card: {time.perf_counter() - t0:.1f} s")
-    return {"counts": counts, "steps": steps, "served": served}
+    params = seeded_params(torch, cfg, dev, 0)
+    torch.cuda.synchronize()
+    t_draw, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    tb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.mamba
+    log(f"  {arch} FULL width, {HYBRID_LAYERS} of {full.n_layers} layers {cfg.block_pattern}, MoE on "
+        f"{[i for i in range(HYBRID_LAYERS) if cfg.layer_has_moe(i)]}: d_model {cfg.d_model}, {cfg.n_heads} "
+        f"query heads over {cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.hd}, "
+        f"d_inner {m.expand * cfg.d_model}, d_state {m.d_state}, chunk {m.chunk}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, d_ff {cfg.d_ff}; {n_params(cfg)} parameters, {tb} B in bf16 (reckoned "
+        f"{HYBRID_BYTES} B), drawn on the card in {t_draw:.3f} s; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.3f} GiB; {before / 2**30:.3f} GiB allocated before), tree + 4 GiB = "
+        f"{(tb + 4 * 2**30) / 2**30:.3f} GiB")
+    if not tb == HYBRID_BYTES == 2 * n_params(cfg):
+        raise AssertionError(f"{arch} {HYBRID_LAYERS}L: {tb} B, reckoned {HYBRID_BYTES}, {n_params(cfg)} parameters")
+    if peak >= tb + 4 * 2**30:
+        raise AssertionError(f"{arch} init peak {peak} B, not below the tree {tb} B + 4 GiB")
+    per = phase_step(torch, cfg, params, dev)
+    check_step(arch, cfg, per["decode step"])
+    step, mamba = per["timing"], mamba_decode_cost(torch, cfg, params, dev)
+    n_mamba = cfg.block_pattern.count("mamba")
+    log(f"  one Mamba layer's decode call (batch 8, one token) on its own: {mamba['ops']:g} device operations, "
+        f"{mamba['device_ms']} ms on the device; the step's {n_mamba} Mamba layers about "
+        f"{n_mamba * mamba['ops']:g} of its {step['ops']:g} device operations "
+        f"({n_mamba * mamba['ops'] / max(step['ops'], 1):.4f}) and {n_mamba * (mamba['device_ms'] or 0):.4f} "
+        f"of its {step['device_us'] / 1e3:.4f} ms on the device")
+    steps = {"paged": dict(step, mamba=mamba), "dense": dense_step(torch, cfg, params, dev)[2]}
+    counts = {"jamba_launcher_whole_prompt": launcher_leg(
+        torch, 0, params, arch, ("decode_attention", "flash_attention", "rmsnorm"),
+        ("--layers", str(HYBRID_LAYERS)))[1]}
+    for name, args, keys in (
+            ("pools_int8_chained", ("int8", True, 0),
+             ("flash_attention", "paged_prefill_write_quant", "paged_attention[int8+chained]")),
+            ("pools_bf16_flat_chunk32", ("bf16", False, 32), ("paged_prefill_write", "paged_attention[flat]"))):
+        run = pools_run(torch, cfg, params, dev, *args)
+        check_served(f"jamba {name}", run)
+        for key in keys:
+            if run["counts"][key] <= 0:
+                raise AssertionError(f"{key} was not launched in jamba {name}")
+        counts[f"jamba_{name}"] = run["counts"]
+    del params
+    free_card(torch)
+    return {"counts": counts, "steps": steps}
 
 
 def _leaves(tree):
@@ -2931,6 +3074,20 @@ def teacher_forced_batch(torch, cfg, params, prompts, outs, layout: str):
     return list(torch.stack(rows, 1))
 
 
+HOST_SLICE = 1 << 28     # values converted to f32 at a time on the way to the host (1 GiB)
+
+
+def host_f32(torch, x):
+    """``x`` on the host in f32, converted a slice of HOST_SLICE values at a
+    time, so that the card never holds an f32 copy of a whole leaf (one of
+    jamba's stacked expert leaves would take 12 GiB of f32)."""
+    out = torch.empty(x.shape, dtype=torch.float32)
+    src, dst = x.reshape(-1), out.view(-1)
+    for a in range(0, x.numel(), HOST_SLICE):
+        dst[a:a + HOST_SLICE].copy_(src[a:a + HOST_SLICE].float())
+    return out
+
+
 class Parity:
     """Teacher-forced parity of served tokens against the port's plain paths
     on the CPU in f32 on the same weights: every flip's CPU lead must stay
@@ -2945,7 +3102,7 @@ class Parity:
 
     def to_cpu(self, t):
         """The tree on the host in f32; int8 weight values stay int8."""
-        return _map(t, lambda x: x.cpu() if x.dtype == self.torch.int8 else x.float().cpu())
+        return _map(t, lambda x: x.cpu() if x.dtype == self.torch.int8 else host_f32(self.torch, x))
 
     def check(self, name, rid, rows, out, bound=True):
         """Rows of CPU logits against the served tokens; with ``bound`` False
@@ -3225,12 +3382,22 @@ def moe_replay_parity(torch, par, p32, r, name: str) -> None:
 
 def parity_moe(torch, par, moe) -> None:
     """The MoE legs, each a replay held by ``moe_replay_parity``, each tree
-    brought to the host in f32 and freed after its legs. Leg C first
+    brought to the host in f32 and freed after its legs. Leg J first
+    (jamba-1.5-large 2L, no drop possible), which always runs: its 48.7 GB
+    f32 tree needs the host's room before any other leg's. Then leg C
     (llama4 1L, no drop possible), when the host's MemAvailable exceeds its
     f32 tree by LEG_C_MARGIN, else recorded as waiting; then legs A (dbrx
     2L, no drop possible) and B (the same weights at binding capacity)."""
-    d, ll = moe["served"]["dbrx"], moe["served"]["llama4"]
+    d, ll, jm = moe["served"]["dbrx"], moe["served"]["llama4"], moe["served"]["jamba"]
     with torch.no_grad():
+        t0 = time.perf_counter()
+        log(f"  parity leg J (jamba 2L) starts: {release_host()}")
+        p32 = par.to_cpu(jm["params"])
+        jm["params"] = None
+        free_card(torch)
+        moe_replay_parity(torch, par, p32, jm["J"], "jamba-2L-J")
+        del p32
+        log(f"  parity leg J (jamba 2L): {time.perf_counter() - t0:.1f} s; {release_host()}")
         t0 = time.perf_counter()
         need = 2 * sum(t.numel() * t.element_size() for t in _leaves(ll["params"])) + LEG_C_MARGIN
         avail = mem_available()
@@ -3444,7 +3611,7 @@ def phase_sched(torch, dev) -> None:
     for mod in (fig4_interactive, fig5_elastic, fig6_7_platforms, fig8_response):
         mod.main()
     placement.main([])
-    log(f"  phase 14 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
+    log(f"  phase 15 wall time: placer {t1 - t0:.1f} s, gates {t2 - t1:.1f} s, "
         f"figure twins {time.perf_counter() - t2:.1f} s")
 
 
@@ -3553,14 +3720,27 @@ def main() -> int:
     log(f"  stubs phase {time.perf_counter() - t_stubs:.1f} s")
 
     # 12. moe: the MoE family at FULL width, cut in depth, every earlier tree off the card
-    log(f"phase 12 moe: dbrx-132b 8L and llama4-maverick 2L FULL width bf16 ({torch.cuda.memory_allocated() / 2**30:.3f} "
+    log(f"phase 12 moe: dbrx-132b 4L and llama4-maverick 2L FULL width bf16 ({torch.cuda.memory_allocated() / 2**30:.3f} "
         f"GiB allocated; host MemAvailable {mem_available()} B) [at {time.perf_counter() - T_START:.1f} s]")
     t_moe = time.perf_counter()
     moe = phase_moe(torch, dev)
     log(f"  moe phase {time.perf_counter() - t_moe:.1f} s")
 
-    # 13. parity
-    log(f"phase 13 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
+    # 13. hybrid: jamba-1.5-large at FULL width, its first 4 layers, every earlier tree off the card;
+    # then the parity legs' replays (MoE and hybrid), kept on the card
+    log(f"phase 13 hybrid: jamba-1.5-large-398b FULL width bf16, the first {HYBRID_LAYERS} layers of its "
+        f"superblock ({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; host MemAvailable "
+        f"{mem_available()} B) [at {time.perf_counter() - T_START:.1f} s]")
+    t_hybrid = time.perf_counter()
+    hybrid = phase_hybrid(torch, dev)
+    log(f"  hybrid phase {time.perf_counter() - t_hybrid:.1f} s")
+    t0 = time.perf_counter()
+    moe["served"] = moe_parity_models(torch, dev)
+    log(f"  parity legs' runs on the card: {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated)")
+
+    # 14. parity
+    log(f"phase 14 parity: teacher-forced CPU f32 plain paths on the same weights [at {time.perf_counter() - T_START:.1f} s]")
     t_parity = time.perf_counter()
     par = Parity(torch)
     for name, fn, args in (("smollm", parity_smollm, ([chunked, whole], [l_chunk, l_whole], pools)),
@@ -3578,12 +3758,12 @@ def main() -> int:
     par.report()
     t_summary = time.perf_counter()
 
-    # 14. sched
-    log(f"phase 14 sched: placing_batch_torch on the card, the paper's gates and figure twins "
+    # 15. sched
+    log(f"phase 15 sched: placing_batch_torch on the card, the paper's gates and figure twins "
         f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
     phase_sched(torch, dev)
 
-    # 15. summary
+    # 16. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -3591,7 +3771,7 @@ def main() -> int:
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
-            **int8w["counts"], **stubs["counts"], **moe["counts"]}
+            **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",

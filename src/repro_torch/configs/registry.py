@@ -9,6 +9,7 @@ from repro_torch.configs import (
     dbrx_132b,
     glm4_9b,
     granite_8b,
+    jamba_15_large,
     llama4_maverick,
     qwen2_vl_2b,
     qwen15_32b,
@@ -28,6 +29,7 @@ _MODULES = {
     "whisper-large-v3": whisper_large_v3,
     "dbrx-132b": dbrx_132b,
     "llama4-maverick-400b-a17b": llama4_maverick,
+    "jamba-1.5-large-398b": jamba_15_large,
 }
 
 

@@ -28,11 +28,14 @@ tree fits one card), or ``quantize_params`` of the ``params`` passed in.
 Attention-only decoders; xlstm-350m raises ``WeightsInt8Error``.
 
 ``--layers N`` serves the first N layers of the configuration at its full
-width (default: all of them): neither MoE model fits one card whole
-(dbrx-132b is 263 GB in bf16, llama4-maverick 1.56 TB). N must be a
-multiple of the configuration's block pattern, at most its depth. ``params`` passed
-in must hold at least N layers; the first N serve. The MoE family has no weight-only
-int8 path yet (``WeightsInt8Error``).
+width (default: all of them): neither MoE model nor jamba fits one card
+whole (dbrx-132b is 263 GB in bf16, llama4-maverick 1.56 TB, jamba 796
+GB). N is either a multiple of the configuration's block pattern, at most
+its depth, or below the pattern's length: then the first N layers of the
+first superblock serve (``block_pattern[:N]``; ``layer_has_moe`` counts
+positions within the superblock, so the MoE FFNs stay on the same layers).
+``params`` passed in must hold at least N layers; the first N serve. The
+MoE family has no weight-only int8 path yet (``WeightsInt8Error``).
 
 Where the JAX launcher always serves the smoke configuration, this one
 serves the FULL model (bf16) unless ``--smoke`` is given; ``--device``
@@ -44,6 +47,12 @@ import argparse
 import threading
 import time
 from typing import List, Optional
+
+
+def first_layers(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers, as ``--layers`` cuts it: whole
+    superblocks, or the first n layers of the first one."""
+    return cfg.replace(n_layers=n, block_pattern=cfg.block_pattern[:n])
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -82,9 +91,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
         cfg = get_config(args.arch, smoke=args.smoke)
         step = len(cfg.block_pattern)
-        if not 0 < args.layers <= cfg.n_layers or args.layers % step:
+        if not 0 < args.layers <= cfg.n_layers or (args.layers > step and args.layers % step):
             ap.error(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers in blocks of {step}; "
-                     f"N must be a multiple of {step} from {step} to {cfg.n_layers}")
+                     f"N must be from 1 to {step}, or a multiple of {step} up to {cfg.n_layers}")
     return args
 
 
@@ -120,7 +129,7 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke).replace(attn_chunk=64)
     if args.layers:
-        cfg = cfg.replace(n_layers=args.layers)
+        cfg = first_layers(cfg, args.layers)
     if args.weights_int8:
         check_int8_family(cfg)
         cfg = cfg.replace(weights_int8=True)

@@ -1,7 +1,7 @@
 """Shared model substrate: config, parameter definitions, norms, embeddings.
 
 The torch twin of ``repro/models/common.py`` for the families ported so far:
-the attention-only decoder, its mixture-of-experts FFN, xLSTM, the VLM
+the attention-only decoder, its mixture-of-experts FFN, Mamba, xLSTM, the VLM
 backbone (token or embedding inputs, M-RoPE) and the whisper encoder-decoder
 (layernorm, cross-attention).
 Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes and
@@ -33,6 +33,15 @@ class MoECfg:
 
 
 @dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 256            # selective-scan chunk length of a prefill
+    dt_rank: int = 0            # 0 -> ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
 class XLSTMCfg:
     chunk: int = 64             # mLSTM chunk length of the chunkwise prefill
     proj_factor: float = 2.0    # mLSTM up-projection factor
@@ -53,7 +62,7 @@ class EncoderCfg:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | vlm | audio (the families ported so far)
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,6 +87,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
     moe: Optional[MoECfg] = None
+    mamba: Optional[MambaCfg] = None
     xlstm: Optional[XLSTMCfg] = None
     encoder: Optional[EncoderCfg] = None
     cross_attn: bool = False    # decoder layers carry cross-attention (encoder-decoder)

@@ -1,9 +1,10 @@
 """Decoder stack: the superblock pattern run as a Python loop over the stacked
 superblock parameters (the JAX package scans them with ``lax.scan``).
 
-Mixers ported so far: attention (with a gated or a plain GELU MLP, or the
-mixture-of-experts FFN on the layers ``cfg.layer_has_moe`` names), and the
-xLSTM family's mLSTM and sLSTM (no FFN, ``d_ff = 0``). With
+Every mixer kind of the reference: attention (with a gated or a plain GELU
+MLP, or the mixture-of-experts FFN on the layers ``cfg.layer_has_moe``
+names), Mamba (jamba's hybrid superblock), and the xLSTM family's mLSTM and
+sLSTM (no FFN, ``d_ff = 0``). With
 ``cfg.cross_attn`` (the whisper decoder) every layer also attends over the
 encoder's output, whose K/V the prefill computes and keeps in the cache.
 
@@ -20,6 +21,7 @@ from typing import Mapping, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models import xlstm as xl
 from repro_torch.models.common import (
     ModelConfig,
@@ -32,15 +34,17 @@ from repro_torch.models.common import (
 from repro_torch.models.mlp import mlp, mlp_defs
 from repro_torch.models.moe import moe_defs, moe_ffn
 
-RECURRENT = {"mlstm": (xl.mlstm_defs, xl.mlstm_cache_defs, xl.mlstm_mixer),
+RECURRENT = {"mamba": (mam.mamba_defs, mam.mamba_cache_defs, mam.mamba_mixer),
+             "mlstm": (xl.mlstm_defs, xl.mlstm_cache_defs, xl.mlstm_mixer),
              "slstm": (xl.slstm_defs, xl.slstm_cache_defs, xl.slstm_mixer)}
 
 
 def _check_pattern(cfg: ModelConfig) -> None:
+    """An unknown mixer kind raises ``ValueError(kind)``, as the reference's
+    ``superblock_defs`` does."""
     for kind in cfg.block_pattern:
         if kind != "attn" and kind not in RECURRENT:
-            raise NotImplementedError(
-                f"{cfg.name}: the {kind!r} mixer is not ported yet (ROADMAP Queue 1 item 8)")
+            raise ValueError(kind)
 
 
 def superblock_defs(cfg: ModelConfig) -> dict:

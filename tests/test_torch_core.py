@@ -154,8 +154,9 @@ def test_import_loads_no_jax():
         "        'repro_torch.configs.granite_8b', 'repro_torch.models.vlm',\n"
         "        'repro_torch.models.whisper', 'repro_torch.configs.qwen2_vl_2b',\n"
         "        'repro_torch.configs.whisper_large_v3', 'repro_torch.models.moe',\n"
-        "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.llama4_maverick'}\n"
-        "sys.exit(1 if bad or len(names) < 72 or not need <= set(names) else 0)\n"
+        "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.llama4_maverick',\n"
+        "        'repro_torch.configs.jamba_15_large'}\n"
+        "sys.exit(1 if bad or len(names) < 73 or not need <= set(names) else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

@@ -1353,3 +1353,134 @@ def test_cuda_blocked_init_peak(cuda_device):
     assert peak < tree + 2**30 and abs(std - 1.0) < 0.01
     del params
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_mixer_bf16_matches_cpu_f32(cuda_device):
+    """``mamba_mixer`` at a mid width (d 1024, d_inner 2048, d_state 16,
+    chunk 128; standard-normal conv_b, dt_bias and A_log) in bf16 on the
+    card against f32 on the CPU: a prefill of 256 tokens (two chunks; the
+    second row padded after 200), then 4 decode steps. The output sequence
+    and the final conv and ssm states within bf16 2e-2 of the largest f32
+    magnitude; two runs on the card bit-identical."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.common import MambaCfg, init_tree
+
+    cfg = get_config("jamba-1.5-large-398b", smoke=True).replace(
+        d_model=1024, mamba=MambaCfg(d_state=16, d_conv=4, expand=2, chunk=128))
+    g = torch.Generator().manual_seed(0)
+    p = init_tree(g, mam.mamba_defs(cfg), torch.float32, "cpu")
+    for name in ("conv_b", "dt_bias", "A_log"):
+        p[name] = torch.randn(p[name].shape, generator=g)
+    x = torch.randn(2, 260, 1024, generator=g)
+    valid = torch.arange(256)[None] < torch.tensor([[256], [200]])
+
+    def run(dt, dev):
+        c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+        pc = {k: v.to(dev, dt) for k, v in p.items()}
+        cache = {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for n, s in mam.mamba_cache_defs(c, 2).items()}
+        out, cache = mam.mamba_mixer(c, pc, x[:, :256].to(dev, dt), "prefill", cache,
+                                     valid=valid.to(dev))
+        outs = [out]
+        for j in range(256, 260):
+            o, cache = mam.mamba_mixer(c, pc, x[:, j:j + 1].to(dev, dt), "decode", cache)
+            outs.append(o)
+        return torch.cat(outs, 1), cache
+
+    want, wc = run(torch.float32, "cpu")
+    got, gc = run(torch.bfloat16, cuda_device)
+    again, ac = run(torch.bfloat16, cuda_device)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and gc["ssm"].dtype == torch.float32
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again) and all(torch.equal(gc[n], ac[n]) for n in gc)
+    assert _scaled_err(got.cpu(), want) < TOL[torch.bfloat16]
+    for name in ("conv", "ssm"):
+        a, b = gc[name].cpu().float(), wc[name]
+        assert float((a - b).abs().max()) / float(b.abs().max()) < TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_tokens", [0, 16], ids=["whole_prompt", "chunked"])
+def test_cuda_jamba_paged_engine_matches_cpu_engine(cuda_device, chunk_tokens):
+    """The paged engine serving jamba-1.5-large SMOKE in f32 (capacity
+    factor 8, standard-normal conv_b, dt_bias and A_log) on the card and on
+    the CPU, on the same weights: identical greedy streams, prompts across
+    chunks so the Mamba carry crosses calls; the rmsnorm, page-pool write
+    and paged decode kernels launched, flash on the whole-prompt leg."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config("jamba-1.5-large-398b", smoke=True)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    cpu_params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "mamba":
+            leaves = cpu_params["blocks"][f"l{i}_mixer"]
+            for name in ("conv_b", "dt_bias", "A_log"):
+                leaves[name].copy_(torch.randn(leaves[name].shape, generator=g))
+    gpu_params = _map(cpu_params, lambda t: t.to(cuda_device))
+    kw = dict(page_size=8, num_pages=33, max_slots=3, max_seq_len=64, max_new_tokens=6,
+              chunk_tokens=chunk_tokens)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 19, 30, 8)]
+    want = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=cpu_params,
+                                                device="cpu").generate(prompts)]
+    wrappers = (rms_ops.rmsnorm, pa_ops.paged_prefill_write, pa_ops.paged_attention,
+                fa_ops.flash_attention_bhsd)
+    before = [w.launches for w in wrappers]
+    got = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=gpu_params,
+                                               device=cuda_device).generate(prompts)]
+    n = [w.launches - b for w, b in zip(wrappers, before)]
+    assert min(n[:3]) > 0 and (n[3] > 0) == (chunk_tokens == 0), n
+    assert got == want, (want, got)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernels_at_jamba_G8(cuda_device):
+    """Both decode kernels at jamba-1.5-large's attention shape, G 8 over 8
+    KV heads, hd 128 (the 8-row head group, one block per (b, KV head,
+    split)): the paged decode on every leg (f32 and bf16 pools, int8 pools,
+    flat and chained tables) at batch 8 with the pools phase's lengths, and
+    the dense decode over the launcher's cache and a 1000-token cache split
+    across blocks; against the plain versions, two calls bit-identical,
+    chained bit-identical to flat, one launch a call."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(25)
+    gen_tab = torch.Generator().manual_seed(25)
+    G, KV, hd, ps, P, B = 8, 8, 128, 16, 16, 8
+    lens_l = [120, 128, 129, 144, 161, 176, 193, 208]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    for dt, quant in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True),
+                      (torch.float32, True)):
+        pools, kw, tab, l1, l2 = _paged_setup(g, gen_tab, dev, B, KV, hd, ps, P, lens_l, dt, quant)
+        q = torch.randn(B, 1, G * KV, hd, generator=g, device=dev).to(dt)
+        before = pa_ops.paged_attention.launches
+        out = pa_ops.paged_attention(q, *pools, tab, lens, **kw)
+        assert pa_ops.paged_attention.launches == before + 1
+        again = pa_ops.paged_attention(q, *pools, tab, lens, **kw)
+        chained = pa_ops.paged_attention(q, *pools, l1, lens, l2_tab=l2, **kw)
+        ref = paged_attention_ref(q[:, 0].reshape(B, KV, G, hd), *pools, tab, lens, **kw)
+        assert torch.isfinite(out.float()).all() and torch.equal(out, again) and torch.equal(out, chained)
+        err = float((out.reshape(B, KV, G, hd).float() - ref.float()).abs().max())
+        assert err < TOL[dt], (dt, quant, err)
+    for dt in (torch.bfloat16, torch.float32):
+        for Bd, T, lens_d in ((4, 96, [1, 9, 57, 96]), (4, 1000, [1, 333, 777, 1000])):
+            q = torch.randn(Bd, 1, G * KV, hd, generator=g, device=dev).to(dt)
+            cache = torch.randn(2, Bd, T, KV, hd, generator=g, device=dev).to(dt)
+            ln = torch.tensor(lens_d, dtype=torch.int32, device=dev)
+            before = da_ops.decode_attention.launches
+            out = da_ops.decode_attention(q, cache[0], cache[1], ln)
+            assert da_ops.decode_attention.launches == before + 1
+            again = da_ops.decode_attention(q, cache[0], cache[1], ln)
+            ref = decode_attention_ref(q[:, 0].reshape(Bd, KV, G, hd), cache[0].transpose(1, 2),
+                                       cache[1].transpose(1, 2), ln)
+            assert torch.isfinite(out.float()).all() and torch.equal(out, again)
+            err = float((out.reshape(Bd, KV, G, hd).float() - ref.float()).abs().max())
+            assert err < TOL[dt], (dt, T, err)
+    torch.cuda.synchronize()

@@ -488,15 +488,17 @@ def test_launcher_serves_one_layer_of_dbrx():
     assert r["params"]["blocks"]["l0_ffn"]["w1"].shape[0] == 1
 
 
-@pytest.mark.parametrize("arch, layers", [("dbrx-132b", 3), ("dbrx-132b", -1), ("xlstm-350m", 4),
+@pytest.mark.parametrize("arch, layers", [("dbrx-132b", 3), ("dbrx-132b", -1), ("xlstm-350m", 12),
                                           ("xlstm-350m", 16)])
 def test_launcher_rejects_layers_outside_the_config(arch, layers, capsys):
-    """``--layers`` above the smoke config's depth, below 1, or not a
-    multiple of its block pattern (xlstm-350m's is 8 long) is an argparse
-    error before anything is built."""
+    """``--layers`` above the config's depth, below 1, or past the block
+    pattern's length and not a multiple of it (xlstm-350m's is 8 long; its
+    FULL depth 24, its smoke depth 8) is an argparse error before anything
+    is built."""
     from repro_torch.launch import serve
 
+    smoke = [] if (arch, layers) == ("xlstm-350m", 12) else ["--smoke"]   # 12: FULL, 24 layers deep
     with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", arch, "--smoke", "--layers", str(layers), "--device", "cpu"])
+        serve.parse_args(["--arch", arch, *smoke, "--layers", str(layers), "--device", "cpu"])
     assert "--layers" in capsys.readouterr().err
     assert serve.parse_args(["--arch", arch, "--smoke", "--layers", "2" if arch == "dbrx-132b" else "8"]).layers

@@ -383,10 +383,15 @@ def test_dense_prefill_into_a_used_slot_starts_from_zero_state(weights):
             assert torch.equal(cache["blocks"][key][name][:, 1:2], leaf), (key, name)
 
 
-def test_unported_mixer_names_its_roadmap_item():
-    cfg = get_config("smollm-360m", smoke=True).replace(block_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+def test_unknown_mixer_kind_raises_value_error():
+    """A mixer kind outside the reference's (attn, mamba, mlstm, slstm)
+    raises ValueError(kind), as the JAX package's ``superblock_defs`` does."""
+    cfg = get_config("smollm-360m", smoke=True).replace(block_pattern=("attn", "retnet"))
+    jcfg = j_get_config("smollm-360m", smoke=True).replace(block_pattern=("attn", "retnet"))
+    with pytest.raises(ValueError, match="retnet"):
         get_model(cfg).param_defs()
+    with pytest.raises(ValueError, match="retnet"):
+        jtf.superblock_defs(jcfg)
 
 
 # ---------------------------------------------------------------------------
