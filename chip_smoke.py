@@ -8,7 +8,8 @@ result line:
   1. device   — torch's device name; the card's name and power limit
   2. build    — nvcc builds every kernel of kernels/csrc/ for sm_90a; the
                 bf16 flash and mLSTM kernels' SASS must hold tensor-core
-                instructions
+                instructions (one cuobjdump -sass, run beside phase 3 and
+                read after it)
   3. kernels  — each kernel (and each leg of the paged decode) against its
                 plain PyTorch version on the card at the serving paths'
                 shapes (edge cases included), then timed with CUDA events
@@ -150,8 +151,9 @@ result line:
                 init (standard-normal conv_b, dt_bias and A_log; its bytes
                 against the reckoning, its peak below the tree + 4 GiB): a
                 batch-8 paged step (9 rmsnorm + 1 paged decode, time, busy
-                share, device operations, one Mamba layer's decode call
-                beside it), a batch-4 dense step (1 decode_attention),
+                share, device operations, the Mamba layers' share of
+                them from the step's own profile), a batch-4 dense step (1
+                decode_attention),
                 launch/serve.main() with --layers 4 and 32 requests
                 (whole-prompt), the pools phase's 8 prompts whole-prompt on
                 an int8 chained pool (flash; the Mamba scan in 2 chunks at
@@ -178,9 +180,11 @@ result line:
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more).
                 Then the earlier trees are dropped from the host and the
-                replayed legs run: J (always), C (only when MemAvailable
-                exceeds its f32 tree by LEG_C_MARGIN, else logged as
-                waiting), A and B, each replayed step by step on the CPU
+                replayed legs run, every one of them: J, C, A and B, their
+                f32 trees in turn in one host arena, allocated once
+                MemAvailable exceeds it by LEG_MARGIN (waiting up to
+                HOST_WAIT_S for freed trees to come back to it), each
+                replayed step by step on the CPU
                 teacher-forced and its routing compared call by call: each
                 decision that differs from the card's must sit at a CPU gap
                 below ROUTE_GAP unless an earlier difference moved its
@@ -524,25 +528,40 @@ def log_shape(name: str, shape: str, d: dict) -> None:
         f"{d['device_ms'] / d['bound_ms']:.2f}x the bound")
 
 
-def kernel_sass(lib_path, kernel: str, labels: dict) -> dict:
-    """Tensor-core (HMMA or HGMMA) instructions in each instance of a kernel
-    (each function whose mangled name holds ``kernel``), from ``cuobjdump
-    -sass`` of the built library; ``labels`` maps a fragment of the mangled
-    name (the template argument) to the instance's label."""
+def sass_dump(lib_path):
+    """Start ``cuobjdump -sass`` of the built library in the background, its
+    output to a file, so that it runs beside phase 3; ``kernel_sass`` reads
+    it."""
     import os
     import shutil
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                         check=True).stdout
-    counts = {}
+    path = OUT / "sass.txt"
+    with open(path, "w") as f:
+        return subprocess.Popen([tool, "-sass", str(lib_path)], stdout=f, stderr=subprocess.STDOUT), path
+
+
+def kernel_sass(dump, kernels: dict) -> dict:
+    """Tensor-core (HMMA or HGMMA) instructions in each instance of each
+    kernel (each function whose mangled name holds the kernel's name), from
+    the ``cuobjdump -sass`` that ``sass_dump`` started. ``kernels`` maps a
+    kernel to ``labels``, which maps a fragment of the mangled name (the
+    template argument) to the instance's label; returns the counts by
+    kernel."""
+    proc, path = dump
+    if proc.wait() != 0:
+        raise RuntimeError(f"cuobjdump -sass exited {proc.returncode}: {path.read_text()[-2000:]}")
+    out = path.read_text()
+    path.unlink()
+    counts = {kernel: {} for kernel in kernels}
     for section in out.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
-        if kernel in name:
-            label = next((v for k, v in labels.items() if k in name), name)
-            counts[label] = section.count("HMMA") + section.count("HGMMA")
+        for kernel, labels in kernels.items():
+            if kernel in name:
+                label = next((v for k, v in labels.items() if k in name), name)
+                counts[kernel][label] = section.count("HMMA") + section.count("HGMMA")
     return counts
 
 
@@ -1582,7 +1601,7 @@ def chunked_write_ops(torch, cfg, params, dev):
             tab_row = pa_ops._shift_row(tab_row, offset, cache["k"].shape[2])
         return resolving(cfg, cache, k, v, tab_row)
 
-    count()                                     # warm-up
+    prefill_device_ops(torch, cfg, params, dev, 32)     # warm-up
     now = count()
     attn.paged_write_prompt = shifting_write
     try:
@@ -2636,7 +2655,8 @@ MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 6
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
 REPLAY_STEPS = 10    # decode steps of each parity leg's replay
-LEG_C_MARGIN = 16e9  # host bytes leg C needs free beyond its f32 tree
+LEG_MARGIN = 16e9    # host bytes the replayed parity legs need free beyond their f32 arena
+HOST_WAIT_S = 120.0  # the longest the replayed parity legs wait for that room
 
 
 def mem_available() -> int:
@@ -2659,6 +2679,23 @@ def release_host() -> str:
     ctypes.CDLL("libc.so.6").malloc_trim(0)
     rss = int(Path("/proc/self/statm").read_text().split()[1]) * resource.getpagesize()
     return f"host MemAvailable {mem_available()} B, resident {rss} B"
+
+
+def host_room(need: float) -> str:
+    """Wait, at most HOST_WAIT_S, until the host's MemAvailable exceeds
+    ``need`` bytes, and say how it went; raise if it never does. A tree this
+    process has just freed leaves its resident set at once but comes back to
+    MemAvailable only over the next seconds."""
+    t0, first = time.perf_counter(), mem_available()
+    avail = first
+    while avail <= need:
+        if time.perf_counter() - t0 > HOST_WAIT_S:
+            raise AssertionError(f"host MemAvailable {avail} B after {HOST_WAIT_S} s (first {first} B), "
+                                 f"not above the {need:.0f} B a parity leg needs")
+        time.sleep(0.25)
+        avail = mem_available()
+    return (f"MemAvailable {first} B at first, {avail} B after {time.perf_counter() - t0:.2f} s, "
+            f"above the {need:.0f} B needed")
 
 
 class RoutingLog:
@@ -2935,22 +2972,46 @@ HYBRID_LAYERS, HYBRID_BYTES = 4, 46_042_759_168
 HYBRID_PARITY_LAYERS = 2     # the parity leg: Mamba, then Mamba + MoE (48.7 GB in f32)
 
 
-def mamba_decode_cost(torch, cfg, params, dev) -> dict:
-    """One Mamba layer's decode call on its own (layer 0's weights, batch 8,
-    one token, a seeded state): device operations and device time a call,
-    from torch.profiler."""
-    from repro_torch.models import mamba as mam
+MAMBA_LABEL = "mamba_mixer"   # the record_function range around each Mamba mixer call
 
-    p0 = {k: v[0] for k, v in params["blocks"]["l0_mixer"].items()}
-    g = torch.Generator(dev).manual_seed(5)
-    cache = {n: torch.randn(s.shape, generator=g, device=dev).to(s.dtype)
-             for n, s in mam.mamba_cache_defs(cfg, 8).items()}
-    x = torch.randn(8, 1, cfg.d_model, generator=g, device=dev).to(cfg.compute_dtype)
 
-    def call():
-        return mam.mamba_mixer(cfg, p0, x, "decode", cache)
+def mamba_share(torch, step, n: int = PROFILED_STEPS) -> dict:
+    """The Mamba layers' share of ``n`` calls of ``step`` (a paged decode
+    step), read from those steps' own profile: each Mamba mixer call runs
+    inside a record_function range, and the device operations (kernels,
+    copies, sets) that the CPU ops inside those ranges launched are counted
+    and timed beside all of the steps' device operations."""
+    from torch.autograd import DeviceType
 
-    return {"ops": device_ops(call), "device_ms": device_ms(call)}
+    from repro_torch.models import transformer as tf
+
+    defs, cache_defs, mixer = tf.RECURRENT["mamba"]
+
+    def labelled(*args, **kw):
+        with torch.profiler.record_function(MAMBA_LABEL):
+            return mixer(*args, **kw)
+
+    def kernels(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tf.RECURRENT["mamba"] = (defs, cache_defs, labelled)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        tf.RECURRENT["mamba"] = (defs, cache_defs, mixer)
+    events = prof.events()
+    on_card = [e for e in events if e.device_type != DeviceType.CPU and e.name != MAMBA_LABEL]
+    ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == MAMBA_LABEL]
+    mk = [k for r in ranges for k in kernels(r)]
+    return {"calls": len(ranges) / n, "ops": len(mk) / n, "device_us": sum(k.duration for k in mk) / n,
+            "step_ops": len(on_card) / n,
+            "step_device_us": sum(e.time_range.elapsed_us() for e in on_card) / n}
 
 
 def phase_hybrid(torch, dev) -> dict:
@@ -2958,8 +3019,8 @@ def phase_hybrid(torch, dev) -> dict:
     layers of its superblock, every earlier tree off the card: drawn on the
     card by the blocked init (conv_b, dt_bias and A_log standard normal; its
     bytes against the reckoning, its peak below the tree + 4 GiB); a batch-8
-    paged step (2L + 1 rmsnorm and one paged decode launch), one Mamba
-    layer's decode call measured on its own beside it; a batch-4 dense step
+    paged step (2L + 1 rmsnorm and one paged decode launch), the Mamba
+    layers' share of its profile (``mamba_share``); a batch-4 dense step
     (one decode_attention); launch/serve.main() with --layers and 32
     requests (whole-prompt); the pools phase's 8 prompts whole-prompt on an
     int8 chained pool (flash, the quantizing write, the Mamba scan in 2
@@ -2991,15 +3052,19 @@ def phase_hybrid(torch, dev) -> dict:
         raise AssertionError(f"{arch} {HYBRID_LAYERS}L: {tb} B, reckoned {HYBRID_BYTES}, {n_params(cfg)} parameters")
     if peak >= tb + 4 * 2**30:
         raise AssertionError(f"{arch} init peak {peak} B, not below the tree {tb} B + 4 GiB")
-    per = phase_step(torch, cfg, params, dev)
+    per = phase_step(torch, cfg, params, dev, after=lambda eng: mamba_share(torch, eng.step))
     check_step(arch, cfg, per["decode step"])
-    step, mamba = per["timing"], mamba_decode_cost(torch, cfg, params, dev)
+    step, mamba = per["timing"], per["after"]
     n_mamba = cfg.block_pattern.count("mamba")
-    log(f"  one Mamba layer's decode call (batch 8, one token) on its own: {mamba['ops']:g} device operations, "
-        f"{mamba['device_ms']} ms on the device; the step's {n_mamba} Mamba layers about "
-        f"{n_mamba * mamba['ops']:g} of its {step['ops']:g} device operations "
-        f"({n_mamba * mamba['ops'] / max(step['ops'], 1):.4f}) and {n_mamba * (mamba['device_ms'] or 0):.4f} "
-        f"of its {step['device_us'] / 1e3:.4f} ms on the device")
+    if mamba["calls"] != n_mamba:
+        raise AssertionError(f"{arch}: {mamba['calls']} Mamba mixer calls a paged step, expected {n_mamba}")
+    linked = (f"{mamba['ops']:g} of its {mamba['step_ops']:g} device operations "
+              f"({mamba['ops'] / max(mamba['step_ops'], 1):.4f}) and {mamba['device_us']:.1f} of its "
+              f"{mamba['step_device_us']:.1f} us on the device "
+              f"({mamba['device_us'] / max(mamba['step_device_us'], 1e-9):.4f})"
+              if mamba["ops"] else "not measured (the profiler linked no device operation to the ranges)")
+    log(f"  the paged step's {n_mamba} Mamba mixer calls, from the step's own profile ({PROFILED_STEPS} "
+        f"steps, each call in a record_function range): {linked}")
     steps = {"paged": dict(step, mamba=mamba), "dense": dense_step(torch, cfg, params, dev)[2]}
     counts = {"jamba_launcher_whole_prompt": launcher_leg(
         torch, 0, params, arch, ("decode_attention", "flash_attention", "rmsnorm"),
@@ -3074,20 +3139,6 @@ def teacher_forced_batch(torch, cfg, params, prompts, outs, layout: str):
     return list(torch.stack(rows, 1))
 
 
-HOST_SLICE = 1 << 28     # values converted to f32 at a time on the way to the host (1 GiB)
-
-
-def host_f32(torch, x):
-    """``x`` on the host in f32, converted a slice of HOST_SLICE values at a
-    time, so that the card never holds an f32 copy of a whole leaf (one of
-    jamba's stacked expert leaves would take 12 GiB of f32)."""
-    out = torch.empty(x.shape, dtype=torch.float32)
-    src, dst = x.reshape(-1), out.view(-1)
-    for a in range(0, x.numel(), HOST_SLICE):
-        dst[a:a + HOST_SLICE].copy_(src[a:a + HOST_SLICE].float())
-    return out
-
-
 class Parity:
     """Teacher-forced parity of served tokens against the port's plain paths
     on the CPU in f32 on the same weights: every flip's CPU lead must stay
@@ -3101,8 +3152,10 @@ class Parity:
         return cfg.replace(param_dtype=self.torch.float32, compute_dtype=self.torch.float32)
 
     def to_cpu(self, t):
-        """The tree on the host in f32; int8 weight values stay int8."""
-        return _map(t, lambda x: x.cpu() if x.dtype == self.torch.int8 else host_f32(self.torch, x))
+        """The tree on the host in f32, each leaf copied over in its own
+        dtype and converted there, so that the card never holds an f32 copy
+        of a leaf; int8 weight values stay int8."""
+        return _map(t, lambda x: x.cpu() if x.dtype == self.torch.int8 else x.cpu().float())
 
     def check(self, name, rid, rows, out, bound=True):
         """Rows of CPU logits against the served tokens; with ``bound`` False
@@ -3380,47 +3433,75 @@ def moe_replay_parity(torch, par, p32, r, name: str) -> None:
             par.check(f"{name}-after-routing-difference", i, rows_i[after], [out[j] for j in after], bound=False)
 
 
+STAGE = 1 << 28     # bf16 values the pinned staging buffer carries to the host at a time (512 MiB)
+
+
+class HostArena:
+    """One flat f32 buffer on the host that the replayed legs' trees take
+    turns in, each leaf a view of it, carried over through one pinned bf16
+    staging buffer. Pages this process has touched once stay with it, so a
+    later leg neither waits for the memory an earlier one freed (it comes
+    back to MemAvailable only seconds later) nor pays again for touching
+    fresh pages, which cost more than the copy itself."""
+
+    def __init__(self, torch, n: int):
+        self.torch = torch
+        self.flat = torch.empty(n, dtype=torch.float32)
+        self.stage = torch.empty(STAGE, dtype=torch.bfloat16, pin_memory=True)
+
+    def tree(self, tree):
+        """``tree`` (on the card) in f32 in the arena, from its start; the
+        tree it held before is overwritten."""
+        off = 0
+
+        def put(x):
+            nonlocal off
+            dst = self.flat[off:off + x.numel()]
+            off += x.numel()
+            src = x.reshape(-1)
+            if x.dtype != self.torch.bfloat16:
+                dst.copy_(src)
+                return dst.view(x.shape)
+            for a in range(0, x.numel(), STAGE):
+                m = min(STAGE, x.numel() - a)
+                self.stage[:m].copy_(src[a:a + m])
+                dst[a:a + m].copy_(self.stage[:m])
+            return dst.view(x.shape)
+
+        return _map(tree, put)
+
+
 def parity_moe(torch, par, moe) -> None:
     """The MoE legs, each a replay held by ``moe_replay_parity``, each tree
-    brought to the host in f32 and freed after its legs. Leg J first
-    (jamba-1.5-large 2L, no drop possible), which always runs: its 48.7 GB
-    f32 tree needs the host's room before any other leg's. Then leg C
-    (llama4 1L, no drop possible), when the host's MemAvailable exceeds its
-    f32 tree by LEG_C_MARGIN, else recorded as waiting; then legs A (dbrx
-    2L, no drop possible) and B (the same weights at binding capacity)."""
-    d, ll, jm = moe["served"]["dbrx"], moe["served"]["llama4"], moe["served"]["jamba"]
+    brought to the host in f32 in turn in one ``HostArena``, sized for the
+    largest, once the host has room for it (``host_room``): J
+    (jamba-1.5-large 2L, no drop possible), C (llama4 1L, no drop possible),
+    then A (dbrx 2L, no drop possible) and B (the same weights at binding
+    capacity). Every leg runs."""
+    legs = (("J", "jamba", "jamba 2L", (("J", "jamba-2L-J"),)),
+            ("C", "llama4", "llama4 1L", (("C", "llama4-1L-C"),)),
+            ("A and B", "dbrx", "dbrx 2L", (("A", "dbrx-2L-A"), ("B", "dbrx-2L-B"))))
+    n = max(sum(t.numel() for t in _leaves(moe["served"][m]["params"])) for _, m, _, _ in legs)
+    t0 = time.perf_counter()
+    room = host_room(4 * n + LEG_MARGIN)
+    arena = HostArena(torch, n)
+    log(f"  parity arena: {n} f32 values ({4 * n} B), {time.perf_counter() - t0:.1f} s for the room: {room}")
     with torch.no_grad():
-        t0 = time.perf_counter()
-        log(f"  parity leg J (jamba 2L) starts: {release_host()}")
-        p32 = par.to_cpu(jm["params"])
-        jm["params"] = None
-        free_card(torch)
-        moe_replay_parity(torch, par, p32, jm["J"], "jamba-2L-J")
-        del p32
-        log(f"  parity leg J (jamba 2L): {time.perf_counter() - t0:.1f} s; {release_host()}")
-        t0 = time.perf_counter()
-        need = 2 * sum(t.numel() * t.element_size() for t in _leaves(ll["params"])) + LEG_C_MARGIN
-        avail = mem_available()
-        if avail > need:
-            p32 = par.to_cpu(ll["params"])
-            ll["params"] = None
+        for leg, model, label, runs in legs:
+            t0 = time.perf_counter()
+            m = moe["served"][model]
+            p32 = arena.tree(m["params"])
+            m["params"] = None
             free_card(torch)
-            moe_replay_parity(torch, par, p32, ll["C"], "llama4-1L-C")
+            t1 = time.perf_counter()
+            for key, name in runs:
+                moe_replay_parity(torch, par, p32, m[key], name)
             del p32
-            moe["leg_c"] = f"ran: MemAvailable {avail} B against {need:.0f} B"
-        else:
-            ll["params"] = None
-            free_card(torch)
-            moe["leg_c"] = f"waits: MemAvailable {avail} B, its f32 tree and margin need {need:.0f} B"
-        log(f"  parity leg C (llama4 1L) {moe['leg_c']}: {time.perf_counter() - t0:.1f} s; {release_host()}")
-        t0 = time.perf_counter()
-        p32 = par.to_cpu(d["params"])
-        d["params"] = None
-        free_card(torch)
-        moe_replay_parity(torch, par, p32, d["A"], "dbrx-2L-A")
-        moe_replay_parity(torch, par, p32, d["B"], "dbrx-2L-B")
-        del p32
-        log(f"  parity moe legs A and B: {time.perf_counter() - t0:.1f} s; {release_host()}")
+            log(f"  parity leg {leg} ({label}): {time.perf_counter() - t0:.1f} s (f32 tree in the arena "
+                f"{t1 - t0:.1f} s; replay {time.perf_counter() - t1:.1f} s); host MemAvailable "
+                f"{mem_available()} B")
+    del arena
+    log(f"  parity arena freed: {release_host()}")
 
 
 def drop_trees(*runs) -> None:
@@ -3644,19 +3725,25 @@ def main() -> int:
            if "registers" in ln or "spill" in ln]
     log(f"phase 2 build: nvcc sm_90a, {_build.build_info['seconds']:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s); ptxas: {' | '.join(ptx)}")
-    lib_path = _build.BUILD_DIR / _build.LIB_NAME
-    for name, kernel, labels in (
-            ("flash_attention", "flash_bf16_kernel", {"ILi64E": "hd<=64", "ILi128E": "hd<=128"}),
-            ("mlstm_chunkwise", "mlstm_tc_kernel", {"ILi16E": "TC 16", "ILi32E": "TC 32"})):
-        hmma = kernel_sass(lib_path, kernel, labels)
+    dump = sass_dump(_build.BUILD_DIR / _build.LIB_NAME)
+
+    # 3. kernels
+    log(f"phase 3 kernels: [at {time.perf_counter() - T_START:.1f} s]")
+    try:
+        rows = phase_kernels(torch, dev)
+    except BaseException:
+        dump[0].kill()
+        dump[0].wait()
+        raise
+    names = {"flash_bf16_kernel": "flash_attention", "mlstm_tc_kernel": "mlstm_chunkwise"}
+    sass = kernel_sass(dump, {"flash_bf16_kernel": {"ILi64E": "hd<=64", "ILi128E": "hd<=128"},
+                              "mlstm_tc_kernel": {"ILi16E": "TC 16", "ILi32E": "TC 32"}})
+    for kernel, hmma in sass.items():
+        name = names[kernel]
         log(f"  {name} bf16 kernel SASS (cuobjdump -sass): "
             + ", ".join(f"{n}: {c} HMMA/HGMMA" for n, c in sorted(hmma.items())))
         if not hmma or min(hmma.values()) == 0:
             raise AssertionError(f"the bf16 {name} kernel issues no tensor-core instruction: {hmma}")
-
-    # 3. kernels
-    log(f"phase 3 kernels: [at {time.perf_counter() - T_START:.1f} s]")
-    rows = phase_kernels(torch, dev)
 
     # 4. serve
     log(f"phase 4 serve: smollm-360m FULL bf16, 24 requests through StraightLineRouter [at {time.perf_counter() - T_START:.1f} s]")
