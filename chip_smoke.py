@@ -52,7 +52,8 @@ result line:
                 composition; device operations per chunked prefill layer,
                 against the write through a row shifted beforehand.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
-                and time; launch/serve.main() at FULL width in bf16: 32
+                and time; launch/serve.main() at FULL width in bf16 on the
+                first 16 of the 32 layers (--layers): 32
                 requests onto dense engines (the decode_attention kernel), 4
                 router workers, prewarm, traces and metrics; chunked
                 prefill, then whole-prompt prefill
@@ -73,7 +74,8 @@ result line:
                 source's; every page reclaimed after each drain
   8. xlstm    — xlstm-350m FULL in bf16 (random weights from a seeded
                 generator): launch/serve.main(["--arch", "xlstm-350m"]),
-                32 requests on dense engines, chunked and whole-prompt; a
+                32 requests on dense engines on its first superblock (8 of
+                24 layers, --layers), chunked and whole-prompt; a
                 paged engine serving the pools phase's 8 prompts of 120-200
                 tokens whole-prompt (chunks of L = 64 in the mLSTM kernel)
                 and in 32-token chunks (the carry crosses calls), 21 mLSTM
@@ -87,7 +89,7 @@ result line:
                 decode step (81 rmsnorm and 40 paged decode launches, its
                 time and busy share), a batch-4 dense step (40
                 decode_attention), launch/serve.main(["--arch", "glm4-9b"])
-                with 32 requests on the first 20 layers (--layers),
+                with 32 requests on the first 10 layers (--layers),
                 whole-prompt; the pools phase's 8 prompts
                 on a paged engine in 32-token chunks on a bf16 flat pool and
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
@@ -97,25 +99,28 @@ result line:
                 granite-8b FULL in bf16 and with int8 weights
                 (quantize_params of the same tree, its bytes against the
                 reckoning; quantize_weight on the card == the CPU, and
-                qeinsum one rounding from f32), in one run: a batch-8 paged step each (73
+                qeinsum one rounding from f32; the same of the batched
+                product, torch.bmm, on 4 experts of jamba-1.5-large's w1
+                (4, 8192, 24576)), in one run: a batch-8 paged step each (73
                 rmsnorm and 36 paged decode launches, time, busy share,
                 device operations, side by side), a batch-4 dense step each
                 (36 decode_attention), launch/serve.main() with 32 requests
-                each on the first 12 layers (--layers), whole-prompt,
+                each on the first 6 layers (--layers), whole-prompt,
                 --weights-int8 on the int8 tree.
                 qwen1.5-32b FULL with int8 weights drawn on the card by the
                 quantized init (standard-normal q/k/v biases; its bytes and
                 its peak memory against the tree): a paged step (129 + 64),
                 a dense step (64), the launcher with --weights-int8 on the
-                first 16 layers, the
+                first 8 layers, the
                 pools phase's 8 prompts on an int8 chained pool. Then 2 of
                 the layers at FULL width (granite bf16 and int8 weights,
                 qwen int8 weights) on a dense engine and an int8 chained
                 pool, for the parity phase
  11. stubs    — the stub-frontend families, every earlier tree off the
                 card. qwen2-vl-2b FULL in bf16 (standard-normal q/k/v
-                biases): launch/serve.main() with 32 requests (dense,
-                32-token chunks), a batch-8 paged step (57 rmsnorm and 28
+                biases): launch/serve.main() with 32 requests on the first
+                14 of its 28 layers (dense, 32-token chunks), a batch-8
+                paged step (57 rmsnorm and 28
                 paged decode launches) and a batch-4 dense step (28
                 decode_attention), each timed and profiled; the pools
                 phase's 8 prompts on a paged engine, whole-prompt and in
@@ -128,9 +133,13 @@ result line:
                 16-token prompts through EncDecLM.prefill (32 flash, 0
                 rmsnorm), 32 decode steps of 32 decode_attention, the
                 encoder's and a step's time, busy share and device
-                operations, the cross-attention cache's bytes. Then 4
-                layers of qwen2-vl-2b and 4 + 4 of whisper at FULL width
-                for the parity phase
+                operations, the cross-attention cache's bytes. Each tree
+                then with int8 weights (quantize_params, its bytes against
+                the reckoning): qwen2-vl-2b's launcher burst with
+                --weights-int8 and its image prompt (no flash), whisper's
+                prefill and 32 decode steps. Then 4 layers of qwen2-vl-2b
+                and 4 + 4 of whisper at FULL width, in bf16 and with int8
+                weights, for the parity phase
  12. moe      — the MoE family, every earlier tree off the card (the
                 host's MemAvailable logged first). dbrx-132b at 4 of its
                 40 layers and llama4-maverick at 2 of its 48, FULL width
@@ -142,7 +151,15 @@ result line:
                 (4; 2 decode_attention), launch/serve.main() with --layers
                 and 32 requests (whole-prompt), the pools phase's 8
                 prompts (dbrx in 32-token chunks on a bf16 flat pool,
-                llama4 whole-prompt on an int8 chained pool), 0 failures
+                llama4 whole-prompt on an int8 chained pool), 0 failures.
+                Each then with int8 weights drawn on the card by the
+                quantized init (its bytes against the reckoning, its peak
+                below the tree + 4 GiB): a batch-8 paged step, its device
+                time split into the int8 -> bf16 weight copies, the
+                products and the scale multiplies (each qeinsum call in a
+                record_function range); llama4's peak memory during a step
+                (the bf16 copy of a 128-expert leaf); dbrx's launcher burst
+                with --weights-int8 --layers 4
  13. hybrid   — jamba-1.5-large-398b (Mamba + attention 7:1, MoE on every
                 other layer), every earlier tree off the card (the host's
                 MemAvailable logged first), at FULL width in bf16 cut to
@@ -158,19 +175,30 @@ result line:
                 (whole-prompt), the pools phase's 8 prompts whole-prompt on
                 an int8 chained pool (flash; the Mamba scan in 2 chunks at
                 bucket 256) and in 32-token chunks on a bf16 flat pool (the
-                Mamba carry across chunks), 0 failures. Then the parity
-                legs' replays, kept on the card: a prefill of 16-token
-                prompts and 10 decode steps with no engine, every MoE
+                Mamba carry across chunks), 0 failures. Then its whole
+                first superblock (8 layers: 7 Mamba, 1 attention, 4 MoE
+                FFNs) with int8 weights drawn on the card by the quantized
+                init (48.7 GB; its bytes against the reckoning, its peak
+                below the tree + 4 GiB): a batch-8 paged step (17 rmsnorm +
+                1 paged decode) and its device split (weight copies,
+                products, the 7 Mamba mixer calls), a batch-4 dense step,
+                launch/serve.main() --weights-int8 --layers 8 with 32
+                requests and the 8 long prompts on an int8 chained pool, 0
+                failures. Then the parity legs' replays, kept on the card
+                (the int8 legs' trees freed after them): a prefill of 16-token
+                prompts and REPLAY_STEPS decode steps with no engine, every MoE
                 call's routing recorded; jamba at its first 2 layers
                 (Mamba, Mamba + MoE) with no drop possible (leg J, 4
                 prompts); dbrx at 2 layers with no drop possible (leg A, 4
                 prompts) and at its binding capacity (leg B, 8 prompts: C
                 < T in the prefill and in every step); llama4 at 1 layer
-                with no drop possible (leg C, 4 prompts)
+                with no drop possible (leg C, 4 prompts); J's and A's
+                prompts on quantize_params of their trees (legs J8, A8)
  14. parity   — served requests re-run teacher-forced through the port's
                 plain paths on the CPU in f32 on the same weights (int8
                 weight values stay int8, the products in f32): the
-                whole-sequence forward (phases 4, 7, 8, 9, 10 and 11), the
+                whole-sequence forward (phases 4, 7, 8, 9, 10 and 11, the
+                latter in bf16 and with int8 weights), the
                 dense cache (phases 5 and 9) and the paged int8 pool
                 (phases 6, 7, 9 and 10); every
                 spec-on and warm stream of phase 7, with the first
@@ -180,8 +208,10 @@ result line:
                 xLSTM legs, whose leads are recorded beside the CPU's own
                 bf16 forward (bf16 alone moves that model's logits by more).
                 Then the earlier trees are dropped from the host and the
-                replayed legs run, every one of them: J, C, A and B, their
-                f32 trees in turn in one host arena, allocated once
+                replayed legs run, every one of them: J, J8, C, A, B and
+                A8, their f32 trees in turn in one host arena (an int8
+                leg's int8 values quantized on the card and written as f32
+                over its float leg's tree there), allocated once
                 MemAvailable exceeds it by LEG_MARGIN (waiting up to
                 HOST_WAIT_S for freed trees to come back to it), each
                 replayed step by step on the CPU
@@ -224,6 +254,7 @@ TF32_FLOPS_S = 495e12       # H100 SXM dense TF32 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17
 FLIP_BOUND = 0.25           # max CPU-f32 logit lead over a GPU token that differs
 PROFILED_STEPS = 3          # steps a serving step's profile covers (device time, busy share)
+TIMED_STEPS = 10            # steps a serving step's host-clock mean covers
 
 
 def log(msg: str) -> None:
@@ -1490,7 +1521,7 @@ def phase_step(torch, cfg, params, dev, after=None):
     def delta(a, b, k=1):
         return {n: (b[n] - a[n]) / k for n in a}
 
-    B, STEPS = 8, 20
+    B, STEPS = 8, TIMED_STEPS
     per = {}
     for chunk in (32, 0):
         eng = PagedInferenceEngine(cfg, PagedEngineConfig(
@@ -1621,11 +1652,11 @@ def dense_step(torch, cfg, params, dev, chunk_tokens: int = 0):
     """The launcher's dense engine shape (4 slots, max_len 96; prefill
     whole-prompt, or in chunks of ``chunk_tokens``): launches per decode
     step, one decode_attention per attention layer, and a batch-4 decode
-    step's time on the host clock (synchronized, mean of 20)."""
+    step's time on the host clock (synchronized, mean of TIMED_STEPS)."""
     from repro_torch.launch.serve_hybrid import prompt_for
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
 
-    B, STEPS = 4, 20
+    B, STEPS = 4, TIMED_STEPS
     eng = InferenceEngine(cfg, EngineConfig(max_slots=B, max_len=96, max_new_tokens=64,
                                             chunk_tokens=chunk_tokens), params=params, device=dev)
     for i in range(B):
@@ -2082,8 +2113,9 @@ def dense_run(torch, cfg, params, dev, chunk_tokens: int, need=("mlstm_chunkwise
 
 
 def phase_xlstm(torch, dev):
-    """xlstm-350m FULL in bf16: the launcher's 32 requests (chunked and
-    whole-prompt), the long prompts on a paged engine (whole-prompt and
+    """xlstm-350m FULL in bf16: the launcher's 32 requests on its first
+    superblock (chunked and whole-prompt), the long prompts on a paged
+    engine (whole-prompt and
     chunked), launches per prefill and a decode step's time."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import get_model
@@ -2094,9 +2126,9 @@ def phase_xlstm(torch, dev):
     n_mlstm = sum(1 for kind in cfg.block_pattern if kind == "mlstm") * cfg.n_superblocks
     log(f"  xlstm-350m FULL: {cfg.n_layers} layers ({n_mlstm} mLSTM), d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, {n_params} parameters in bf16")
-    need = ("mlstm_chunkwise", "rmsnorm")
-    l_chunk, lc_counts = launcher_leg(torch, 32, params, "xlstm-350m", need)
-    l_whole, lw_counts = launcher_leg(torch, 0, params, "xlstm-350m", need)
+    need, depth = ("mlstm_chunkwise", "rmsnorm"), ("--layers", str(LAUNCHER_LAYERS["xlstm-350m"]))
+    l_chunk, lc_counts = launcher_leg(torch, 32, params, "xlstm-350m", need, depth)
+    l_whole, lw_counts = launcher_leg(torch, 0, params, "xlstm-350m", need, depth)
     p_whole = xlstm_paged_run(torch, cfg, params, dev, 0)
     p_chunk = xlstm_paged_run(torch, cfg, params, dev, 32)
     same = sum(a == b for a, b in zip(p_whole["outs"], p_chunk["outs"]))
@@ -2152,7 +2184,7 @@ def phase_glm4(torch, dev):
     """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
     rmsnorm and 40 paged decode launches, its time and the device's busy
     share), a batch-4 dense step (40 decode_attention launches), the
-    launcher's 32 requests on dense engines on the first 20 layers
+    launcher's 32 requests on dense engines on the first 10 layers
     (whole-prompt prefill: flash and decode_attention at G = 16), the pools
     phase's 8 prompts on a paged engine in 32-token chunks on a bf16 flat
     pool and whole-prompt on an int8 chained pool, 0 failures on each. Then
@@ -2210,31 +2242,103 @@ def phase_glm4(torch, dev):
     return {"cfg": cfg4, "params": p4, "served": served, "counts": counts}
 
 
-# Bytes of the weight-only int8 trees, reckoned from the configs by hand:
-# int8 projections and unembed, bf16 scales, embedding, norms and biases
-INT8_TREE_BYTES = {"granite-8b": 8_459_509_760, "qwen1.5-32b": 35_987_901_440}
+# Bytes of the weight-only int8 trees, reckoned from the configs by hand
+# (``int8_tree_bytes``), by configuration and depth served
+INT8_TREE_BYTES = {("granite-8b", 36): 8_459_509_760, ("qwen1.5-32b", 64): 35_987_901_440,
+                   ("qwen2-vl-2b", 28): 2_012_200_704, ("whisper-large-v3", 32): 1_669_907_252,
+                   ("dbrx-132b", 4): 14_890_336_256, ("llama4-maverick-400b-a17b", 2): 35_455_677_056,
+                   ("jamba-1.5-large-398b", 8): 48_726_167_552}
 
 
 def int8_tree_bytes(cfg) -> int:
-    """A weight-only int8 tree's bytes from the config's widths: int8 wq,
-    wk, wv, wo, w1, w3, w2 and unembed, one bf16 scale per output channel,
-    the bf16 embedding, norms and q/k/v biases."""
-    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
-    qo, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    ins, outs = (d, d, d, qo, d, d, f), (qo, kv, kv, d, f, f, d)
-    int8 = L * sum(i * o for i, o in zip(ins, outs)) + d * V
-    scales = 2 * (L * sum(outs) + V)
-    floats = 2 * (V * d + (2 * L + 1) * d + (L * (qo + 2 * kv) if cfg.qkv_bias else 0))
-    return int8 + scales + floats
+    """A weight-only int8 tree's bytes from the config's widths, never from
+    a tree: int8 values of every wq, wk, wv, wo, w1, w3, w2 (the experts'
+    too) and unembed with one bf16 scale per output channel; in bf16 the
+    embedding, the norms (weight, and bias under layernorm), the q/k/v
+    biases, the routers and the Mamba mixers' leaves (in_proj, conv_w and
+    conv_b, x_proj, dt_proj and dt_bias, A_log, D, out_proj); an
+    encoder-decoder's encoder stack and cross-attention included."""
+    from repro_torch.models.whisper import encoder_cfg
+
+    d = cfg.d_model
+
+    def proj(i, o):
+        return i * o + 2 * o
+
+    def norm():
+        return 2 * d * (2 if cfg.norm == "layernorm" else 1)
+
+    def attn(c, cross=False):
+        H, hd = c.n_heads, c.hd
+        KV = H if cross else min(c.n_kv_heads, H)
+        bias = 2 * (H + 2 * KV) * hd if c.qkv_bias else 0
+        return proj(d, H * hd) + 2 * proj(d, KV * hd) + proj(H * hd, d) + bias
+
+    def mamba(c):
+        m = c.mamba
+        dI, R, S = m.expand * d, m.dt_rank or math.ceil(d / 16), m.d_state
+        return 2 * (d * 2 * dI + m.d_conv * dI + dI + dI * (R + 2 * S) + R * dI + dI + dI * S + dI + dI * d)
+
+    def ffn(c, i):
+        f, n_in = c.d_ff, 2 if c.gated_mlp else 1
+        one = n_in * proj(d, f) + proj(f, d)
+        if c.moe is not None and c.layer_has_moe(i):
+            return 2 * d * c.moe.n_experts + c.moe.n_experts * one
+        return one
+
+    def stack(c):
+        per = 0
+        for i, kind in enumerate(c.block_pattern):
+            per += norm() + (attn(c) if kind == "attn" else mamba(c))
+            if c.cross_attn:
+                per += norm() + attn(c, cross=True)
+            if c.d_ff > 0:
+                per += norm() + ffn(c, i)
+        return c.n_superblocks * per + norm()
+
+    total = 2 * cfg.vocab_size * d + (0 if cfg.tie_embeddings else proj(d, cfg.vocab_size)) + stack(cfg)
+    return total + (stack(encoder_cfg(cfg)) if cfg.encoder is not None else 0)
 
 
 def check_tree_bytes(name: str, cfg, params) -> int:
     got, want = sum(t.numel() * t.element_size() for t in _leaves(params)), int8_tree_bytes(cfg)
     log(f"  {name} int8-weight tree: {got} B on the card (reckoned {want} B; "
         f"{got / 1e9:.3f} GB)")
-    if not got == want == INT8_TREE_BYTES[cfg.name]:
-        raise AssertionError(f"{name}: {got} B, reckoned {want}, expected {INT8_TREE_BYTES[cfg.name]}")
+    if not got == want == INT8_TREE_BYTES[cfg.name, cfg.n_layers]:
+        raise AssertionError(f"{name}: {got} B, reckoned {want}, expected "
+                             f"{INT8_TREE_BYTES[cfg.name, cfg.n_layers]}")
     return got
+
+
+def int8_drawn(torch, cfg, dev, seed: int = 0):
+    """``cfg`` with int8 weights drawn on the card by the quantized init
+    (``seeded_params``): its bytes against the reckoning, its peak below the
+    tree + 4 GiB (what was allocated before included), its draw's seconds."""
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, seed)
+    torch.cuda.synchronize()
+    t_draw, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    tb = check_tree_bytes(f"{cfg.name} {cfg.n_layers}L", cfg, params)
+    log(f"  {cfg.name} {cfg.n_layers}L int8 weights drawn and quantized on the card in {t_draw:.3f} s; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; {before / 2**30:.3f} GiB allocated before), "
+        f"tree + 4 GiB = {(tb + 4 * 2**30) / 2**30:.3f} GiB")
+    if peak >= tb + 4 * 2**30:
+        raise AssertionError(f"{cfg.name} int8 init peak {peak} B, not below the tree {tb} B + 4 GiB")
+    return params
+
+
+def step_peak(torch, step) -> dict:
+    """The card's peak memory during one call of ``step`` above what was
+    allocated before it (an int8 step's bf16 weight copies live there)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"allocated": base, "peak": peak, "above": peak - base}
 
 
 def attn_layers(cfg) -> int:
@@ -2258,41 +2362,64 @@ QEINSUM_ULP = 0.55     # one rounding from f32 (0.501 and 0.508 read on the H100
 
 
 def qeinsum_gap(torch, w) -> None:
-    """``quantize_weight`` of a granite-8b w1 slice (4096, 14336) on the card
-    against the CPU, bit for bit; then ``qeinsum`` of bf16 activations (8,
-    1, 4096) on it, the card (``torch.mm`` with f32 output) against the CPU
-    (f32 throughout) and both against an f64 product, in bf16 units in the
-    last place of each output (ulps below 2**-8 of the largest output
+    """``quantize_weight`` of a weight leaf on the card against the CPU, bit
+    for bit: a 2-D slice (granite-8b's w1 (4096, 14336)) or a 3-D expert
+    leaf (E, d, f); then ``qeinsum`` of bf16 activations on it, (8, 1, d)
+    against a 2-D weight (``torch.mm``) or (E, 8, d) against a 3-D one
+    (``torch.bmm``, the experts' product), the card (f32 output) against
+    the CPU (f32 throughout) and both against an f64 product, in bf16 units
+    in the last place of each output (ulps below 2**-8 of the largest output
     counted at that floor). The card must round once, from f32: within
     QEINSUM_ULP of the f64 product (a bf16 rounding before the scale puts
-    it near 1 ulp) and within 1 ulp of the CPU."""
+    it near 1 ulp) and within 1 ulp of the CPU. Returns the seconds taken."""
     from repro_torch.models.quant import qeinsum, quantize_weight
 
+    t0 = time.perf_counter()
     card, host = quantize_weight(w), quantize_weight(w.cpu())
     if not (torch.equal(card["q"].cpu(), host["q"])
             and torch.equal(card["s"].cpu().view(torch.int16), host["s"].view(torch.int16))):
-        raise AssertionError("quantize_weight on the card differs from the CPU")
+        raise AssertionError(f"quantize_weight {tuple(w.shape)} on the card differs from the CPU")
     g = torch.Generator(w.device).manual_seed(2)
-    x = torch.randn(8, 1, w.shape[0], generator=g, device=w.device).to(torch.bfloat16)
+    xs = (8, 1, w.shape[0]) if w.ndim == 2 else (w.shape[0], 8, w.shape[1])
+    x = torch.randn(xs, generator=g, device=w.device).to(torch.bfloat16)
     y, y_cpu = qeinsum(x, card).cpu().float(), qeinsum(x.cpu(), host).float()
-    exact = (x.cpu().double() @ host["q"].double()) * host["s"].double()
+    xh = x.cpu().double()
+    if w.ndim == 2:
+        exact = (xh @ host["q"].double()) * host["s"].double()
+    else:
+        exact = torch.stack([xh[e] @ host["q"][e].double() for e in range(w.shape[0])]) * host["s"].double()
     ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp_min(float(exact.abs().max()) / 256))) - 7)
     d = (y - y_cpu).abs()
     to_cpu, card_f64 = float((d / ulp).max()), float(((y - exact).abs() / ulp).max())
-    log(f"  quantize_weight (4096, 14336) bf16 on the card == the CPU, bit for bit; qeinsum bf16 "
-        f"(8, 1, 4096) x int8 (4096, 14336): card against CPU max |d| {float(d.max()):.6g} "
-        f"({int((d > 0).sum())} of {d.numel()} outputs differ, largest {to_cpu:.3g} "
-        f"bf16 ulp); against f64: card {card_f64:.3g} ulp (bound {QEINSUM_ULP}), CPU "
-        f"{float(((y_cpu - exact).abs() / ulp).max()):.3g} ulp")
+    seconds = time.perf_counter() - t0
+    log(f"  quantize_weight {tuple(w.shape)} bf16 on the card == the CPU, bit for bit; qeinsum bf16 "
+        f"{xs} x int8 {tuple(w.shape)} ({'torch.mm' if w.ndim == 2 else 'torch.bmm'}): card against CPU "
+        f"max |d| {float(d.max()):.6g} ({int((d > 0).sum())} of {d.numel()} outputs differ, largest "
+        f"{to_cpu:.3g} bf16 ulp); against f64: card {card_f64:.3g} ulp (bound {QEINSUM_ULP}), CPU "
+        f"{float(((y_cpu - exact).abs() / ulp).max()):.3g} ulp; {seconds:.1f} s")
     if not (card_f64 <= QEINSUM_ULP and to_cpu <= 1.0):
         raise AssertionError(f"qeinsum on the card: {card_f64} bf16 ulp from the f64 product, {to_cpu} "
                              f"from the CPU: not one rounding from f32")
+    return seconds
+
+
+def expert_leaf(torch, dev, arch: str = "jamba-1.5-large-398b", n: int = 4):
+    """The first ``n`` experts of ``arch``'s w1 at its FULL width, (n, d,
+    d_ff) in bf16, drawn on the card from a seeded generator at the init's
+    scale: the 3-D leaf of ``qeinsum_gap``."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    g = torch.Generator(dev).manual_seed(3)
+    w = torch.randn(n, cfg.d_model, cfg.d_ff, generator=g, device=dev) / cfg.d_model ** 0.5
+    return w.to(torch.bfloat16)
 
 
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
-# depth of the phase-9 and phase-10 launcher bursts (the first layers of the
-# FULL trees the phases' steps run whole), for the script's time limit
-LAUNCHER_LAYERS = {"glm4-9b": 20, "granite-8b": 12, "qwen1.5-32b": 16}
+# depth of the launcher bursts of phases 5, 8, 9, 10 and 11 (the first layers
+# of the FULL trees the phases' steps run whole), for the script's time limit
+LAUNCHER_LAYERS = {"smollm-360m": 16, "xlstm-350m": 8, "glm4-9b": 10, "granite-8b": 6, "qwen1.5-32b": 8,
+                   "qwen2-vl-2b": 14}
 
 
 def free_card(torch) -> None:
@@ -2319,6 +2446,8 @@ def int8w_granite(torch, dev, counts, steps) -> None:
         f"{cfg.n_kv_heads} KV heads (G = {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.hd}, {n_params} "
         f"parameters, {2 * n_params} B in bf16")
     qeinsum_gap(torch, params["blocks"]["l0_ffn"]["w1"][0])
+    steps["qeinsum_gap_3d_s"] = qeinsum_gap(torch, expert_leaf(torch, dev))
+    free_card(torch)
     legs = {"bf16": (cfg, params), "int8w": (cfg.replace(weights_int8=True), quantize_params(params))}
     del params
     check_tree_bytes("granite-8b", cfg, legs["int8w"][1])
@@ -2349,19 +2478,9 @@ def int8w_qwen(torch, dev, counts, steps) -> None:
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("qwen1.5-32b").replace(weights_int8=True)
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = seeded_params(torch, cfg, dev, 0)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    tb = check_tree_bytes("qwen1.5-32b", cfg, params)
     log(f"  qwen1.5-32b FULL: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
-        f"{cfg.n_kv_heads} KV heads, drawn and quantized on the card in {time.perf_counter() - t0:.3f} s; "
-        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; {before / 2**30:.3f} GiB allocated "
-        f"before the draw), tree + 4 GiB = {(tb + 4 * 2**30) / 2**30:.3f} GiB")
-    if peak >= tb + 4 * 2**30:
-        raise AssertionError(f"qwen int8 init peak {peak} B, not below the tree {tb} B + 4 GiB")
+        f"{cfg.n_kv_heads} KV heads")
+    params = int8_drawn(torch, cfg, dev)
     per = phase_step(torch, cfg, params, dev)
     check_step("qwen1.5-32b int8w", cfg, per["decode step"])
     steps["qwen_int8w"] = dict(per["timing"], dense_ms=dense_step(torch, cfg, params, dev)[0])
@@ -2498,12 +2617,17 @@ def mrope_ops(torch, cfg, dev) -> None:
 
 def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
     """qwen2-vl-2b FULL in bf16 (standard-normal q/k/v biases): the
-    launcher's 32 requests (dense, 32-token chunks: the whole-prompt dense
+    launcher's 32 requests on the first 14 of its 28 layers (dense,
+    32-token chunks: the whole-prompt dense
     prefill wants embeddings), a batch-8 paged step (57 rmsnorm and 28
     paged decode launches) and a batch-4 dense step (28 decode_attention),
     each timed and profiled; a paged engine serving the pools phase's 8
-    prompts whole-prompt and in 32-token chunks; the image prompt."""
+    prompts whole-prompt and in 32-token chunks; the image prompt. Then the
+    same tree with int8 weights (``quantize_params``; its bytes against the
+    reckoning): the launcher's 32 requests with --weights-int8 and the
+    image prompt (no flash launch)."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.quant import quantize_params
 
     cfg = get_config("qwen2-vl-2b")
     params = seeded_params(torch, cfg, dev, 0)
@@ -2514,8 +2638,9 @@ def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
     if not n == n_params(cfg) == STUB_PARAMS[cfg.name]:
         raise AssertionError(f"qwen2-vl-2b: {n} parameters, reckoned {n_params(cfg)}")
     mrope_ops(torch, cfg, dev)
+    depth = ("--layers", str(LAUNCHER_LAYERS["qwen2-vl-2b"]))
     counts["qwen2vl_launcher_chunk32"] = launcher_leg(torch, 32, params, "qwen2-vl-2b",
-                                                      ("decode_attention", "rmsnorm"))[1]
+                                                      ("decode_attention", "rmsnorm"), depth)[1]
     per = phase_step(torch, cfg, params, dev)
     check_step("qwen2-vl-2b", cfg, per["decode step"])
     steps["qwen2vl_paged"] = per["timing"]
@@ -2529,6 +2654,15 @@ def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
                 raise AssertionError(f"{key} was not launched in {name}")
         counts[name] = run["counts"]
     counts["qwen2vl_image_prefill"] = image_prompt(torch, cfg, params, dev)["prefill_counts"]
+    t0 = time.perf_counter()
+    cfg8 = cfg.replace(weights_int8=True)
+    params = quantize_params(params)
+    check_tree_bytes("qwen2-vl-2b", cfg8, params)
+    counts["qwen2vl_int8_launcher_chunk32"] = launcher_leg(torch, 32, params, "qwen2-vl-2b",
+                                                           ("decode_attention", "rmsnorm"),
+                                                           ("--weights-int8",) + depth)[1]
+    counts["qwen2vl_int8_image_prefill"] = image_prompt(torch, cfg8, params, dev)["prefill_counts"]
+    log(f"  qwen2-vl-2b int8 weights (quantize_params of the same tree): {time.perf_counter() - t0:.1f} s")
 
 
 def whisper_run(torch, cfg, params, dev) -> dict:
@@ -2606,14 +2740,18 @@ def whisper_run(torch, cfg, params, dev) -> dict:
 
 def phase_stubs(torch, dev):
     """The two stub-frontend families, each tree freed before the next:
-    qwen2-vl-2b FULL (``stubs_qwen2_vl``), whisper-large-v3 FULL
-    (``whisper_run``); then 4 layers of qwen2-vl-2b and 4 encoder and 4
-    decoder layers of whisper at FULL width (other draws) served for the
-    parity phase: the qwen dense engine's 8 launcher prompts in 32-token
-    chunks and its image prompt, whisper's prefill and decode."""
+    qwen2-vl-2b FULL in bf16 and with int8 weights (``stubs_qwen2_vl``),
+    whisper-large-v3 FULL (``whisper_run``) in bf16 and with int8 weights
+    (``quantize_params`` of the same tree, its bytes against the
+    reckoning); then 4 layers of qwen2-vl-2b and 4 encoder and 4 decoder
+    layers of whisper at FULL width (other draws), in bf16 and with int8
+    weights, served for the parity phase: the qwen dense engine's 8
+    launcher prompts in 32-token chunks and its image prompt, whisper's
+    prefill and decode."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.quant import quantize_params
 
     counts, steps = {}, {}
     stubs_qwen2_vl(torch, dev, counts, steps)
@@ -2628,6 +2766,12 @@ def phase_stubs(torch, dev):
         raise AssertionError(f"whisper-large-v3: {n} parameters, reckoned {n_params(cfg)}")
     run = whisper_run(torch, cfg, params, dev)
     counts["whisper_prefill"], steps["whisper"] = run["prefill_counts"], run["timing"]
+    t0 = time.perf_counter()
+    cfg8, params = cfg.replace(weights_int8=True), quantize_params(params)
+    check_tree_bytes("whisper-large-v3", cfg8, params)
+    run = whisper_run(torch, cfg8, params, dev)
+    counts["whisper_int8_prefill"], steps["whisper_int8"] = run["prefill_counts"], run["timing"]
+    log(f"  whisper-large-v3 int8 weights (quantize_params of the same tree): {time.perf_counter() - t0:.1f} s")
     del params, run
     free_card(torch)
 
@@ -2635,13 +2779,18 @@ def phase_stubs(torch, dev):
     w4 = cfg.replace(n_layers=4, encoder=dataclasses.replace(cfg.encoder, n_layers=4))
     log(f"  parity models: qwen2-vl-2b 4L {n_params(q4)} parameters, whisper 4+4L {n_params(w4)}")
     pq, pw = seeded_params(torch, q4, dev, 1), seeded_params(torch, w4, dev, 1)
-    served = {"qwen": {"cfg": q4, "params": pq, "dense": dense_run(torch, q4, pq, dev, 32, ("decode_attention",)),
-                       "image": image_prompt(torch, q4, pq, dev)},
-              "whisper": {"cfg": w4, "params": pw, "run": whisper_run(torch, w4, pw, dev)}}
-    for r in (served["qwen"]["image"], served["whisper"]["run"]):
+    served = {}
+    for tag, (qc, qp, wc, wp) in (("", (q4, pq, w4, pw)),
+                                  ("_int8", (q4.replace(weights_int8=True), quantize_params(pq),
+                                             w4.replace(weights_int8=True), quantize_params(pw)))):
+        served["qwen" + tag] = {"cfg": qc, "params": qp, "image": image_prompt(torch, qc, qp, dev),
+                                "dense": dense_run(torch, qc, qp, dev, 32, ("decode_attention",))}
+        served["whisper" + tag] = {"cfg": wc, "params": wp, "run": whisper_run(torch, wc, wp, dev)}
+    for r in served.values():
         for key in ("emb", "pos", "frames"):
-            if key in r:
-                r[key] = r[key].cpu()
+            for part in ("image", "run"):
+                if key in r.get(part, {}):
+                    r[part][key] = r[part][key].cpu()
     offload(torch, list(served.values()))
     return {"served": served, "counts": counts, "steps": steps}
 
@@ -2654,7 +2803,7 @@ def phase_stubs(torch, dev):
 MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
-REPLAY_STEPS = 10    # decode steps of each parity leg's replay
+REPLAY_STEPS = 4     # decode steps of each parity leg's replay
 LEG_MARGIN = 16e9    # host bytes the replayed parity legs need free beyond their f32 arena
 HOST_WAIT_S = 120.0  # the longest the replayed parity legs wait for that room
 
@@ -2916,6 +3065,22 @@ def moe_replay(torch, cfg, params, dev, prompts, steps: int) -> dict:
     return {"cfg": cfg, "prompts": prompts, "outs": outs, "calls": rl.calls, "dropped": d}
 
 
+def int8_replay(torch, cfg, params, dev, prompts) -> dict:
+    """``moe_replay`` of ``prompts`` on ``quantize_params(params)`` (int8
+    weights, quantized on the card), REPLAY_STEPS steps; the int8 tree is
+    freed after it (the parity phase quantizes the same tree again, on the
+    card, into the host arena: ``HostArena.quantized``)."""
+    from repro_torch.models.quant import quantize_params
+
+    t0 = time.perf_counter()
+    p8 = quantize_params(params)
+    r = moe_replay(torch, cfg.replace(weights_int8=True), p8, dev, prompts, REPLAY_STEPS)
+    del p8
+    free_card(torch)
+    log(f"  {cfg.name} {cfg.n_layers}L int8-weight replay: {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def moe_parity_models(torch, dev) -> dict:
     """The parity legs' replays on the card (``moe_replay``, REPLAY_STEPS
     steps), kept there for the parity phase (76.3 GB of bf16 trees):
@@ -2924,7 +3089,9 @@ def moe_parity_models(torch, dev) -> dict:
     at 2 layers, FULL width (other draws), with no drop possible (leg A: 4
     such prompts) and at the default, binding capacity (leg B: 8 such
     prompts, so that decode binds too, C = 4 < T = 8); llama4-maverick at 1
-    layer with no drop possible (leg C: 4 prompts)."""
+    layer with no drop possible (leg C: 4 prompts). Legs J8 and A8 replay
+    J's and A's prompts on ``quantize_params`` of the same trees
+    (``int8_replay``), freed after their replays."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -2937,27 +3104,67 @@ def moe_parity_models(torch, dev) -> dict:
     cfgj = first_layers(get_config("jamba-1.5-large-398b"), HYBRID_PARITY_LAYERS)
     pj = seeded_params(torch, cfgj, dev, 1)
     served = {"jamba": {"params": pj, "J": moe_replay(torch, ample(cfgj), pj, dev, prompts(cfgj, 4),
-                                                      REPLAY_STEPS)}}
+                                                      REPLAY_STEPS),
+                        "J8": int8_replay(torch, ample(cfgj), pj, dev, prompts(cfgj, 4))}}
     cfg2 = get_config("dbrx-132b").replace(n_layers=2)
     p2 = seeded_params(torch, cfg2, dev, 1)
     served["dbrx"] = {"params": p2, "A": moe_replay(torch, ample(cfg2), p2, dev, prompts(cfg2, 4), REPLAY_STEPS),
-                      "B": moe_replay(torch, cfg2, p2, dev, prompts(cfg2, 8), REPLAY_STEPS)}
+                      "B": moe_replay(torch, cfg2, p2, dev, prompts(cfg2, 8), REPLAY_STEPS),
+                      "A8": int8_replay(torch, ample(cfg2), p2, dev, prompts(cfg2, 4))}
     cfg1 = get_config("llama4-maverick-400b-a17b").replace(n_layers=1)
     p1 = seeded_params(torch, cfg1, dev, 1)
     served["llama4"] = {"params": p1, "C": moe_replay(torch, ample(cfg1), p1, dev, prompts(cfg1, 4), REPLAY_STEPS)}
     return served
 
 
+def moe_int8(torch, dev, arch, counts, steps) -> None:
+    """One MoE model at MOE_RUNS' depth with int8 weights drawn on the card
+    (``int8_drawn``): a batch-8 paged step (launches, time, busy share) and
+    its device split (``int8_split``); llama4 also the card's peak during a
+    step, which holds the bf16 copy of a 128-expert leaf; dbrx also
+    launch/serve.main() --weights-int8 --layers 4, 32 requests, 0 failures;
+    then the tree is freed."""
+    from repro_torch.configs.registry import get_config
+
+    L, _ = MOE_RUNS[arch]
+    tag = arch.split("-")[0]
+    cfg = get_config(arch).replace(n_layers=L, weights_int8=True)
+    params = int8_drawn(torch, cfg, dev)
+
+    def after(eng):
+        out = {"split": int8_split(torch, cfg, eng.step)}
+        if tag == "llama4":
+            out["peak"] = p = step_peak(torch, eng.step)
+            w1 = cfg.moe.n_experts * cfg.d_model * cfg.d_ff * 2
+            log(f"  {arch} {L}L int8 decode step: peak {p['peak']} B on the card, {p['above']} B above the "
+                f"{p['allocated']} B allocated before it (one 128-expert w1 leaf in bf16: {w1} B)")
+        return out
+
+    per = phase_step(torch, cfg, params, dev, after=after)
+    check_step(f"{arch} int8", cfg, per["decode step"])
+    steps[f"{tag}_int8_paged"] = dict(per["timing"], **per["after"])
+    if tag == "dbrx":
+        counts["dbrx_int8_launcher_whole_prompt"] = launcher_leg(
+            torch, 0, params, arch, ("decode_attention", "flash_attention", "rmsnorm"),
+            ("--weights-int8", "--layers", str(L)))[1]
+    del params
+    free_card(torch)
+
+
 def phase_moe(torch, dev) -> dict:
     """The MoE family, every earlier tree off the card: dbrx-132b at 4 and
-    llama4-maverick at 2 of their layers, FULL width, each freed before the
-    next. The parity legs' runs (``moe_parity_models``) come after the
-    hybrid phase, whose tree needs the card to itself."""
+    llama4-maverick at 2 of their layers, FULL width, in bf16 and then with
+    int8 weights, each tree freed before the next. The parity legs' runs
+    (``moe_parity_models``) come after the hybrid phase, whose tree needs
+    the card to itself."""
     counts, steps = {}, {}
     for arch in MOE_RUNS:
         t0 = time.perf_counter()
         moe_served(torch, dev, arch, counts, steps)
-        log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        moe_int8(torch, dev, arch, counts, steps)
+        log(f"  {arch}: {time.perf_counter() - t0:.1f} s (bf16 {t1 - t0:.1f} s, int8 weights "
+            f"{time.perf_counter() - t1:.1f} s)")
     return {"counts": counts, "steps": steps}
 
 
@@ -2970,9 +3177,80 @@ def phase_moe(torch, dev) -> dict:
 # (23,021,379,584 parameters); one superblock (8 layers, 90.5 GB) does not fit
 HYBRID_LAYERS, HYBRID_BYTES = 4, 46_042_759_168
 HYBRID_PARITY_LAYERS = 2     # the parity leg: Mamba, then Mamba + MoE (48.7 GB in f32)
+HYBRID_INT8_LAYERS = 8       # one whole superblock with int8 weights (48.7 GB on the card)
 
 
 MAMBA_LABEL = "mamba_mixer"   # the record_function range around each Mamba mixer call
+QEINSUM_LABEL = "qeinsum"     # and around each qeinsum call (every int8 product)
+# the device operations inside the qeinsum ranges of an int8 tree, by kernel
+# name: the int8 -> bf16 weight copies, the scale-and-round multiplies, and
+# the rest (cuBLAS products)
+INT8_PARTS = (("copies", "copy"), ("scales", "Mul"))
+
+
+def install_mamba(wrap):
+    """Wrap the Mamba mixer that ``transformer`` calls; returns the undo."""
+    from repro_torch.models import transformer as tf
+
+    defs, cache_defs, mixer = tf.RECURRENT["mamba"]
+    tf.RECURRENT["mamba"] = (defs, cache_defs, wrap(mixer))
+    return lambda: tf.RECURRENT.__setitem__("mamba", (defs, cache_defs, mixer))
+
+
+def install_qeinsum(wrap):
+    """Wrap ``qeinsum`` where the model modules call it; returns the undo."""
+    from repro_torch.models import attention, loss, mlp, moe, quant
+
+    mods, orig = (attention, loss, mlp, moe), quant.qeinsum
+    for m in mods:
+        m.qeinsum = wrap(orig)
+    return lambda: [setattr(m, "qeinsum", orig) for m in mods]
+
+
+def range_share(torch, step, installs: dict, n: int = PROFILED_STEPS) -> dict:
+    """``n`` calls of ``step`` (a decode step), profiled, with each function
+    that an ``installs`` entry wraps called inside a record_function range
+    of its label: for each label the calls, device operations and device
+    time a step that the CPU ops inside those ranges launched (kernels,
+    copies, sets), and that device time by kernel name; beside it the
+    step's own device operations and time."""
+    from torch.autograd import DeviceType
+
+    def labelled(label):
+        def wrap(fn):
+            def call(*args, **kw):
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kw)
+            return call
+        return wrap
+
+    def kernels(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    undo = [install(labelled(label)) for label, install in installs.items()]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    events = prof.events()
+    on_card = [e for e in events if e.device_type != DeviceType.CPU and e.name not in installs]
+    out = {"step_ops": len(on_card) / n, "step_device_us": sum(e.time_range.elapsed_us() for e in on_card) / n}
+    for label in installs:
+        ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == label]
+        mk = [k for r in ranges for k in kernels(r)]
+        by_name = {}
+        for k in mk:
+            by_name[k.name] = by_name.get(k.name, 0.0) + k.duration / n
+        out[label] = {"calls": len(ranges) / n, "ops": len(mk) / n,
+                      "device_us": sum(k.duration for k in mk) / n, "by_name": by_name}
+    return out
 
 
 def mamba_share(torch, step, n: int = PROFILED_STEPS) -> dict:
@@ -2981,37 +3259,41 @@ def mamba_share(torch, step, n: int = PROFILED_STEPS) -> dict:
     inside a record_function range, and the device operations (kernels,
     copies, sets) that the CPU ops inside those ranges launched are counted
     and timed beside all of the steps' device operations."""
-    from torch.autograd import DeviceType
+    r = range_share(torch, step, {MAMBA_LABEL: install_mamba}, n)
+    return dict(r[MAMBA_LABEL], step_ops=r["step_ops"], step_device_us=r["step_device_us"])
 
-    from repro_torch.models import transformer as tf
 
-    defs, cache_defs, mixer = tf.RECURRENT["mamba"]
-
-    def labelled(*args, **kw):
-        with torch.profiler.record_function(MAMBA_LABEL):
-            return mixer(*args, **kw)
-
-    def kernels(e):
-        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
-
-    step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    tf.RECURRENT["mamba"] = (defs, cache_defs, labelled)
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-    finally:
-        tf.RECURRENT["mamba"] = (defs, cache_defs, mixer)
-    events = prof.events()
-    on_card = [e for e in events if e.device_type != DeviceType.CPU and e.name != MAMBA_LABEL]
-    ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == MAMBA_LABEL]
-    mk = [k for r in ranges for k in kernels(r)]
-    return {"calls": len(ranges) / n, "ops": len(mk) / n, "device_us": sum(k.duration for k in mk) / n,
-            "step_ops": len(on_card) / n,
-            "step_device_us": sum(e.time_range.elapsed_us() for e in on_card) / n}
+def int8_split(torch, cfg, step, n: int = PROFILED_STEPS) -> dict:
+    """An int8-weight decode step's device time split, from the step's own
+    profile: inside the ``qeinsum`` ranges the int8 -> bf16 weight copies,
+    the products and the scale multiplies; inside the Mamba ranges (a
+    hybrid) the mixers; the rest of the step (attention, norms, routing,
+    the combine). Logged; returned in us a step."""
+    installs = {QEINSUM_LABEL: install_qeinsum}
+    if "mamba" in cfg.block_pattern:
+        installs[MAMBA_LABEL] = install_mamba
+    r = range_share(torch, step, installs, n)
+    q = r[QEINSUM_LABEL]
+    parts = {name: 0.0 for name, _ in INT8_PARTS}
+    parts["products"] = 0.0
+    for kname, us in q["by_name"].items():
+        part = next((name for name, key in INT8_PARTS if key in kname), "products")
+        parts[part] += us
+    mamba = {k: v for k, v in r.get(MAMBA_LABEL, {"device_us": 0.0, "calls": 0, "ops": 0}).items()
+             if k != "by_name"}
+    split = dict(parts, mamba=mamba, qeinsum_calls=q["calls"], step=r["step_device_us"], step_ops=r["step_ops"],
+                 rest=r["step_device_us"] - q["device_us"] - mamba["device_us"])
+    top = sorted(q["by_name"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {cfg.name} {cfg.n_layers}L int8-weight decode step, device time split ({n} profiled steps, "
+        f"us a step): int8 -> bf16 weight copies {parts['copies']:.1f}, products {parts['products']:.1f}, "
+        f"scale multiplies {parts['scales']:.1f} ({q['calls']:g} qeinsum calls), Mamba mixers "
+        f"{mamba['device_us']:.1f} ({mamba['calls']:g} calls, {mamba['ops']:g} device operations), the rest "
+        f"{split['rest']:.1f}, of "
+        f"{r['step_device_us']:.1f} ({r['step_ops']:g} device operations); largest in the qeinsum ranges: "
+        + "; ".join(f"{us:.1f} us {k[:70]}" for k, us in top))
+    if q["calls"] == 0 or parts["copies"] <= 0:
+        raise AssertionError(f"{cfg.name} int8 step: no int8 product seen in the profile: {split}")
+    return split
 
 
 def phase_hybrid(torch, dev) -> dict:
@@ -3081,7 +3363,46 @@ def phase_hybrid(torch, dev) -> dict:
         counts[f"jamba_{name}"] = run["counts"]
     del params
     free_card(torch)
+    t0 = time.perf_counter()
+    hybrid_int8(torch, dev, counts, steps)
+    log(f"  jamba int8 superblock leg: {time.perf_counter() - t0:.1f} s")
     return {"counts": counts, "steps": steps}
+
+
+def hybrid_int8(torch, dev, counts, steps) -> None:
+    """jamba-1.5-large's whole first superblock (HYBRID_INT8_LAYERS layers:
+    7 Mamba, 1 attention, 4 MoE FFNs) at FULL width with int8 weights drawn
+    on the card (``int8_drawn``): a batch-8 paged step (2L + 1 rmsnorm, one
+    paged decode; time, busy share) and its device split (``int8_split``:
+    the weight copies, the products, the 7 Mamba mixer calls), a batch-4
+    dense step, launch/serve.main() --weights-int8 --layers 8 with 32
+    requests (whole-prompt) and the pools phase's 8 prompts whole-prompt on
+    an int8 chained pool, 0 failures; then the tree is freed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import first_layers
+
+    arch = "jamba-1.5-large-398b"
+    cfg = first_layers(get_config(arch), HYBRID_INT8_LAYERS).replace(weights_int8=True)
+    params = int8_drawn(torch, cfg, dev)
+    per = phase_step(torch, cfg, params, dev, after=lambda eng: int8_split(torch, cfg, eng.step))
+    check_step(f"{arch} int8", cfg, per["decode step"])
+    n_mamba = cfg.block_pattern.count("mamba")
+    if per["after"]["mamba"]["calls"] != n_mamba:
+        raise AssertionError(f"{arch} int8: {per['after']['mamba']['calls']} Mamba mixer calls a paged step, "
+                             f"expected {n_mamba}")
+    steps["int8_paged"] = dict(per["timing"], split=per["after"])
+    steps["int8_dense"] = dense_step(torch, cfg, params, dev)[2]
+    counts["jamba_int8_launcher_whole_prompt"] = launcher_leg(
+        torch, 0, params, arch, ("decode_attention", "flash_attention", "rmsnorm"),
+        ("--weights-int8", "--layers", str(HYBRID_INT8_LAYERS)))[1]
+    run = pools_run(torch, cfg, params, dev, "int8", True)
+    check_served("jamba int8 superblock pools_int8_chained", run)
+    for key in ("flash_attention", "paged_prefill_write_quant", "paged_attention[int8+chained]"):
+        if run["counts"][key] <= 0:
+            raise AssertionError(f"{key} was not launched in the jamba int8 superblock pools run")
+    counts["jamba_int8_pools_int8_chained"] = run["counts"]
+    del params
+    free_card(torch)
 
 
 def _leaves(tree):
@@ -3215,10 +3536,11 @@ def parity_smollm(torch, par, legs, launcher, pools):
             for rid in rids:
                 par.forced(model, p32, "smollm serve_hybrid", rid, r["prompts"][rid], r["results"][rid])
         for r, rids in zip(launcher, ([0, 7, 19], [2, 30])):
+            cfgl = par.f32(r["cfg"])             # the launcher's depth (--layers)
             for rid in rids:
                 prompt, out = r["prompts"][rid], r["results"][rid]
                 par.check("smollm launcher", rid,
-                          teacher_forced_rows(torch, cfg32, p32, prompt, out, "dense"), out)
+                          teacher_forced_rows(torch, cfgl, p32, prompt, out, "dense"), out)
         cfg8 = cfg32.replace(kv_quant=True)
         run = pools["int8_chained"]
         for i in (0, 7):
@@ -3298,7 +3620,6 @@ def parity_xlstm(torch, par, xlstm):
     from repro_torch.models import get_model
 
     model = get_model(par.f32(xlstm["cfg"]))
-    model16 = get_model(xlstm["cfg"])
     p32 = par.to_cpu(xlstm["params"])
     p16 = _map(xlstm["params"], lambda t: t.cpu())
     with torch.no_grad():
@@ -3310,11 +3631,12 @@ def parity_xlstm(torch, par, xlstm):
                 par.forced(model, p32, f"xlstm-f32 paged {name}", i, run["prompts"][i], run["outs"][i])
         gaps = []
         for r, rids in zip(xlstm["launcher"], ([0, 7, 19], [2, 30])):
+            cut, cut16 = get_model(par.f32(r["cfg"])), get_model(r["cfg"])    # the launcher's depth
             for rid in rids:
                 prompt, out = r["prompts"][rid], r["results"][rid]
-                rows = par.rows(model, p32, prompt, out)
+                rows = par.rows(cut, p32, prompt, out)
                 par.check("xlstm-bf16 launcher", rid, rows, out, bound=False)
-                rows16 = par.rows(model16, p16, prompt, out).float()
+                rows16 = par.rows(cut16, p16, prompt, out).float()
                 gaps.append((rows16 - rows).abs())
                 par.check("cpu-bf16 launcher", rid, rows, [int(t) for t in rows16.argmax(-1)],
                           bound=False)
@@ -3377,37 +3699,42 @@ def parity_int8w(torch, par, int8w):
 
 
 def parity_stubs(torch, par, stubs):
-    """qwen2-vl-2b at 4 layers and whisper at 4 + 4 layers, FULL width, on
-    the CPU in f32: the qwen dense engine's 8 streams and its image prompt's
+    """qwen2-vl-2b at 4 layers and whisper at 4 + 4 layers, FULL width, in
+    bf16 and with int8 weights, on the CPU in f32 (``qeinsum`` in f32 on the
+    int8 values): the qwen dense engine's 8 streams and its image prompt's
     two streams (the prompt's embeddings and positions, then each served
     token's embedding at the next cache index in all three streams) through
     the whole-sequence forward, whisper's 4 streams through the encoder and
     the decoder's whole-sequence forward; held to FLIP_BOUND."""
     from repro_torch.models import get_model
 
-    q, w = stubs["served"]["qwen"], stubs["served"]["whisper"]
     with torch.no_grad():
-        cfg32, p32 = par.f32(q["cfg"]), par.to_cpu(q["params"])
-        model = get_model(cfg32)
-        d = q["dense"]
-        for i, (rows, out) in enumerate(zip(par.batch_rows(model, p32, d["prompts"], d["outs"]), d["outs"])):
-            par.check("qwen2vl-4L dense chunk32", i, rows, out)
-        im = q["image"]
-        B, S = im["emb"].shape[:2]
-        outs = torch.tensor(im["outs"])
-        n = outs.shape[1] - 1
-        emb = torch.cat([im["emb"].float(), p32["embedding"][outs[:, :-1]]], 1)
-        pos = torch.cat([im["pos"], torch.arange(S, S + n, dtype=torch.int32)[None, None].expand(3, B, n)], 2)
-        rows = model.logits(p32, model.hidden(p32, inputs_embeds=emb, positions=pos)[:, S - 1:])
-        for b in range(B):
-            par.check("qwen2vl-4L image", b, rows[b], im["outs"][b])
-        cfg32, p32, r = par.f32(w["cfg"]), par.to_cpu(w["params"]), w["run"]
-        model = get_model(cfg32)
-        P = len(r["prompts"][0])
-        h = model.hidden(p32, [p + o[:-1] for p, o in zip(r["prompts"], r["outs"])], r["frames"].float())
-        rows = model.logits(p32, h[:, P - 1:])
-        for b, out in enumerate(r["outs"]):
-            par.check("whisper-4+4L", b, rows[b], out)
+        for tag in ("", "_int8"):
+            t0 = time.perf_counter()
+            q, w = stubs["served"]["qwen" + tag], stubs["served"]["whisper" + tag]
+            label = "-int8w" if tag else ""
+            cfg32, p32 = par.f32(q["cfg"]), par.to_cpu(q["params"])
+            model = get_model(cfg32)
+            d = q["dense"]
+            for i, (rows, out) in enumerate(zip(par.batch_rows(model, p32, d["prompts"], d["outs"]), d["outs"])):
+                par.check(f"qwen2vl-4L{label} dense chunk32", i, rows, out)
+            im = q["image"]
+            B, S = im["emb"].shape[:2]
+            outs = torch.tensor(im["outs"])
+            n = outs.shape[1] - 1
+            emb = torch.cat([im["emb"].float(), p32["embedding"][outs[:, :-1]]], 1)
+            pos = torch.cat([im["pos"], torch.arange(S, S + n, dtype=torch.int32)[None, None].expand(3, B, n)], 2)
+            rows = model.logits(p32, model.hidden(p32, inputs_embeds=emb, positions=pos)[:, S - 1:])
+            for b in range(B):
+                par.check(f"qwen2vl-4L{label} image", b, rows[b], im["outs"][b])
+            cfg32, p32, r = par.f32(w["cfg"]), par.to_cpu(w["params"]), w["run"]
+            model = get_model(cfg32)
+            P = len(r["prompts"][0])
+            h = model.hidden(p32, [p + o[:-1] for p, o in zip(r["prompts"], r["outs"])], r["frames"].float())
+            rows = model.logits(p32, h[:, P - 1:])
+            for b, out in enumerate(r["outs"]):
+                par.check(f"whisper-4+4L{label}", b, rows[b], out)
+            log(f"  parity stubs, {'int8 weights' if tag else 'bf16'}: {time.perf_counter() - t0:.1f} s")
 
 
 def moe_replay_parity(torch, par, p32, r, name: str) -> None:
@@ -3470,17 +3797,50 @@ class HostArena:
 
         return _map(tree, put)
 
+    def quantized(self, card, host):
+        """``quantize_params`` of ``card`` (a tree on the card), computed
+        there a (d, f) slice at a time, its int8 values written over
+        ``host`` (the arena's f32 copy of the same tree, from ``tree``) as
+        f32 (the same numbers, read by the CPU's f32 products without a
+        copy) and its bf16 scales on the host; ``host``'s other leaves as
+        they are. The card computes the bits it computed for the int8
+        replay: each channel's scale reads its own column alone."""
+        from repro_torch.models.quant import QUANT_LEAVES, _quantize_into, scale_shape
+
+        torch = self.torch
+
+        def walk(c, h, key=""):
+            if isinstance(c, dict):
+                return {k: walk(c[k], h[k], k) for k in c}
+            if key not in QUANT_LEAVES or c.ndim < 2:
+                return h
+            d, f = c.shape[-2:]
+            s = torch.empty(scale_shape(c.shape), dtype=torch.bfloat16)
+            q_card = torch.empty((d, f), dtype=torch.int8, device=c.device)
+            s_card = torch.empty((1, f), dtype=torch.bfloat16, device=c.device)
+            cs, hs, ss = c.reshape(-1, d, f), h.view(-1, d, f), s.view(-1, 1, f)
+            for i in range(cs.shape[0]):
+                _quantize_into(cs[i], q_card, s_card)
+                hs[i].copy_(q_card)
+                ss[i].copy_(s_card)
+            return {"q": h, "s": s}
+
+        return walk(card, host)
+
 
 def parity_moe(torch, par, moe) -> None:
     """The MoE legs, each a replay held by ``moe_replay_parity``, each tree
     brought to the host in f32 in turn in one ``HostArena``, sized for the
     largest, once the host has room for it (``host_room``): J
-    (jamba-1.5-large 2L, no drop possible), C (llama4 1L, no drop possible),
-    then A (dbrx 2L, no drop possible) and B (the same weights at binding
-    capacity). Every leg runs."""
-    legs = (("J", "jamba", "jamba 2L", (("J", "jamba-2L-J"),)),
+    (jamba-1.5-large 2L, no drop possible) and J8 (the same with int8
+    weights), C (llama4 1L, no drop possible), then A (dbrx 2L, no drop
+    possible), B (the same weights at binding capacity) and A8 (A with int8
+    weights). An int8 leg's tree is its float legs', quantized into the
+    arena over it (``HostArena.quantized``), so it runs last on that tree.
+    Every leg runs."""
+    legs = (("J and J8", "jamba", "jamba 2L", (("J", "jamba-2L-J"), ("J8", "jamba-2L-J8"))),
             ("C", "llama4", "llama4 1L", (("C", "llama4-1L-C"),)),
-            ("A and B", "dbrx", "dbrx 2L", (("A", "dbrx-2L-A"), ("B", "dbrx-2L-B"))))
+            ("A, B and A8", "dbrx", "dbrx 2L", (("A", "dbrx-2L-A"), ("B", "dbrx-2L-B"), ("A8", "dbrx-2L-A8"))))
     n = max(sum(t.numel() for t in _leaves(moe["served"][m]["params"])) for _, m, _, _ in legs)
     t0 = time.perf_counter()
     room = host_room(4 * n + LEG_MARGIN)
@@ -3491,15 +3851,21 @@ def parity_moe(torch, par, moe) -> None:
             t0 = time.perf_counter()
             m = moe["served"][model]
             p32 = arena.tree(m["params"])
-            m["params"] = None
-            free_card(torch)
             t1 = time.perf_counter()
+            times = []
             for key, name in runs:
+                t2 = time.perf_counter()
+                if key.endswith("8"):
+                    p32 = arena.quantized(m["params"], p32)
+                    times.append(f"int8 tree into the arena {time.perf_counter() - t2:.1f} s")
+                    t2 = time.perf_counter()
                 moe_replay_parity(torch, par, p32, m[key], name)
+                times.append(f"{key} replay {time.perf_counter() - t2:.1f} s")
+            m["params"] = None
             del p32
-            log(f"  parity leg {leg} ({label}): {time.perf_counter() - t0:.1f} s (f32 tree in the arena "
-                f"{t1 - t0:.1f} s; replay {time.perf_counter() - t1:.1f} s); host MemAvailable "
-                f"{mem_available()} B")
+            free_card(torch)
+            log(f"  parity legs {leg} ({label}): {time.perf_counter() - t0:.1f} s (f32 tree in the arena "
+                f"{t1 - t0:.1f} s; {'; '.join(times)}); host MemAvailable {mem_available()} B")
     del arena
     log(f"  parity arena freed: {release_host()}")
 
@@ -3766,8 +4132,9 @@ def main() -> int:
     # 5. launcher
     log(f"phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines [at {time.perf_counter() - T_START:.1f} s]")
     dense_step(torch, chunked["cfg"], chunked["params"], dev)
-    l_chunk, lc_counts = launcher_leg(torch, 32, chunked["params"])
-    l_whole, lw_counts = launcher_leg(torch, 0, chunked["params"])
+    depth = ("--layers", str(LAUNCHER_LAYERS["smollm-360m"]))
+    l_chunk, lc_counts = launcher_leg(torch, 32, chunked["params"], extra=depth)
+    l_whole, lw_counts = launcher_leg(torch, 0, chunked["params"], extra=depth)
     if lw_counts["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched by the whole-prompt launcher")
 
@@ -3800,14 +4167,15 @@ def main() -> int:
     int8w = phase_int8w(torch, dev)
 
     # 11. stubs: the two stub-frontend families, every earlier tree off the card
-    log(f"phase 11 stubs: qwen2-vl-2b and whisper-large-v3 FULL bf16 ("
+    log(f"phase 11 stubs: qwen2-vl-2b and whisper-large-v3 FULL, bf16 and int8 weights ("
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated) [at {time.perf_counter() - T_START:.1f} s]")
     t_stubs = time.perf_counter()
     stubs = phase_stubs(torch, dev)
     log(f"  stubs phase {time.perf_counter() - t_stubs:.1f} s")
 
     # 12. moe: the MoE family at FULL width, cut in depth, every earlier tree off the card
-    log(f"phase 12 moe: dbrx-132b 4L and llama4-maverick 2L FULL width bf16 ({torch.cuda.memory_allocated() / 2**30:.3f} "
+    log(f"phase 12 moe: dbrx-132b 4L and llama4-maverick 2L FULL width, bf16 and int8 weights "
+        f"({torch.cuda.memory_allocated() / 2**30:.3f} "
         f"GiB allocated; host MemAvailable {mem_available()} B) [at {time.perf_counter() - T_START:.1f} s]")
     t_moe = time.perf_counter()
     moe = phase_moe(torch, dev)
@@ -3815,8 +4183,9 @@ def main() -> int:
 
     # 13. hybrid: jamba-1.5-large at FULL width, its first 4 layers, every earlier tree off the card;
     # then the parity legs' replays (MoE and hybrid), kept on the card
-    log(f"phase 13 hybrid: jamba-1.5-large-398b FULL width bf16, the first {HYBRID_LAYERS} layers of its "
-        f"superblock ({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; host MemAvailable "
+    log(f"phase 13 hybrid: jamba-1.5-large-398b FULL width, the first {HYBRID_LAYERS} layers of its "
+        f"superblock in bf16, its whole first superblock ({HYBRID_INT8_LAYERS} layers) with int8 weights "
+        f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; host MemAvailable "
         f"{mem_available()} B) [at {time.perf_counter() - T_START:.1f} s]")
     t_hybrid = time.perf_counter()
     hybrid = phase_hybrid(torch, dev)

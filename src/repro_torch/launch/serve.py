@@ -25,7 +25,13 @@ metrics registry as Prometheus text.
 (interactive, batch, elastic) shares one quantized tree, drawn by
 ``DecoderLM.init`` under ``weights_int8`` (a superblock's slice at a time, so qwen1.5-32b's
 tree fits one card), or ``quantize_params`` of the ``params`` passed in.
-Attention-only decoders; xlstm-350m raises ``WeightsInt8Error``.
+It serves every family the JAX launcher quantizes: the dense decoders, the
+MoE family (the expert weights through the batched ``qeinsum``), the jamba
+hybrid (its Mamba projections stay bf16, as in the JAX package) and
+qwen2-vl-2b's text prompts; ``--arch jamba-1.5-large-398b --layers 8
+--weights-int8`` serves one whole superblock (a 48.7 GB tree). xlstm-350m
+raises ``WeightsInt8Error``; whisper-large-v3 fails at construction with or
+without it, as the JAX launcher does (chunked prefill is decoder-only).
 
 ``--layers N`` serves the first N layers of the configuration at its full
 width (default: all of them): neither MoE model nor jamba fits one card
@@ -34,8 +40,7 @@ GB). N is either a multiple of the configuration's block pattern, at most
 its depth, or below the pattern's length: then the first N layers of the
 first superblock serve (``block_pattern[:N]``; ``layer_has_moe`` counts
 positions within the superblock, so the MoE FFNs stay on the same layers).
-``params`` passed in must hold at least N layers; the first N serve. The
-MoE family has no weight-only int8 path yet (``WeightsInt8Error``).
+``params`` passed in must hold at least N layers; the first N serve.
 
 Where the JAX launcher always serves the smoke configuration, this one
 serves the FULL model (bf16) unless ``--smoke`` is given; ``--device``

@@ -65,10 +65,14 @@ class DecoderLM:
         drawn leaf by leaf and a superblock's slice at a time, each slice
         quantized as ``quantize_params`` quantizes the floating-point tree,
         so that tree never exists whole: qwen1.5-32b's 70 GB of bf16 weights
-        become a 36 GB tree on the card. Bit for bit ``quantize_params`` of
-        the floating-point init on the CPU at smoke size; on the card its own
-        draw. Attention-only decoders: another mixer raises
-        ``WeightsInt8Error``."""
+        become a 36 GB tree on the card, and jamba-1.5-large's superblock
+        (90.5 GB in bf16) a 48.7 GB one. The stacked expert leaves (n_sb, E,
+        d, f) are drawn and quantized one (d, f) slice at a time. Bit for bit
+        ``quantize_params`` of the floating-point init on the CPU at smoke
+        size; on the card its own draw. Every family the JAX package
+        quantizes (attention and Mamba decoders, MoE, the VLM backbone, the
+        encoder-decoder, whose ``param_defs`` this walks whole); the xLSTM
+        mixers raise ``WeightsInt8Error``."""
         if self.cfg.weights_int8:
             check_int8_family(self.cfg)
             return init_quantized(gen, self.param_defs(), self.cfg.param_dtype, gen.device)

@@ -15,16 +15,21 @@ deterministic: each expert's C token indices are distinct, so the gated
 outputs scatter into an (E, T, d) buffer without collisions and are summed
 over E, where an ``index_add_`` over all E * C rows would add with atomics
 in an order that varies between runs on the card.
+
+The expert products go through ``quant.qeinsum``, so the expert weights may
+be weight-only int8 ({"q", "s"} dicts with scales (E, 1, f)), as the JAX
+package's ``_experts_ffn`` takes them; the router stays floating point.
 """
 from __future__ import annotations
 
 import functools
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, ParamDef, activation
+from repro_torch.models.quant import qeinsum
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -101,21 +106,22 @@ def route(cfg: ModelConfig, logits: torch.Tensor, capacity: int, valid=None) -> 
 
 def _experts_ffn(cfg: ModelConfig, xg: torch.Tensor, w1, w3, w2) -> torch.Tensor:
     """xg (E, C, d) through each expert's FFN: (E, C, d) @ (E, d, f), ... ->
-    (E, C, d), batched products in xg's dtype."""
-    h = activation(cfg, xg @ w1.to(xg.dtype))
+    (E, C, d), batched products in xg's dtype through ``qeinsum`` (expert
+    weights plain or weight-only int8)."""
+    h = activation(cfg, qeinsum(xg, w1))
     if cfg.gated_mlp:
-        h = h * (xg @ w3.to(xg.dtype))
-    return h @ w2.to(xg.dtype)
+        h = h * qeinsum(xg, w3)
+    return qeinsum(h, w2)
 
 
-def moe_core(cfg: ModelConfig, x_flat: torch.Tensor, logits: torch.Tensor, w1: torch.Tensor,
-             w3: Optional[torch.Tensor], w2: torch.Tensor, capacity: int,
-             valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x_flat (T, d), logits (T, E) f32, expert weights (E, d, f) / (E, f, d).
-    Returns (out (T, d), the Switch load-balance aux loss, an f32 scalar)."""
+def moe_core(cfg: ModelConfig, x_flat: torch.Tensor, logits: torch.Tensor, w1,
+             w3, w2, capacity: int, valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_flat (T, d), logits (T, E) f32, expert weights (E, d, f) / (E, f, d),
+    plain or quantized dicts. Returns (out (T, d), the Switch load-balance
+    aux loss, an f32 scalar)."""
     m = cfg.moe
     T, d = x_flat.shape
-    E = w1.shape[0]
+    E = (w1["q"] if isinstance(w1, Mapping) else w1).shape[0]
     r = route(cfg, logits, capacity, valid)
     sel_idx = r["sel_idx"]
     xg = x_flat[sel_idx.reshape(-1)].reshape(E, capacity, d)

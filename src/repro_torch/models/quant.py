@@ -7,7 +7,8 @@ here is ``x @ W``) reduced to 1, one absmax scale per output channel.
 ``qeinsum`` computes the product with f32 output and applies the scales
 to it. On the card the plain path converts the int8 weight to bf16 (exact
 for |q| <= 127) and multiplies with cuBLAS (``torch.mm(..., out_dtype=
-torch.float32)``, f32 accumulation and output), so it reads 1 B a weight,
+torch.float32)``, ``torch.bmm`` for the experts' 3-D weights; f32
+accumulation and output), so it reads 1 B a weight,
 writes 2 B and reads them back: more weight traffic than a bf16 tree, not
 less; a fused W8A16 product would remove the copy. The tree itself halves.
 On the CPU the product is f32 throughout.
@@ -41,30 +42,28 @@ QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "unembed"}
 
 
 class WeightsInt8Error(ValueError):
-    """Weight-only int8 asked of a model that the port does not serve that
-    way: recurrent mixers read ``wq``/``wk``/``wv`` with a plain product,
-    which a quantized dict breaks (in the JAX package alike), and the VLM,
-    encoder-decoder and MoE families' int8 paths are not ported."""
+    """Weight-only int8 asked of a model whose mixers cannot take it: the
+    xLSTM mixers read ``wq``/``wk``/``wv``, ``QUANT_LEAVES`` keys, with a
+    plain product, which a quantized dict breaks (in the JAX package alike)."""
+
+
+# mixers that read a QUANT_LEAVES key outside ``qeinsum`` (models/xlstm.py)
+PLAIN_READ_MIXERS = ("mlstm", "slstm")
 
 
 def check_int8_family(cfg) -> None:
-    """Raise ``WeightsInt8Error`` unless every mixer of ``cfg`` is attention
-    with a dense FFN and its prompts are tokens for a decoder alone
-    (weight-only int8 of the VLM, encoder-decoder and MoE families is not
-    ported; ``qeinsum`` takes a 2-D weight, and the expert products' 3-D
-    quantized leaves wait for ROADMAP's "weight-only int8 of the MoE
-    family")."""
-    if cfg.encoder is not None or cfg.inputs != "tokens":
-        raise WeightsInt8Error(f"{cfg.name}: weight-only int8 of the {cfg.family} family is not ported")
-    if cfg.moe is not None:
+    """Raise ``WeightsInt8Error`` if a mixer of ``cfg`` reads a
+    ``QUANT_LEAVES`` key with a plain product (the xLSTM mixers). Every
+    other family quantizes as the JAX package's ``quantize_params`` does:
+    attention, cross-attention, dense and expert FFNs and the unembed go
+    through ``qeinsum``; the Mamba mixer's projections (``in_proj``,
+    ``x_proj``, ``dt_proj``, ``out_proj``) are not ``QUANT_LEAVES`` keys and
+    stay floating point."""
+    plain = sorted({kind for kind in cfg.block_pattern if kind in PLAIN_READ_MIXERS})
+    if plain:
         raise WeightsInt8Error(
-            f"{cfg.name}: weight-only int8 of the MoE family (3-D expert products) is not ported; "
-            f"ROADMAP Queue 1: weight-only int8 of the MoE family")
-    other = sorted({kind for kind in cfg.block_pattern if kind != "attn"})
-    if other:
-        raise WeightsInt8Error(
-            f"{cfg.name}: weight-only int8 serves attention-only decoders; the {other} mixers "
-            f"read their projections unquantized, in the JAX package alike")
+            f"{cfg.name}: the {plain} mixers read wq/wk/wv with a plain product, which a quantized "
+            f"weight breaks (in the JAX package alike); weight-only int8 serves every other mixer")
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -127,22 +126,34 @@ def quantize_params(params: Any) -> Any:
 
 
 def qeinsum(x: torch.Tensor, w: Union[torch.Tensor, QuantW]) -> torch.Tensor:
-    """``x @ w``, x's last axis against a 2-D w's first (every product the
-    JAX package routes through its ``qeinsum``), where w may be a quantized
-    dict; the output dtype follows x. Quantized: the product with f32
-    output, times the f32 scales, cast to x's dtype, as JAX's
+    """``x @ w``, where w may be a quantized dict; the output dtype follows
+    x. A 2-D w (d, f) takes x (..., d), every product the JAX package
+    routes through ``qeinsum("...d,df->...f")``; a 3-D w (E, d, f) takes x
+    (E, C, d), the expert products ``"ecd,edf->ecf"`` and ``"ecf,efd->ecd"``.
+    Quantized: the product with f32 output (on the card the int8 weight
+    converted to bf16 and ``torch.mm`` / ``torch.bmm`` with
+    ``out_dtype=torch.float32``; on the CPU f32 throughout), times the f32
+    scales, rounded once into x's dtype, as JAX's
     ``preferred_element_type=jnp.float32`` path computes it."""
     if isinstance(w, torch.Tensor):
         return x @ w.to(x.dtype)
     q, s = w["q"], w["s"]
+    if q.ndim not in (2, 3):
+        raise ValueError(f"qeinsum: a quantized weight of {q.ndim} dimensions {tuple(q.shape)}; "
+                         f"it takes (d, f) or (E, d, f)")
     if x.device.type == "cpu" or x.dtype == torch.float32:
         y = x.float() @ q.float()
-    else:
+    elif q.ndim == 2:
         y = torch.mm(x.reshape(-1, x.shape[-1]), q.to(x.dtype),
                      out_dtype=torch.float32).reshape(*x.shape[:-1], q.shape[-1])
+    else:
+        y = torch.bmm(x, q.to(x.dtype), out_dtype=torch.float32)
     # one device operation: the bf16 scales promote to f32 exactly inside the
-    # multiply, and the f32 product rounds once, into x's dtype
-    return torch.mul(y, s.squeeze(-2), out=torch.empty(y.shape, dtype=x.dtype, device=y.device))
+    # multiply, and the f32 product rounds once, into x's dtype. A 2-D
+    # weight's scales (1, f) lose their unit axis; a 3-D one's (E, 1, f)
+    # broadcast over the C rows as they are (JAX squeezes only 2-D scales)
+    s = s.squeeze(-2) if q.ndim == 2 else s
+    return torch.mul(y, s, out=torch.empty(y.shape, dtype=x.dtype, device=y.device))
 
 
 def init_quantized(gen: torch.Generator, defs: Any, dtype, device) -> Any:

@@ -1484,3 +1484,94 @@ def test_cuda_decode_kernels_at_jamba_G8(cuda_device):
             err = float((out.reshape(Bd, KV, G, hd).float() - ref.float()).abs().max())
             assert err < TOL[dt], (dt, T, err)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_batched_qeinsum_matches_f64_and_cpu(cuda_device):
+    """The experts' int8 product on the card (``torch.bmm`` on the bf16
+    copy of the int8 weight, f32 output, the (E, 1, f) scales, one rounding
+    into bf16) at jamba-1.5-large's w1 and w2 shapes over 4 experts: within
+    0.55 bf16 ulp of the f64 product and 1 ulp of the CPU's f32 product; f32
+    activations within 2e-5 of the CPU; ``quantize_weight`` of the 3-D leaf
+    equal to the CPU's bit for bit."""
+    from repro_torch.models.quant import qeinsum, quantize_weight
+
+    g = torch.Generator().manual_seed(4)
+    for xs, ws in (((4, 8, 8192), (4, 8192, 2048)), ((4, 8, 2048), (4, 2048, 8192))):
+        w = (torch.randn(ws, generator=g) / ws[1] ** 0.5).to(torch.bfloat16)
+        host, card = quantize_weight(w), quantize_weight(w.to(cuda_device))
+        assert torch.equal(card["q"].cpu(), host["q"])
+        assert torch.equal(card["s"].cpu().view(torch.int16), host["s"].view(torch.int16))
+        assert tuple(card["s"].shape) == (ws[0], 1, ws[2])
+        x = torch.randn(xs, generator=g).to(torch.bfloat16)
+        got, want = qeinsum(x.to(cuda_device), card), qeinsum(x, host)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape == (xs[0], xs[1], ws[2])
+        exact = torch.bmm(x.double(), host["q"].double()) * host["s"].double()
+        ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp_min(float(exact.abs().max()) / 256))) - 7)
+        got = got.cpu().double()
+        assert float(((got - exact).abs() / ulp).max()) <= 0.55
+        assert float(((got - want.double()).abs() / ulp).max()) <= 1.0
+        x32 = x.float()
+        err = float((qeinsum(x32.to(cuda_device), card).cpu() - qeinsum(x32, host)).abs().max())
+        assert err < TOL[torch.float32], err
+
+
+def _first_flip_leads(model, params, prompts, want, got):
+    """For each stream where the card's tokens ``got`` leave the CPU's
+    ``want``: the CPU f32 logits' lead of its own top token over the card's
+    at the first differing step, teacher-forced on the card's tokens."""
+    leads = []
+    for p, a, b in zip(prompts, want, got):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        with torch.no_grad():
+            row = model.logits(params, model.hidden(params, [p + b[:j]]))[0, -1]
+        leads.append(float(row.max() - row[b[j]]))
+    return leads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "jamba-1.5-large-398b"])
+def test_cuda_int8_moe_and_hybrid_paged_engines_match_cpu(cuda_device, arch, dt):
+    """A paged engine serving dbrx-132b or jamba-1.5-large SMOKE with int8
+    weights (capacity factor 8; jamba's conv_b, dt_bias and A_log standard
+    normal) on the card and an f32 one on the CPU, on the same values, 16-
+    token chunks: in f32 the card's greedy streams equal the CPU's; in bf16
+    (the experts' products through ``torch.bmm``) every stream equals the
+    CPU's or leaves it where the CPU's f32 lead of its own token is under
+    0.25. The rmsnorm, page-pool write and paged decode kernels launched."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    cfg = get_config(arch, smoke=True).replace(weights_int8=True)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    for key, leaves in params["blocks"].items():
+        for name in ("conv_b", "dt_bias", "A_log"):
+            if key.endswith("_mixer") and name in leaves:
+                leaves[name].copy_(torch.randn(leaves[name].shape, generator=g))
+    card_dt = getattr(torch, dt)
+    card_cfg = cfg.replace(param_dtype=card_dt, compute_dtype=card_dt)
+    cpu_params = _map(params, lambda t: t.to(card_dt).float() if t.dtype == torch.float32 else t)
+    gpu_params = _map(params, lambda t: t.to(cuda_device, card_dt if t.dtype == torch.float32 else t.dtype))
+    kw = dict(page_size=8, num_pages=33, max_slots=3, max_seq_len=64, max_new_tokens=6, chunk_tokens=16)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 19, 30, 8)]
+    want = [s.out for s in PagedInferenceEngine(cfg, PagedEngineConfig(**kw), params=cpu_params,
+                                                device="cpu").generate(prompts)]
+    wrappers = (rms_ops.rmsnorm, pa_ops.paged_prefill_write, pa_ops.paged_attention)
+    before = [w.launches for w in wrappers]
+    got = [s.out for s in PagedInferenceEngine(card_cfg, PagedEngineConfig(**kw), params=gpu_params,
+                                               device=cuda_device).generate(prompts)]
+    assert min(w.launches - b for w, b in zip(wrappers, before)) > 0
+    assert all(len(o) == 6 for o in got)
+    if dt == "float32":
+        assert got == want, (want, got)
+    else:
+        leads = _first_flip_leads(get_model(cfg), cpu_params, prompts, want, got)
+        assert max(leads, default=0.0) < 0.25, leads

@@ -42,7 +42,6 @@ from repro_torch.models import mamba as tmamba  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.bridge import params_from_jax  # noqa: E402
 from repro_torch.models.common import ModelConfig  # noqa: E402
-from repro_torch.models.quant import WeightsInt8Error  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     EngineConfig,
     InferenceEngine,
@@ -534,14 +533,32 @@ def test_engine_guards_refuse_jamba_as_jax_does(ample, guard):
             eng(cfg, ecfg(**kw), params=params, **extra)
 
 
-def test_weights_int8_raises_for_jamba():
-    """jamba's MoE FFNs have no weight-only int8 path: the init and the
-    launcher raise WeightsInt8Error through the MoE branch."""
-    cfg = get_config(ARCH, smoke=True).replace(weights_int8=True)
-    with pytest.raises(WeightsInt8Error, match="MoE"):
-        get_model(cfg).init(torch.Generator().manual_seed(0))
-    with pytest.raises(WeightsInt8Error, match="MoE"):
-        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--weights-int8", "--requests", "2"])
+def test_weights_int8_jamba_forward_matches_jax(weights):
+    """Weight-only int8 of the hybrid: JAX's ``quantize_params`` of the SMOKE
+    tree (attention, dense FFN, expert and unembed leaves int8; the Mamba
+    projections float, as JAX's ``QUANT_LEAVES`` leave them), through the
+    bridge: the whole-sequence forward's logits within f32 2e-5 of JAX's at
+    the default capacity; the launcher serves it with ``--weights-int8``,
+    0 failures."""
+    from repro.models.quant import qeinsum as j_qeinsum
+    from repro.models.quant import quantize_params as j_quantize_params
+    from repro_torch.models.quant import is_quant
+
+    jcfg, tcfg, jparams, _ = weights
+    jcfg, tcfg = jcfg.replace(weights_int8=True), tcfg.replace(weights_int8=True)
+    jq = j_quantize_params(jparams)
+    tq = params_from_jax(jax.tree.map(np.asarray, jq), tcfg, "cpu")
+    blocks = tq["blocks"]
+    assert is_quant(blocks["l1_ffn"]["w1"]) and blocks["l1_ffn"]["w1"]["q"].ndim == 4
+    assert is_quant(blocks["l3_mixer"]["wq"]) and not is_quant(blocks["l0_mixer"]["in_proj"])
+    toks = np.random.default_rng(9).integers(1, tcfg.vocab_size, (2, 13)).astype(np.int32)
+    pos = np.tile(np.arange(13, dtype=np.int32), (2, 1))
+    jh, _, _ = jtf.forward(jcfg, None, jq, tokens=jnp.asarray(toks), positions=jnp.asarray(pos), mode="train")
+    want = j_qeinsum("bsd,dv->bsv", jh, jq["unembed"]).astype(jnp.float32)
+    got = get_model(tcfg).logits(tq, get_model(tcfg).hidden(tq, toks))
+    assert _abs(want, got.numpy()) < TOL
+    r = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--weights-int8", "--requests", "2"])
+    assert r["metrics"].summary()["failed"] == 0 and is_quant(r["params"]["blocks"]["l1_ffn"]["w2"])
 
 
 def test_launcher_serves_the_first_four_layers():

@@ -42,7 +42,6 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.bridge import params_from_jax  # noqa: E402
 from repro_torch.models.common import ModelConfig, MoECfg  # noqa: E402
-from repro_torch.models.quant import WeightsInt8Error  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     EngineConfig,
     InferenceEngine,
@@ -464,16 +463,33 @@ def test_engine_greedy_streams_match_jax(ample, arch, engine):
 # ---------------------------------------------------------------------------
 
 
-def test_weights_int8_raises_for_moe():
-    """Weight-only int8 of the MoE family is not ported: the init and the
-    launcher raise WeightsInt8Error, as for the VLM and whisper families."""
+def test_weights_int8_moe_ffn_matches_jax():
+    """Weight-only int8 of the MoE family: ``moe_ffn`` on JAX's
+    ``quantize_params`` of a layer (int8 (E, d, f) expert leaves with (E, 1,
+    f) scales, the router float) within f32 2e-5 of JAX's, out and aux, at a
+    binding capacity with a padding mask; the launcher serves llama4 with
+    ``--weights-int8``, 0 failures."""
+    from repro.models.quant import quantize_params as j_quantize_params
     from repro_torch.launch import serve
+    from repro_torch.models.quant import is_quant
 
-    cfg = get_config("dbrx-132b", smoke=True).replace(weights_int8=True)
-    with pytest.raises(WeightsInt8Error, match="MoE"):
-        get_model(cfg).init(torch.Generator().manual_seed(0))
-    with pytest.raises(WeightsInt8Error, match="MoE"):
-        serve.main(["--arch", ARCHS[1], "--smoke", "--device", "cpu", "--weights-int8", "--requests", "2"])
+    E, k, cf, T = 8, 2, 1.25, 24
+    jcfg = j_dbrx.SMOKE.replace(moe=JMoECfg(n_experts=E, top_k=k, capacity_factor=cf))
+    tcfg = dbrx_132b.SMOKE.replace(moe=MoECfg(n_experts=E, top_k=k, capacity_factor=cf))
+    x, router, w1, w3, w2, valid = _layer_case(E, k, cf, T, "valid", seed=5)
+    jq = j_quantize_params({"router": jnp.asarray(router), "w1": jnp.asarray(w1), "w3": jnp.asarray(w3),
+                            "w2": jnp.asarray(w2)})
+    tq = {n: ({"q": torch.from_numpy(np.array(v["q"])),
+               "s": torch.from_numpy(np.array(v["s"]).view(np.int16)).view(torch.bfloat16)}
+              if isinstance(v, dict) else torch.from_numpy(np.array(v))) for n, v in jq.items()}
+    assert is_quant(tq["w1"]) and tuple(tq["w2"]["s"].shape) == (E, 1, 16) and not is_quant(tq["router"])
+    xb, vb = x.reshape(2, T // 2, -1), valid.reshape(2, -1)
+    jout, jaux = jmoe.moe_ffn(jcfg, None, jq, jnp.asarray(xb), valid=jnp.asarray(vb))
+    tout, taux = tmoe.moe_ffn(tcfg, tq, torch.from_numpy(xb), valid=torch.from_numpy(vb))
+    assert np.max(np.abs(np.asarray(jout) - tout.numpy())) < TOL
+    assert abs(float(jaux) - float(taux)) < TOL
+    r = serve.main(["--arch", ARCHS[1], "--smoke", "--device", "cpu", "--weights-int8", "--requests", "2"])
+    assert r["metrics"].summary()["failed"] == 0 and is_quant(r["params"]["blocks"]["l0_ffn"]["w1"])
 
 
 def test_launcher_serves_one_layer_of_dbrx():

@@ -227,7 +227,7 @@ def test_int8_init_is_quantize_params_of_init(arch):
 
 def test_xlstm_with_int8_weights_raises():
     cfg = get_config("xlstm-350m", smoke=True)
-    with pytest.raises(WeightsInt8Error, match="attention-only"):
+    with pytest.raises(WeightsInt8Error, match="plain product"):
         get_model(cfg.replace(weights_int8=True)).init(torch.Generator().manual_seed(0))
     with pytest.raises(WeightsInt8Error, match="xlstm-350m"):
         serve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu", "--weights-int8"])

@@ -29,6 +29,7 @@ from repro.models.common import layernorm as j_layernorm  # noqa: E402
 from repro.models.common import unembed_weight as j_unembed_weight  # noqa: E402
 from repro.models.mlp import mlp as j_mlp  # noqa: E402
 from repro.models.quant import qeinsum as j_qeinsum  # noqa: E402
+from repro.models.quant import quantize_params as j_quantize_params  # noqa: E402
 from repro.serving.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serving.engine import InferenceEngine as JInferenceEngine  # noqa: E402
 from repro.serving.engine import PagedEngineConfig as JPagedEngineConfig  # noqa: E402
@@ -43,7 +44,7 @@ from repro_torch.models.bridge import params_from_jax  # noqa: E402
 from repro_torch.models.common import layernorm  # noqa: E402
 from repro_torch.models.loss import logits as t_logits  # noqa: E402
 from repro_torch.models.mlp import mlp  # noqa: E402
-from repro_torch.models.quant import WeightsInt8Error, check_int8_family  # noqa: E402
+from repro_torch.models.quant import check_int8_family  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     EngineConfig,
     InferenceEngine,
@@ -272,7 +273,9 @@ def test_whisper_config_field_for_field(which):
     """Every field of the port's ModelConfig equals JAX's whisper-large-v3
     (dtypes by name, the encoder field for field); JAX's training-only
     fields (remat, ce_chunks) have no twin. Weight-only int8 of the family
-    is not ported and raises, for qwen2-vl-2b too."""
+    (and of qwen2-vl-2b) passes ``check_int8_family``; at SMOKE size the
+    port's quantized init equals JAX's ``quantize_params`` of the port's
+    floating-point init, bit for bit."""
     mine, theirs = getattr(whisper_large_v3, which), getattr(j_whisper, which)
     for f in dataclasses.fields(ModelConfig):
         a, b = getattr(mine, f.name), getattr(theirs, f.name)
@@ -286,8 +289,22 @@ def test_whisper_config_field_for_field(which):
     if which == "FULL":
         assert _count(get_model(mine).param_defs()) == 1_601_198_080
     for arch in ("whisper-large-v3", "qwen2-vl-2b"):
-        with pytest.raises(WeightsInt8Error):
-            check_int8_family(get_config(arch, smoke=which == "SMOKE"))
+        cfg = get_config(arch, smoke=which == "SMOKE")
+        check_int8_family(cfg)
+        if which == "SMOKE":
+            floats = get_model(cfg).init(torch.Generator().manual_seed(3))
+            got = get_model(cfg.replace(weights_int8=True)).init(torch.Generator().manual_seed(3))
+            want = j_quantize_params(jax.tree.map(lambda t: jnp.asarray(t.numpy()), floats))
+            n = 0
+            for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+                mine = got
+                for k in path:
+                    mine = mine[k.key]
+                a = np.asarray(leaf)
+                b = mine.view(torch.int16).numpy().view(np.uint16) if mine.dtype == torch.bfloat16 else mine.numpy()
+                assert np.array_equal(a.view(np.uint16) if a.dtype.name == "bfloat16" else a, b), path
+                n += a.dtype == np.int8
+            assert n > 0
 
 
 def test_launcher_fails_at_construction_in_both(monkeypatch):
