@@ -63,7 +63,7 @@ result line:
                 chained tables; bytes per cached token of each pool
   7. options  — the engines' options at FULL width in bf16 on phase 4's
                 weights, each under an EngineLoop: speculative decoding (8
-                motif prompts of 64 tokens, 48 new tokens, spec_tokens 4) on
+                motif prompts of 64 tokens, 32 new tokens, spec_tokens 4) on
                 a paged engine (spec off, on, on over an int8 pool) and a
                 dense one (off, on; whole-prompt, so flash runs), every
                 verify pass 65 rmsnorm launches and no decode kernel; the
@@ -230,7 +230,27 @@ result line:
                 loop's host time a request; the paper's gates of
                 tests/test_system.py through the port's simulator; the five
                 figure twins' rows
- 16. summary  — the kernels JSON line, then the result line.
+ 16. train    — training, every earlier tree off the card. (a) The three
+                kernels' autograd Functions (the kernel forward, the plain
+                version's backward) against the plain versions' autograd at
+                training shapes, f32 and bf16: rmsnorm (8192, 960), flash
+                (4, 2048, 15, 64) and a ragged S 1999, mLSTM (16, 256, 512)
+                from a non-zero carry. (b) smollm-360m FULL (32 layers, bf16,
+                remat full) through launch/train.main: 5 AdamW steps (f32
+                states, WarmupCosine) of 4 x 2048 tokens, the loss falling
+                (the later half's mean 0.5 below the first step's),
+                129 rmsnorm and 64 flash launches a step (the forward's and
+                the backward's recompute), a checkpoint at step 3 resumed in
+                a fresh run within bf16 tolerance of the straight run; the
+                step's time, tokens a second, busy share, peak memory, and
+                the recompute's share of device time (remat full against
+                none); 2 steps each with bf16 and int8 states, their bytes
+                against the reckoning. (c) xlstm-350m FULL, 2 steps of 4 x
+                256 tokens, 42 mLSTM launches a step. (d) smollm at full
+                width cut to 2 layers: a step's loss and every gradient leaf
+                on the card in f32 (TF32 off) against the CPU in f32, and in
+                bf16 (loss, cosine of every leaf) against the CPU in f32
+ 17. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -254,7 +274,7 @@ TF32_FLOPS_S = 495e12       # H100 SXM dense TF32 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17
 FLIP_BOUND = 0.25           # max CPU-f32 logit lead over a GPU token that differs
 PROFILED_STEPS = 3          # steps a serving step's profile covers (device time, busy share)
-TIMED_STEPS = 10            # steps a serving step's host-clock mean covers
+TIMED_STEPS = 5             # steps a serving step's host-clock mean covers
 
 
 def log(msg: str) -> None:
@@ -266,7 +286,7 @@ def log(msg: str) -> None:
             f.write(f"{time.perf_counter() - T_START:9.1f}  {msg}\n")
 
 
-def time_ms(fn, iters: int = 20, reps: int = 10) -> float:
+def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
     by CUDA events, after a warm-up call."""
     import torch
@@ -303,7 +323,7 @@ def device_ms(fn, n: int = 20):
     return us / n / 1e3 if us > 0 else None
 
 
-def stalled_device_ms(fn, n: int = 50, reps: int = 5) -> float:
+def stalled_device_ms(fn, n: int = 25, reps: int = 5) -> float:
     """Device time of one call by CUDA events around ``n`` calls queued
     behind a device-side stall (``torch.cuda._sleep``): the host enqueues the
     calls while the card sleeps, so the host's gaps between launches fall
@@ -1794,7 +1814,7 @@ def phase_pools(torch, cfg, params, dev):
     return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
 
 
-OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 48     # the options phase's spec traffic
+OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 32     # the options phase's spec traffic
 
 
 def motif_prompts(vocab: int) -> list:
@@ -1860,8 +1880,8 @@ def check_drained(eng, name: str) -> None:
 
 def spec_run(torch, cfg, params, dev, kind: str, spec: int, cache_dtype: str = ""):
     """The 8 motif prompts through an EngineLoop on a paged engine (16-token
-    pages, 32-token chunks) or a dense one (whole-prompt admissions): 48 new
-    tokens each, spec_tokens ``spec`` with a 3-gram proposer. Every verify
+    pages, 32-token chunks) or a dense one (whole-prompt admissions): OPT_NEW
+    new tokens each, spec_tokens ``spec`` with a 3-gram proposer. Every verify
     pass is counted: 65 rmsnorm launches and no decode kernel."""
     import numpy as np
 
@@ -1888,7 +1908,7 @@ def spec_run(torch, cfg, params, dev, kind: str, spec: int, cache_dtype: str = "
                                               lambda turns: None if turns else prompts)
     outs = [s.out for s in turns[0][1]]
     if len(outs) != 8 or any(len(o) != OPT_NEW for o in outs):
-        raise AssertionError(f"options {name}: {[len(o) for o in outs]} tokens served, expected 8 x 48")
+        raise AssertionError(f"options {name}: {[len(o) for o in outs]} tokens served, expected 8 x {OPT_NEW}")
     want = 2 * cfg.n_layers + 1
     for _, c, _ in passes.calls:
         if (c["rmsnorm"], c["paged_attention"], c["decode_attention"]) != (want, 0, 0):
@@ -2803,7 +2823,7 @@ def phase_stubs(torch, dev):
 MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
-REPLAY_STEPS = 4     # decode steps of each parity leg's replay
+REPLAY_STEPS = 3     # decode steps of each parity leg's replay
 LEG_MARGIN = 16e9    # host bytes the replayed parity legs need free beyond their f32 arena
 HOST_WAIT_S = 120.0  # the longest the replayed parity legs wait for that room
 
@@ -4062,6 +4082,348 @@ def phase_sched(torch, dev) -> None:
         f"figure twins {time.perf_counter() - t2:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_CKPT = 5, 3   # smollm FULL straight run; resumed from the checkpoint at step 3
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # SmolLM's context
+XLSTM_TRAIN = (4, 256, 2)        # xlstm-350m FULL: batch, sequence, steps
+PARITY_TRAIN = (2, 256)          # the 2-layer parity leg's batch
+RESUME_TOL = TOL["bfloat16"]     # resumed losses against the straight run's (atomics in the embedding backward)
+PARITY_F32_REL = 1e-3            # card f32 (TF32 off) against CPU f32: each grad leaf's max |d| / max |CPU|
+PARITY_BF16_COS = 0.98           # card bf16 against CPU f32: the least cosine of a grad leaf
+PARITY_BF16_LOSS = 0.05          # and the largest loss difference
+
+
+def grads_vs_plain(torch, fn, plain, inputs, seed: int = 0) -> dict:
+    """Outputs and gradients of sum(out * r) (r seeded normals) through
+    ``fn`` (the wrapper: the kernel inside its autograd Function) and through
+    the plain version's autograd, on the same inputs: the largest scaled
+    difference of the outputs and of the gradients, and each path's time
+    (forward and backward, CUDA events)."""
+    def run(f):
+        xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        outs = f(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator(xs[0].device).manual_seed(seed)
+        total = sum((o.float() * torch.randn(o.shape, generator=g, device=o.device)).sum() for o in outs)
+        return [o.detach() for o in outs], torch.autograd.grad(total, [x for x in xs if x.requires_grad])
+
+    (ok, gk), (op, gp) = run(fn), run(plain)
+    torch.cuda.synchronize()
+    return {"out_err": max(scaled_err(a, b) for a, b in zip(ok, op)),
+            "grad_err": max(scaled_err(a, b) for a, b in zip(gk, gp)),
+            "ms": time_ms(lambda: run(fn), iters=2, reps=3),
+            "plain_ms": time_ms(lambda: run(plain), iters=2, reps=3)}
+
+
+def train_functions(torch, dev) -> dict:
+    """(a) The three autograd Functions against the plain versions'
+    autograd at training shapes, f32 and bf16: rmsnorm (8192, 960) (4 x
+    2048 tokens of smollm), flash (4, 2048, 15, 64) and a ragged S 1999,
+    mLSTM at xlstm-350m's (16, 256, 512) in chunks of 64 from a non-zero
+    carry, every output carrying a gradient. Each within TOL of the plain
+    version's outputs and gradients."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise_bh_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    g = torch.Generator(dev).manual_seed(16)
+    B, H, KV, hd = TRAIN_BATCH, 15, 5, 64
+    BH, S_m, DH = 4 * XLSTM_TRAIN[0], XLSTM_TRAIN[1], 512
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).replace("torch.", "")
+
+        def r(*s, scale=1.0):
+            return (torch.randn(s, generator=g, device=dev) * scale).to(dt)
+
+        cases = {"rmsnorm (8192, 960)": (rms_ops.rmsnorm, rmsnorm_ref, (r(8192, 960), 0.5 + r(960).abs()))}
+        for S in (TRAIN_SEQ, TRAIN_SEQ - 49):
+            cases[f"flash ({B}, {S}, {H}, {hd})"] = (
+                fa_ops.flash_attention, lambda q, k, v: fa_ops._plain(q, k, v, "bshd"),
+                (r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)))
+        m_in = mlstm_inputs(torch, g, dev, BH, S_m, DH, dt)
+        carry = (torch.randn(BH, DH, DH, generator=g, device=dev) * 0.01,
+                 torch.randn(BH, DH, generator=g, device=dev) * 0.01, torch.randn(BH, generator=g, device=dev))
+        cases[f"mlstm ({BH}, {S_m}, {DH})"] = (lambda *a: mk_ops.mlstm_chunkwise_bh(*a, chunk=64),
+                                               lambda *a: mlstm_chunkwise_bh_ref(*a, chunk=64), (*m_in, *carry))
+        for name, (fn, plain, inputs) in cases.items():
+            res = grads_vs_plain(torch, fn, plain, inputs)
+            out[f"{name} {name_dt}"] = res
+            log(f"  train grads {name} {name_dt}: outputs {res['out_err']:.3e}, gradients {res['grad_err']:.3e} "
+                f"(tol {TOL[name_dt]:g}); forward + backward {res['ms']:.4f} ms through the kernel's Function, "
+                f"{res['plain_ms']:.4f} ms through the plain version (events)")
+            if not max(res["out_err"], res["grad_err"]) <= TOL[name_dt]:
+                raise AssertionError(f"train grads {name} {name_dt}: {res}")
+        free_card(torch)
+    return out
+
+
+def opt_state_reckoning(cfg, state_dtype: str) -> int:
+    """Bytes of AdamW's m and v and the step count, from the config's
+    parameter shapes: 4 or 2 B a value, or for int8 1 B a value and a 4-B
+    scale a block of the last dim (the value itself where no block divides
+    it)."""
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import _block_for
+    from repro_torch.train.tree import leaves
+
+    total = 4
+    for d in leaves(get_model(cfg).param_defs()):
+        n = math.prod(d.shape)
+        if state_dtype == "int8":
+            b = _block_for(d.shape[-1] if d.shape else 1)
+            total += 2 * (n + 4 * (n // b if b else n))
+        else:
+            total += 2 * n * (4 if state_dtype == "float32" else 2)
+    return total
+
+
+def train_run(torch, argv: list, label: str) -> dict:
+    """``launch/train.main(argv)`` with the launch counts set to 0 just
+    before and read just after, and the peak memory of the run."""
+    from repro_torch.launch import train as launch_train
+
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = launch_train.main(argv)
+    torch.cuda.synchronize()
+    r["wall"] = time.perf_counter() - t0
+    r["counts"] = read_counts()
+    r["peak"] = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in r["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    log(f"  {label}: {r['steps_done']} steps in {r['wall']:.3f} s (launcher wall {r['wall_s']:.3f} s), "
+        f"losses {[round(x, 4) for x in losses]}, grad norms {[round(h['grad_norm'], 4) for h in r['history']]}, "
+        f"peak {r['peak']} B; launches {r['counts']}")
+    return r
+
+
+def drop_train(*runs) -> None:
+    """Drop the parameters and optimizer states a training run holds."""
+    for r in runs:
+        r["params"] = r["opt_state"] = None
+
+
+def train_step_profile(torch, cfg, params, opt_state, ocfg) -> dict:
+    """A train step's host time (synchronized, mean of 2), tokens a second,
+    and its device time and busy share over a profiled step, under the
+    config's remat and under remat none (the backward's recompute share:
+    the device time the first adds over the second)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size, seed=9))
+    batch = {k: torch.as_tensor(v, device=params["embedding"].device) for k, v in data.batch_at(0).items()}
+    state = {"p": params, "o": opt_state}
+    out = {}
+    for remat in (cfg.remat, "none"):
+        fn = make_train_step(get_model(cfg.replace(remat=remat)), ocfg)
+
+        def step():
+            state["p"], state["o"], m = fn(state["p"], state["o"], batch)
+            return m
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        prof = profiled_steps(torch, step, n=1)
+        out[remat] = {"ms": ms, "tokens_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, **prof}
+        log(f"  train step remat={remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.3f} ms (host clock, synchronized, "
+            f"mean of 2), {out[remat]['tokens_s']:.1f} tokens/s; {prof['text']}")
+        for e in prof["top"][:8]:
+            log(f"    device {e.self_device_time_total / prof['n']:12.1f} us/step  x{e.count / prof['n']:g}/step  "
+                f"{e.key[:90]}")
+    full, none = out[cfg.remat]["device_us"], out["none"]["device_us"]
+    out["recompute_share"] = (full - none) / full if full and none else None
+    log(f"  the backward's recompute: {full - none:.1f} us of {full:.1f} us of device time a step "
+        f"({out['recompute_share']:.4f}), remat {cfg.remat} against none")
+    return out
+
+
+def train_smollm(torch) -> dict:
+    """(b) smollm-360m FULL (32 layers, bf16) through ``launch/train.main``:
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens with f32 AdamW states
+    under WarmupCosine, a checkpoint every TRAIN_CKPT steps, the loss
+    falling (the mean of the later half 0.5 below the first step's); the
+    checkpoint at step TRAIN_CKPT resumed in a fresh run, its
+    losses within RESUME_TOL of the straight run's; 2 * (2L + 1) - 1 rmsnorm
+    and 2L flash launches a step (remat full: the forward's and the
+    backward's recompute), no decode kernel; the step's time, tokens a
+    second, busy share, peak memory and the recompute's share; then 2 steps
+    each with bf16 and int8 states, their bytes against the reckoning."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.optimizer import OptConfig, state_bytes
+
+    cfg = get_config("smollm-360m")
+    L = cfg.n_layers
+    ckdir = OUT / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    base = ["--arch", "smollm-360m", "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--log-every", "1", "--lr", "1e-3"]
+    runs = {}
+    straight = runs["train_smollm"] = train_run(
+        torch, base + ["--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT),
+                       "--ckpt-dir", str(ckdir / "straight")], "smollm-360m FULL f32 states, straight")
+    per_step = {"rmsnorm": 2 * (2 * L + 1) - 1, "flash_attention": 2 * L}
+    for k, n in per_step.items():
+        if straight["counts"][k] != TRAIN_STEPS * n:
+            raise AssertionError(f"smollm train: {straight['counts'][k]} {k} launches over {TRAIN_STEPS} "
+                                 f"steps, expected {n} a step")
+    if any(straight["counts"][k] for k in ("paged_attention", "decode_attention", "paged_prefill_write",
+                                           "paged_prefill_write_quant", "mlstm_chunkwise")):
+        raise AssertionError(f"smollm train launched a serving kernel: {straight['counts']}")
+    # each step's loss is over its own batch (it moves by about 1 from batch
+    # to batch), so the run's later half is held to the first step's
+    losses = [h["loss"] for h in straight["history"]]
+    late = statistics.mean(losses[len(losses) // 2:])
+    log(f"  loss: first step {losses[0]:.4f}, mean of steps {len(losses) // 2}-{len(losses) - 1} {late:.4f}")
+    if not late < losses[0] - 0.5:
+        raise AssertionError(f"smollm train: the loss did not fall: {losses}")
+    (ckdir / "resume").mkdir(parents=True)
+    shutil.copytree(ckdir / "straight" / f"step_{TRAIN_CKPT:08d}", ckdir / "resume" / f"step_{TRAIN_CKPT:08d}")
+    resumed = runs["train_smollm_resume"] = train_run(
+        torch, base + ["--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_STEPS + 1),
+                       "--ckpt-dir", str(ckdir / "resume")], f"smollm-360m FULL, resumed at step {TRAIN_CKPT}")
+    tail = {h["step"]: h["loss"] for h in straight["history"] if h["step"] >= TRAIN_CKPT}
+    got = {h["step"]: h["loss"] for h in resumed["history"]}
+    diff = max(abs(got[s] - tail[s]) for s in tail) if set(got) == set(tail) else math.inf
+    log(f"  resume: steps {sorted(got)} against the straight run's, largest loss difference {diff:.3e} "
+        f"(bound {RESUME_TOL:g})")
+    if not diff <= RESUME_TOL:
+        raise AssertionError(f"resumed losses {got} against the straight run's {tail}")
+    for k, n in per_step.items():
+        if resumed["counts"][k] != (TRAIN_STEPS - TRAIN_CKPT) * n:
+            raise AssertionError(f"resumed run: {resumed['counts'][k]} {k} launches")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    n_par = sum(t.numel() for t in _leaves(straight["params"]))
+    states = {"float32": state_bytes(straight["opt_state"])}
+    log(f"  smollm-360m FULL: {n_par} parameters; params {2 * n_par} B + grads {2 * n_par} B + f32 states "
+        f"{states['float32']} B (reckoned {opt_state_reckoning(cfg, 'float32')}); peak {straight['peak']} B")
+    prof = train_step_profile(torch, cfg, straight["params"], straight["opt_state"], OptConfig(lr=1e-3))
+    drop_train(straight, resumed)
+    peaks = {"float32": straight["peak"]}
+    for dt in ("bfloat16", "int8"):
+        r = runs[f"train_smollm_{dt}"] = train_run(torch, base + ["--steps", "2", "--opt-dtype", dt],
+                                                   f"smollm-360m FULL {dt} states")
+        states[dt], peaks[dt] = state_bytes(r["opt_state"]), r["peak"]
+        want = opt_state_reckoning(cfg, dt)
+        log(f"  {dt} states: {states[dt]} B (reckoned {want}); peak {r['peak']} B")
+        if states[dt] != want:
+            raise AssertionError(f"{dt} optimizer states: {states[dt]} B, reckoned {want}")
+        drop_train(r)
+    if states["float32"] != opt_state_reckoning(cfg, "float32"):
+        raise AssertionError(f"f32 optimizer states: {states['float32']} B")
+    return {"runs": runs, "profile": prof, "states": states, "peaks": peaks, "resume_diff": diff,
+            "losses": losses}
+
+
+def train_xlstm(torch) -> dict:
+    """(c) xlstm-350m FULL (24 layers, 21 mLSTM, bf16) through
+    ``launch/train.main`` for a few steps: the mLSTM kernel launched in the
+    forward and in the backward's recompute of every mLSTM layer each
+    step."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("xlstm-350m")
+    B, S, steps = XLSTM_TRAIN
+    r = train_run(torch, ["--arch", "xlstm-350m", "--batch-size", str(B), "--seq-len", str(S), "--steps",
+                          str(steps), "--log-every", "1", "--lr", "1e-3"], "xlstm-350m FULL f32 states")
+    n_m = sum(k == "mlstm" for k in cfg.block_pattern) * cfg.n_superblocks
+    want = {"mlstm_chunkwise": steps * 2 * n_m, "rmsnorm": steps * (2 * cfg.n_layers + 1)}
+    for k, n in want.items():
+        if r["counts"][k] != n:
+            raise AssertionError(f"xlstm train: {r['counts'][k]} {k} launches, expected {n}")
+    drop_train(r)
+    return r
+
+
+def train_parity(torch, dev) -> dict:
+    """(d) smollm at FULL width cut to 2 layers, on seeded weights: the
+    loss and every gradient leaf of a step on the card in f32 (TF32 off)
+    against the CPU's plain path in f32, each leaf within PARITY_F32_REL of
+    its largest CPU value; then on the weights rounded to bf16, the card in
+    bf16 against the CPU in f32 on the same weights: the loss within
+    PARITY_BF16_LOSS and each leaf's cosine similarity at least
+    PARITY_BF16_COS."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.tree import leaves, paths
+
+    cfg = get_config("smollm-360m").replace(n_layers=2)
+    f32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    B, S = PARITY_TRAIN
+    batch = SyntheticLM(DataConfig(batch_size=B, seq_len=S, vocab_size=cfg.vocab_size, seed=11)).batch_at(0)
+    cpu_batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    card_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    p32 = seeded_params(torch, f32, dev, seed=17)
+    res = {}
+    for leg, card_cfg, card_p in (("f32", f32, p32), ("bf16", cfg, _map(p32, lambda t: t.to(torch.bfloat16)))):
+        reset_counts()
+        (l_card, _), g_card = value_and_grad(get_model(card_cfg), card_p, card_batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        cpu_p = _map(card_p, lambda t: t.float().cpu())
+        t0 = time.perf_counter()
+        (l_cpu, _), g_cpu = value_and_grad(get_model(f32), cpu_p, cpu_batch)
+        cpu_s = time.perf_counter() - t0
+        rel, cos = {}, {}
+        for path, a, b in zip(paths(g_cpu), leaves(g_card), leaves(g_cpu)):
+            a = a.float().cpu()
+            rel[path] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            cos[path] = float(torch.nn.functional.cosine_similarity(a.reshape(1, -1).double(),
+                                                                    b.reshape(1, -1).double()))
+        dl = abs(float(l_card) - float(l_cpu))
+        res[leg] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu), "loss_diff": dl, "rel": rel, "cos": cos,
+                    "counts": counts}
+        worst = max(rel, key=rel.get)
+        low = min(cos, key=cos.get)
+        log(f"  parity {leg} (smollm 2L full width, batch {B} x {S}): loss card {float(l_card):.6f}, CPU "
+            f"{float(l_cpu):.6f} (|d| {dl:.3e}); largest leaf difference {rel[worst]:.3e} of its max ({worst}); "
+            f"least cosine {cos[low]:.6f} ({low}); CPU {cpu_s:.1f} s; launches {counts}")
+        if counts["rmsnorm"] != 2 * (2 * cfg.n_layers + 1) - 1 or counts["flash_attention"] != 2 * cfg.n_layers:
+            raise AssertionError(f"parity {leg}: launches {counts}")
+        if leg == "f32" and not (max(rel.values()) <= PARITY_F32_REL and dl <= PARITY_F32_REL * abs(float(l_cpu))):
+            raise AssertionError(f"parity f32: loss |d| {dl}, leaves {rel}")
+        if leg == "bf16" and not (min(cos.values()) >= PARITY_BF16_COS and dl <= PARITY_BF16_LOSS):
+            raise AssertionError(f"parity bf16: loss |d| {dl}, cosines {cos}")
+    return res
+
+
+def phase_train(torch, dev) -> dict:
+    """Phase 16: training on the card, every earlier tree off it."""
+    t0 = time.perf_counter()
+    funcs = train_functions(torch, dev)
+    t1 = time.perf_counter()
+    smollm = train_smollm(torch)
+    t2 = time.perf_counter()
+    xlstm = train_xlstm(torch)
+    t3 = time.perf_counter()
+    parity = train_parity(torch, dev)
+    free_card(torch)
+    log(f"  phase 16 wall time: Functions {t1 - t0:.1f} s, smollm {t2 - t1:.1f} s, xlstm {t3 - t2:.1f} s, "
+        f"parity {time.perf_counter() - t3:.1f} s")
+    counts = {k: r["counts"] for k, r in smollm["runs"].items()}
+    counts["train_xlstm"] = xlstm["counts"]
+    return {"functions": funcs, "smollm": smollm, "xlstm": xlstm, "parity": parity, "counts": counts}
+
+
 def main() -> int:
     import torch
 
@@ -4219,7 +4581,16 @@ def main() -> int:
         f"through the port's simulator [at {time.perf_counter() - T_START:.1f} s]")
     phase_sched(torch, dev)
 
-    # 16. summary
+    # 16. train: every earlier tree off the card
+    drop_trees(moe, hybrid)
+    free_card(torch)
+    log(f"phase 16 train: smollm-360m FULL through launch/train, xlstm-350m FULL, a 2-layer parity leg ("
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated) [at {time.perf_counter() - T_START:.1f} s]")
+    t_train = time.perf_counter()
+    train = phase_train(torch, dev)
+    log(f"  train phase {time.perf_counter() - t_train:.1f} s")
+
+    # 17. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -4227,7 +4598,7 @@ def main() -> int:
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
-            **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"]}
+            **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"], **train["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
@@ -4244,7 +4615,7 @@ def main() -> int:
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s, "
-        f"sched {time.perf_counter() - t_summary:.1f} s)")
+        f"sched and train {time.perf_counter() - t_summary:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

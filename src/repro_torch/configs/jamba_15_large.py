@@ -28,8 +28,8 @@ SMOKE = FULL.replace(
     n_layers=8, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=512,
     mamba=MambaCfg(d_state=4, d_conv=4, expand=2, chunk=8),
     moe=MoECfg(n_experts=4, top_k=2, every_k=2),
-    param_dtype=torch.float32, compute_dtype=torch.float32,
-    attn_chunk=8,
+    param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
+    attn_chunk=8, ce_chunks=2,
 )
 
 SKIP_SHAPES = {}

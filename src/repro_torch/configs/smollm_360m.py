@@ -20,6 +20,6 @@ FULL = ModelConfig(
 
 SMOKE = FULL.replace(
     n_layers=2, d_model=60, n_heads=3, n_kv_heads=1, d_ff=128, vocab_size=512,
-    param_dtype=torch.float32, compute_dtype=torch.float32,
-    attn_chunk=8,
+    param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
+    attn_chunk=8, ce_chunks=2,
 )

@@ -4,7 +4,9 @@
 decoder layers (whisper-large-v3's num_hidden_layers=32 applies to each
 stack). The audio frontend is a stub: callers give precomputed 1500-frame
 embeddings. Decoder self-attention uses RoPE in place of the 448-entry
-learned table, as the JAX package adapts it.
+learned table, as the JAX package adapts it. ``ce_chunks`` is raised to 32
+to bound the training loss's logits slice (vocab 51866), as in the JAX
+package.
 """
 import torch
 
@@ -24,11 +26,12 @@ FULL = ModelConfig(
     norm="layernorm",
     act="gelu",
     gated_mlp=False,
+    ce_chunks=32,
 )
 
 SMOKE = FULL.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512,
     encoder=EncoderCfg(n_layers=2, n_ctx=12, n_heads=4, d_ff=128),
-    param_dtype=torch.float32, compute_dtype=torch.float32,
-    attn_chunk=8,
+    param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
+    attn_chunk=8, ce_chunks=2,
 )

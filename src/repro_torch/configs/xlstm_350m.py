@@ -30,4 +30,6 @@ SMOKE = FULL.replace(
     xlstm=XLSTMCfg(chunk=8, proj_factor=2.0, conv=4),
     param_dtype=torch.float32,
     compute_dtype=torch.float32,
+    remat="none",
+    ce_chunks=2,
 )

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P = ctypes.c_void_p
@@ -54,7 +54,8 @@ def split_bounds(T: int, nsplit: int) -> list:
 
 def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     """q: (B, 1, H, hd); k/v: (B, T, KV, hd); cache_len: scalar or (B,)
-    valid positions per sequence. Returns (B, 1, H, hd) in q's dtype."""
+    valid positions per sequence. Returns (B, 1, H, hd) in q's dtype.
+    Forward only: on the card it raises where a gradient is wanted."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -67,6 +68,7 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     if k.is_cpu:
         o = decode_attention_ref(qg, k.transpose(1, 2), v.transpose(1, 2), lens, softcap=softcap)
         return o.reshape(B, 1, H, hd)
+    _grad.forward_only("decode_attention", q, k, v)
     if S != 1 or H % KV or k.shape != (B, T, KV, hd) or v.shape != k.shape:
         raise ValueError(f"decode_attention: q (B, 1, H, hd) over k/v (B, T, KV, hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")

@@ -7,14 +7,16 @@ The kernel reads q, k and v and writes its output through their strides, so
 both entry points hand it their tensors as they lie: ``flash_attention``
 the model's (B, S, H, hd) layout, ``flash_attention_bhsd`` the TPU kernel's
 (B, H, S, hd). Neither makes a copy. Both count their launches on
-``flash_attention_bhsd.launches``."""
+``flash_attention_bhsd.launches``. Where a gradient is wanted (training),
+the kernel runs inside ``FlashFn``, whose backward is the plain version's
+(``kernels/_grad.py``): the TPU kernel is forward only, as is this one."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P = ctypes.c_void_p
@@ -64,11 +66,41 @@ def _launch(q, k, v, layout: str):
     return out
 
 
+def _plain(q, k, v, layout: str):
+    """The plain version in ``layout``."""
+    if layout == "bhsd":
+        return attention_ref(q, k, v)
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+
+class FlashFn(torch.autograd.Function):
+    """The kernel forward; the backward of the plain version at the saved
+    q, k, v (its S x S scores recomputed, as the reference's chunked jnp
+    path recomputes them under ``jax.checkpoint``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout):
+        ctx.save_for_backward(q, k, v)
+        ctx.layout = layout
+        return _launch(q, k, v, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_grad.plain_grads(_plain, ctx.saved_tensors, ctx.needs_input_grad[:3], (g,),
+                                   layout=ctx.layout), None)
+
+
+def _attend(q, k, v, layout: str):
+    if q.device.type == "cpu":
+        return _plain(q, k, v, layout)
+    if _grad.wants_grad(q, k, v):
+        return FlashFn.apply(q, k, v, layout)
+    return _launch(q, k, v, layout)
+
+
 def flash_attention_bhsd(q, k, v):
     """q: (B, H, S, hd); k/v: (B, KV, S, hd) -> (B, H, S, hd)."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v)
-    return _launch(q, k, v, "bhsd")
+    return _attend(q, k, v, "bhsd")
 
 
 flash_attention_bhsd.launches = 0
@@ -77,6 +109,4 @@ flash_attention_bhsd.launches = 0
 def flash_attention(q, k, v):
     """q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd), causal; on a
     CUDA tensor the output is contiguous."""
-    if q.device.type == "cpu":
-        return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
-    return _launch(q, k, v, "bshd")
+    return _attend(q, k, v, "bshd")

@@ -6,14 +6,16 @@ chunked prefill resumes from it.
 bf16 inputs take the tensor-core instance, whose blocks hold ``TC``
 columns of C each, ``plan_col_tile`` choosing TC from the shapes; f32
 inputs (the parity runs) take the exact-FMA instance, 32 columns a block,
-with a global scratch for its gate scalars."""
+with a global scratch for its gate scalars. Where a gradient is wanted
+(training), the kernel runs inside ``MLSTMFn``, whose backward is the plain
+version's (``kernels/_grad.py``), the carry outputs ``(C, n, m)`` included."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.mlstm_chunk import ref
 
 _P = ctypes.c_void_p
@@ -40,6 +42,13 @@ def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     steps at DH 512; ``csrc/mlstm_chunk.cu``); past it the launch raises."""
     if q.device.type == "cpu":
         return ref.mlstm_chunkwise_bh_ref(q, k, v, i, lf, C0, n0, m0, chunk=chunk)
+    if _grad.wants_grad(q, k, v, i, lf, C0, n0, m0):
+        return MLSTMFn.apply(q, k, v, i, lf, C0, n0, m0, chunk)
+    return _launch(q, k, v, i, lf, C0, n0, m0, chunk)
+
+
+def _launch(q, k, v, i, lf, C0, n0, m0, chunk: int):
+    """Check, allocate the outputs and launch the kernel on the current stream."""
     BH, S, DH = q.shape
     if k.shape != q.shape or v.shape != q.shape or i.shape != (BH, S) or lf.shape != (BH, S):
         raise ValueError(f"mlstm_chunkwise: bad shapes q {tuple(q.shape)}, i {tuple(i.shape)}")
@@ -78,6 +87,23 @@ def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     _build.count_launch(mlstm_chunkwise_bh)
     _build.check(err, "mlstm_chunkwise")
     return h, C, n, m
+
+
+class MLSTMFn(torch.autograd.Function):
+    """The kernel forward; the backward of ``ref.mlstm_chunkwise_bh_ref`` at
+    the saved inputs, for h and for the carry outputs (C, n, m) alike."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, lf, C0, n0, m0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i, lf, C0, n0, m0)
+        ctx.chunk = chunk
+        return _launch(q, k, v, i, lf, C0, n0, m0, chunk)
+
+    @staticmethod
+    def backward(ctx, gh, gC, gn, gm):
+        return (*_grad.plain_grads(ref.mlstm_chunkwise_bh_ref, ctx.saved_tensors, ctx.needs_input_grad[:8],
+                                   (gh, gC, gn, gm), chunk=ctx.chunk), None)
 
 
 mlstm_chunkwise_bh.launches = 0

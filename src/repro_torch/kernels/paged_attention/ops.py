@@ -16,14 +16,16 @@ offset as a page count that the kernel resolves (``write_page_ids``), so a
 chunked write is one device operation, on a grid from ``plan_write_grid``.
 ``paged_gather_context`` and the speculative verify writes
 (``paged_verify_write``, ``paged_verify_write_quant``) are plain PyTorch on
-every device, as their JAX twins are plain jnp."""
+every device, as their JAX twins are plain jnp. The decode and both prefill
+writes are forward only: on the card they raise where a gradient is wanted
+(``kernels/_grad.forward_only``)."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.decode_attention.ops import MIN_SPLIT, SMS, head_groups
 from repro_torch.kernels.paged_attention.ref import (
     gather_kv,
@@ -142,6 +144,7 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     tab, shift = _write_args("paged_prefill_write", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_ref(pool_k, pool_v, k, v, tab)
+    _grad.forward_only("paged_prefill_write", k, v)
     num_pages, KV, ps, hd = pool_k.shape
     if pool_k.dtype not in _build.DTYPE_CODE or not (
             pool_v.dtype == k.dtype == v.dtype == pool_k.dtype) or pool_v.shape != pool_k.shape:
@@ -169,6 +172,7 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
     tab, shift = _write_args("paged_prefill_write_quant", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
+    _grad.forward_only("paged_prefill_write_quant", k, v)
     num_pages, KV, ps, hd = pool_k.shape
     if not (pool_k.dtype == pool_v.dtype == torch.int8 and pool_v.shape == pool_k.shape):
         raise ValueError("paged_prefill_write_quant: pool_k/pool_v must be int8 of one shape")
@@ -246,6 +250,7 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
     if dev.type == "cpu":
         return paged_attention_ref(qg, pool_k, pool_v, tab, lens, softcap=softcap, pool_ks=pool_ks,
                                    pool_vs=pool_vs, l2_tab=l2).reshape(B, 1, H, hd)
+    _grad.forward_only("paged_attention", q, pool_k, pool_v)
     if S != 1 or H % KV:
         raise ValueError(f"paged_attention: q must be (B, 1, H, hd) with H % KV == 0, got {tuple(q.shape)}")
     if q.dtype not in _build.DTYPE_CODE or pool_v.dtype != pool_k.dtype:

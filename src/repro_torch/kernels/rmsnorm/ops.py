@@ -1,12 +1,14 @@
 """Model-facing RMSNorm: arbitrary leading dims, the CUDA kernel on a CUDA
-tensor (``csrc/rmsnorm.cu``), the plain version on a CPU tensor."""
+tensor (``csrc/rmsnorm.cu``), the plain version on a CPU tensor. Where a
+gradient is wanted (training), the kernel runs inside ``RMSNormFn``, whose
+backward is the plain version's (``kernels/_grad.py``)."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _P = ctypes.c_void_p
@@ -18,6 +20,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     """x: (..., D); w: (D,). Returns x's shape and dtype."""
     if x.is_cpu:
         return rmsnorm_ref(x, w, eps)
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return RMSNormFn.apply(x, w, eps)
+    return _launch(x, w, eps)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Check, allocate the output and launch the kernel on the current stream."""
     D = x.shape[-1]
     code = _build.DTYPE_CODE.get(x.dtype)
     if code is None or w.dtype != x.dtype:
@@ -31,6 +40,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     _build.count_launch(rmsnorm)
     _build.check(err, "rmsnorm")
     return out
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel forward; the backward of ``rmsnorm_ref`` at the saved x, w."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _launch(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*_grad.plain_grads(rmsnorm_ref, (x, w), ctx.needs_input_grad[:2], (g,), eps=ctx.eps), None)
 
 
 rmsnorm.launches = 0

@@ -15,6 +15,7 @@ tokens), each chosen by ``get_model``.
     toks, pool = model.verify_paged(params, batch, pool)
     tok, cache = EmbedsLM(cfg).prefill(params, {"inputs_embeds": e, "positions": p})
     tok, cache = EncDecLM(cfg).prefill(params, {"frames": f, "tokens": t})
+    loss, metrics = model.loss(params, {"tokens": t, "labels": l})   # training
 
 Batches hold tensors on the model's device, or host values the functions
 move there. Caches and page pools are updated in place.
@@ -30,7 +31,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig, init_tree
-from repro_torch.models.loss import logits, next_tokens, next_tokens_all
+from repro_torch.models.loss import lm_loss, logits, next_tokens, next_tokens_all
 from repro_torch.models.quant import check_int8_family, init_quantized
 from repro_torch.models.rotary import mrope_positions_for, positions_for
 
@@ -129,6 +130,21 @@ class DecoderLM:
 
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params, hidden)
+
+    def loss(self, params, batch: Mapping):
+        """The training loss of tokens (B, S) against labels (B, S) (IGNORE
+        masks a position), positions optional as ``hidden`` takes them:
+        ``lm_loss`` plus, for an MoE model, ``moe.aux_weight`` times the
+        layers' aux loss. Returns (loss, metrics)."""
+        dev = params["embedding"].device
+        tokens, _, B, S = self._inputs(batch["tokens"], None, dev)
+        pos, index = self._prompt_positions(batch.get("positions"), B, S, dev)
+        h, aux = tf.forward(self.cfg, params, tokens, pos, mode="train", index_positions=index)
+        loss, metrics = lm_loss(self.cfg, params, h, _tokens(batch["labels"], dev))
+        if self.cfg.moe is not None:
+            loss = loss + self.cfg.moe.aux_weight * aux
+            metrics["moe_aux"] = aux
+        return loss, metrics
 
     def _prompt_cache(self, cache, B: int, cap: int, dev):
         """The cache a whole-prompt prefill writes from position 0: the
@@ -336,6 +352,13 @@ class EmbedsLM(DecoderLM):
         Returns (next_token (B,), cache)."""
         return self._prefill(params, batch, cache, cap, inputs_embeds=batch["inputs_embeds"])
 
+    def loss(self, params, batch: Mapping):
+        """The training loss over inputs_embeds (B, S, d) against labels (B,
+        S), positions (3, B, S) optional: ``lm_loss`` alone (no aux term, as
+        in the JAX package). Returns (loss, metrics)."""
+        h = self.hidden(params, positions=batch.get("positions"), inputs_embeds=batch["inputs_embeds"])
+        return lm_loss(self.cfg, params, h, _tokens(batch["labels"], h.device))
+
 
 @dataclass
 class EncDecLM(DecoderLM):
@@ -366,6 +389,14 @@ class EncDecLM(DecoderLM):
 
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params["decoder"], hidden)
+
+    def loss(self, params, batch: Mapping):
+        """The training loss of the decoder over tokens (B, S) after the
+        encoder over frames (B, T, d), against labels (B, S): ``lm_loss``
+        on the decoder's unembedding, no aux term. Returns (loss,
+        metrics)."""
+        h = self.hidden(params, batch["tokens"], batch["frames"])
+        return lm_loss(self.cfg, params["decoder"], h, _tokens(batch["labels"], h.device))
 
     def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
         """batch: frames (B, n_ctx, d), tokens (B, Lp) right-padded, n_valid

@@ -13,7 +13,9 @@ from __future__ import annotations
 from typing import Mapping, NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.kernels import _grad
 from repro_torch.models.common import ModelConfig, ParamDef
 from repro_torch.models.quant import dequantize_kv, qeinsum, quantize_kv
 from repro_torch.models.rotary import apply_mrope, apply_rope
@@ -286,6 +288,9 @@ def chunked_attention(
     chunk = min(cfg.attn_chunk, S)
     if S % chunk != 0:
         chunk = S  # irregular small shapes: single block
+    # several chunks under a gradient: each recomputes its scores in the
+    # backward, as the reference's jax.checkpoint'd scan body does
+    recompute = chunk < S and _grad.wants_grad(q, k, v)
     outs = []
     for c0 in range(0, S, chunk):
         pb = pos_q[:, c0:c0 + chunk]
@@ -293,7 +298,11 @@ def chunked_attention(
             mask = pb[:, None, None, :, None] >= pos_k[:, None, None, None, :]
         else:
             mask = torch.ones((B, 1, 1, pb.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
-        outs.append(_attend_block(qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap))
+        if recompute:
+            outs.append(ckpt.checkpoint(_attend_block, qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap,
+                                        use_reentrant=False))
+        else:
+            outs.append(_attend_block(qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 

@@ -1,5 +1,7 @@
 """Parameter bridge: the JAX package's parameter tree, as numpy arrays, into
-the port's tree of tensors.
+the port's tree of tensors (``params_from_jax``), and a port tree out to
+numpy (``params_to_numpy``, for comparing gradients and updated parameters
+with the JAX package's).
 
 The caller converts the JAX tree leaf by leaf
 (``jax.tree.map(np.asarray, params)``), so this module never sees JAX. numpy
@@ -61,3 +63,15 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device) -> Any:
         return {k: walk(node[k], d[k], f"{path}/{k}") for k in d}
 
     return walk(tree, defs, "")
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Port tree (nested dicts of tensors, on any device) -> the same
+    structure of numpy arrays on the host; a bf16 leaf becomes its raw bits
+    as ``uint16``, the form ``params_from_jax`` takes back."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

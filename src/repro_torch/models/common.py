@@ -81,7 +81,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
+    remat: str = "full"         # full | dots | none: what training's backward recomputes (transformer._remat_wrap)
     attn_chunk: int = 1024      # query-chunk size for chunked causal attention
+    ce_chunks: int = 8          # sequence chunks of the training cross-entropy (loss.lm_loss)
     kv_quant: bool = False      # int8 KV cache (values + per-(token, head) bf16 scales)
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0

@@ -13,13 +13,24 @@ leaf under ``blocks`` carries a leading (n_superblocks,) axis, so a layer's
 parameters and caches are views ``leaf[i]`` and in-place writes land in the
 stack. Recurrent mixers return new state tensors, which are copied into the
 cache's leaves.
+
+Training (``mode="train"`` where a gradient is wanted) wraps each superblock in
+``torch.utils.checkpoint`` as ``cfg.remat`` says (``_remat_wrap``) and sums
+the MoE layers' aux loss over the stack, as the reference's ``run_stack``
+carries it. The reference's ``_loop_barrier`` (a ``custom_vjp`` around
+``optimization_barrier``) only keeps XLA from hoisting loop-invariant work
+out of its ``lax.scan``; a Python loop has nothing to hoist, so it has no
+twin here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.kernels import _grad
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import xlstm as xl
@@ -162,6 +173,13 @@ def _index(tree, i: int):
     return {k: _index(v, i) for k, v in tree.items()}
 
 
+def _leaves(tree):
+    """The tensors of a nested dict, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree.values() for t in _leaves(v)]
+
+
 def _write(dst: Mapping, src: Mapping, at: Optional[int] = None) -> None:
     """Copy a mixer's new state into cache leaves, in place (at slot ``at``
     of a batch axis when given)."""
@@ -173,8 +191,10 @@ def _write(dst: Mapping, src: Mapping, at: Optional[int] = None) -> None:
 def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: str,
                 cache_sb: Optional[Mapping], cache_index, valid=None, chunk_sb=None,
                 enc_out=None, causal: bool = True, index_positions: bool = True):
-    """One superblock. Returns (x, new_chunk) where ``new_chunk`` holds the
-    recurrent carry after this chunk when ``chunk_sb`` was given.
+    """One superblock. Returns (x, new_chunk, aux) where ``new_chunk`` holds
+    the recurrent carry after this chunk when ``chunk_sb`` was given and
+    ``aux`` is, in train mode, the sum of its MoE layers' aux losses (an f32
+    scalar tensor; 0.0 without MoE layers, and in serving, which drops it).
 
     Cross-attention (``cfg.cross_attn``): train projects ``enc_out`` to K/V;
     prefill does so and copies them into the cache; decode reads them from
@@ -187,6 +207,7 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
     Otherwise (dense prefill, decode): they run from the cache's state and
     write the new state back."""
     new_chunk: dict = {}
+    aux = 0.0
     chunk_pf = isinstance(cache_index, (attn.ChunkPrefillIndex, attn.PagedChunkPrefillIndex))
     paged_pf = isinstance(cache_index, attn.PagedPrefillIndex)
     for i, kind in enumerate(cfg.block_pattern):
@@ -222,11 +243,37 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
         if cfg.d_ff > 0:
             h = apply_norm(cfg, p[f"l{i}_ffn_norm"], x)
             if cfg.layer_has_moe(i):
-                h, _ = moe_ffn(cfg, p[f"l{i}_ffn"], h, valid=valid)   # serving drops the aux loss
+                h, a = moe_ffn(cfg, p[f"l{i}_ffn"], h, valid=valid)
+                if mode == "train":
+                    aux = aux + a
             else:
                 h = mlp(cfg, p[f"l{i}_ffn"], h)
             x = x + h
-    return x, new_chunk
+    return x, new_chunk, aux
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of products with no batch dims
+    (``aten.mm``, ``aten.addmm``), recompute the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` (one superblock) as training's backward sees it: kept whole
+    (``"none"``), recomputed whole (``"full"``), or recomputed but for its
+    weight products (``"dots"``); ``torch.utils.checkpoint`` without
+    reentrancy in the last two."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_products)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=ctx_fn)
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r}: expected full, dots or none")
 
 
 def run_stack(cfg: ModelConfig, blocks: Mapping, x: torch.Tensor, positions, mode: str,
@@ -234,22 +281,29 @@ def run_stack(cfg: ModelConfig, blocks: Mapping, x: torch.Tensor, positions, mod
               chunk_state: Optional[Mapping] = None, enc_out=None, causal: bool = True,
               index_positions: bool = True):
     """The superblocks over x, in order. Returns (x, new chunk state or
-    None); the cache's leaves are updated in place."""
+    None, aux: the MoE aux losses summed); the cache's leaves are updated in
+    place. In train mode, where a gradient is wanted (grad on, and x or a
+    parameter requires it), each superblock goes through ``_remat_wrap``."""
     new_state = {}
+    aux = 0.0
+    block = _superblock
+    if mode == "train" and _grad.wants_grad(x, *_leaves(blocks)):
+        block = _remat_wrap(cfg, _superblock)
     for sb in range(cfg.n_superblocks):
         p_sb = _index(blocks, sb)
         c_sb = _index(cache["blocks"], sb) if cache is not None else None
         s_sb = _index(chunk_state["blocks"], sb) if chunk_state is not None else None
-        x, s_new = _superblock(cfg, p_sb, x, positions, mode, c_sb, cache_index, valid, s_sb,
-                               enc_out, causal, index_positions)
+        x, s_new, a = block(cfg, p_sb, x, positions, mode, c_sb, cache_index, valid, s_sb,
+                            enc_out, causal, index_positions)
+        aux = aux + a
         for key, leaves in s_new.items():
             new_state.setdefault(key, {n: [] for n in leaves})
             for n, t in leaves.items():
                 new_state[key][n].append(t)
     if chunk_state is None:
-        return x, None
+        return x, None, aux
     return x, {"blocks": {key: {n: torch.stack(ts) for n, ts in leaves.items()}
-                          for key, leaves in new_state.items()}}
+                          for key, leaves in new_state.items()}}, aux
 
 
 def forward(
@@ -267,8 +321,11 @@ def forward(
     index_positions: bool = True,
 ):
     """Returns (hidden (B, S, d) after the final norm, cache), or with
-    ``chunk_state`` (chunked prefill) (hidden, cache, new_chunk_state). The
-    cache's leaves are updated in place. ``inputs_embeds`` (B, S, d) stands
+    ``chunk_state`` (chunked prefill) (hidden, cache, new_chunk_state); in
+    train mode, which has no cache, (hidden, aux), aux the MoE layers' aux
+    losses summed over the stack (an f32 scalar tensor, 0.0 without MoE
+    layers). The cache's leaves are
+    updated in place. ``inputs_embeds`` (B, S, d) stands
     in for the embedded ``tokens`` (the VLM backbone); ``enc_out`` is the
     encoder's output the cross-attention layers attend over (train and
     prefill). ``index_positions`` False says that ``positions`` may differ
@@ -287,9 +344,11 @@ def forward(
         S = x.shape[1]
         nv = torch.as_tensor(n_valid, dtype=torch.int32, device=x.device).reshape(-1, 1)
         valid = torch.arange(S, dtype=torch.int32, device=x.device)[None, :] < nv
-    x, new_state = run_stack(cfg, params["blocks"], x, positions, mode, cache, cache_index, valid,
-                             chunk_state, enc_out, index_positions=index_positions)
+    x, new_state, aux = run_stack(cfg, params["blocks"], x, positions, mode, cache, cache_index, valid,
+                                  chunk_state, enc_out, index_positions=index_positions)
     h = apply_norm(cfg, params["final_norm"], x)
+    if mode == "train":
+        return h, aux
     if chunk_state is None:
         return h, cache
     return h, cache, new_state

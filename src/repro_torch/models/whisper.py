@@ -43,14 +43,15 @@ def encode(cfg: ModelConfig, params: Mapping, frames: torch.Tensor) -> torch.Ten
     ecfg = encoder_cfg(cfg)
     B, T, _ = frames.shape
     pos = positions_for(B, T, device=frames.device)
-    x, _ = tf.run_stack(ecfg, params["encoder"]["blocks"], frames.to(ecfg.compute_dtype), pos, "train",
-                        causal=False)
+    x, _, _ = tf.run_stack(ecfg, params["encoder"]["blocks"], frames.to(ecfg.compute_dtype), pos, "train",
+                           causal=False)
     return apply_norm(ecfg, params["encoder"]["final_norm"], x)
 
 
 def forward(cfg: ModelConfig, params: Mapping, frames=None, tokens=None, positions=None,
             mode: str = "train", cache=None, cache_index=None, n_valid=None):
-    """Returns (decoder hidden (B, S, d), cache). The encoder runs in train
+    """Returns (decoder hidden (B, S, d), cache), in train mode (hidden,
+    aux) as ``transformer.forward`` gives them. The encoder runs in train
     and prefill; decode reads the cross K/V the prefill cached. ``n_valid``
     marks a right-padded decoder prefill (only the causal decoder stack
     needs the mask)."""

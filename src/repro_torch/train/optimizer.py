@@ -1,0 +1,200 @@
+"""AdamW from scratch, with quantized optimizer states (the torch twin of
+``repro/train/optimizer.py``).
+
+State dtypes:
+  * float32  — default.
+  * bfloat16 — halves the states' memory.
+  * int8     — blockwise-absmax quantized m and sqrt(v) (8-bit-Adam style),
+               shape-preserving: q keeps the parameter's shape, the scales
+               are per block of the last dim.
+
+Trees are nested dicts of tensors; the update walks the leaves in the JAX
+package's flatten order (``train/tree.py``), so the global norm sums them in
+its order. Every step is f32 arithmetic, cast back to each parameter's
+dtype. The reference's ``opt_state_shapes`` and its ZeRO-1 shardings wait
+for the port's sharding.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.train.tree import leaves, map_tree, unflatten
+
+QBLOCK = 128
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"   # float32 | bfloat16 | int8
+
+
+# ---------------------------------------------------------------------------
+# Blockwise int8 quantization of state tensors
+# ---------------------------------------------------------------------------
+
+
+def _block_for(d: int) -> int:
+    """Largest block <= QBLOCK dividing the last dim (0 => unquantizable)."""
+    b = QBLOCK
+    while b > 4 and d % b != 0:
+        b //= 2
+    return b if d % b == 0 and b > 4 else 0
+
+
+def quantize_blockwise(x: torch.Tensor) -> dict:
+    """Shape-preserving int8: q keeps x's shape; the f32 scales are the
+    absmax of each block of the last dim over 127, floored at 1e-12; q is
+    x / scale rounded half to even and clipped to +-127. A leaf whose last
+    dim has no block (``_block_for`` 0) keeps its f32 value as the "scale"
+    (x[..., None]) and zeros as q."""
+    d = x.shape[-1] if x.ndim else 1
+    b = _block_for(d)
+    xf = x.float()
+    if b == 0:
+        return {"q": torch.zeros(x.shape, dtype=torch.int8, device=x.device),
+                "scale": xf[..., None] if x.ndim else xf}
+    blocks = xf.reshape(*x.shape[:-1], d // b, b)
+    scale = torch.clamp(blocks.abs().amax(dim=-1) / 127.0, min=1e-12)      # (..., d // b)
+    q = torch.clamp(torch.round(blocks / scale[..., None]), -127, 127).to(torch.int8)
+    return {"q": q.reshape(x.shape), "scale": scale}
+
+
+def dequantize_blockwise(qs: Mapping, shape, dtype=torch.float32) -> torch.Tensor:
+    shape = tuple(shape)
+    d = shape[-1] if shape else 1
+    b = _block_for(d)
+    if b == 0:
+        return qs["scale"].reshape(shape).to(dtype)
+    q = qs["q"].reshape(*shape[:-1], d // b, b).float()
+    return (q * qs["scale"][..., None]).reshape(shape).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# State representation
+# ---------------------------------------------------------------------------
+
+
+def _encode_state(x: torch.Tensor, mode: str, signed: bool):
+    if mode == "float32":
+        return x.float()
+    if mode == "bfloat16":
+        return x.to(torch.bfloat16)
+    if mode == "int8":
+        # v is non-negative: quantize sqrt(v) to compress its dynamic range
+        return quantize_blockwise(x if signed else torch.sqrt(x))
+    raise ValueError(mode)
+
+
+def _decode_state(s: Any, shape, mode: str, signed: bool) -> torch.Tensor:
+    if mode in ("float32", "bfloat16"):
+        return s.float()
+    x = dequantize_blockwise(s, shape)
+    return x if signed else x * x
+
+
+def init_opt_state(params: Any, ocfg: OptConfig) -> dict:
+    """Zero m and v in the state dtype, and the step count (int32 scalar),
+    on the parameters' device."""
+    def zero(p, signed):
+        return _encode_state(torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                             ocfg.state_dtype, signed)
+
+    step_dev = leaves(params)[0].device
+    return {
+        "m": map_tree(lambda p: zero(p, True), params),
+        "v": map_tree(lambda p: zero(p, False), params),
+        "step": torch.zeros((), dtype=torch.int32, device=step_dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Update
+# ---------------------------------------------------------------------------
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares, leaves in the
+    JAX package's order."""
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _state_leaves(tree: Any, n: int) -> list:
+    """The per-parameter states of an m or v tree, in ``leaves`` order of
+    the parameter tree: an int8 state is one {"q", "scale"} dict."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict) and set(node) != {"q", "scale"}:
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            out.append(node)
+
+    walk(tree)
+    if len(out) != n:
+        raise ValueError(f"optimizer state has {len(out)} leaves for {n} parameters")
+    return out
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: Any,
+    opt_state: Mapping,
+    params: Any,
+    ocfg: OptConfig,
+    lr: Optional[torch.Tensor] = None,
+) -> Tuple[Any, dict, dict]:
+    """Returns (new_params, new_opt_state, stats): clip by the global norm,
+    bias-corrected moments, the update with decoupled weight decay, all in
+    f32, each parameter cast back to its dtype; stats ``grad_norm`` and
+    ``lr``. No tensor of the inputs is written."""
+    step = opt_state["step"] + 1
+    lr = ocfg.lr if lr is None else lr
+    gnorm = global_norm(grads)
+    scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0) if ocfg.clip_norm else 1.0
+
+    bc1 = 1.0 - ocfg.b1 ** step.float()
+    bc2 = 1.0 - ocfg.b2 ** step.float()
+
+    flat_p = leaves(params)
+    flat_g = leaves(grads)
+    flat_m = _state_leaves(opt_state["m"], len(flat_p))
+    flat_v = _state_leaves(opt_state["v"], len(flat_p))
+
+    new_p, new_m, new_v = [], [], []
+    for g, p, m_s, v_s in zip(flat_g, flat_p, flat_m, flat_v):
+        g = g.float() * scale
+        m = _decode_state(m_s, p.shape, ocfg.state_dtype, True)
+        v = _decode_state(v_s, p.shape, ocfg.state_dtype, False)
+        m = ocfg.b1 * m + (1.0 - ocfg.b1) * g
+        v = ocfg.b2 * v + (1.0 - ocfg.b2) * g * g
+        mhat = m / bc1
+        vhat = v / bc2
+        upd = mhat / (torch.sqrt(vhat) + ocfg.eps)
+        pf = p.float()
+        pf = pf - lr * (upd + ocfg.weight_decay * pf)
+        new_p.append(pf.to(p.dtype))
+        new_m.append(_encode_state(m, ocfg.state_dtype, True))
+        new_v.append(_encode_state(v, ocfg.state_dtype, False))
+
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+    return (
+        unflatten(params, new_p),
+        {"m": unflatten(params, new_m), "v": unflatten(params, new_v), "step": step},
+        {"grad_norm": gnorm, "lr": lr_t},
+    )
+
+
+def state_bytes(opt_state: Mapping) -> int:
+    """Bytes of every tensor of an optimizer state."""
+    return sum(t.numel() * t.element_size() for t in leaves(opt_state))

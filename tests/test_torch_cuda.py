@@ -1575,3 +1575,152 @@ def test_cuda_int8_moe_and_hybrid_paged_engines_match_cpu(cuda_device, arch, dt)
     else:
         leads = _first_flip_leads(get_model(cfg), cpu_params, prompts, want, got)
         assert max(leads, default=0.0) < 0.25, leads
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernels' autograd Functions, the forward-only kernels, a step
+# ---------------------------------------------------------------------------
+
+
+def _fn_and_plain_grads(fn, plain, inputs, seed=0):
+    """(outputs, gradients) of sum(out * r) over every output, r a seeded
+    normal per output, through ``fn`` and through the plain version's own
+    autograd, for every floating input."""
+    res = []
+    for f in (fn, plain):
+        xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        outs = f(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator(xs[0].device).manual_seed(seed)
+        total = sum((o.float() * torch.randn(o.shape, generator=g, device=o.device)).sum() for o in outs)
+        res.append(([o.detach() for o in outs], torch.autograd.grad(total, [x for x in xs if x.requires_grad])))
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_autograd_functions_match_plain_autograd(cuda_device, dt):
+    """Each Function on the card (the kernel forward, one launch, the plain
+    version's backward) against the plain version's autograd on the same
+    inputs: outputs and every gradient within f32 2e-5 / bf16 2e-2 of the
+    largest (or of 1). rmsnorm at (64, 960); flash in both layouts at a
+    ragged S 37 over 15 heads on 5; mLSTM at (4, 48, 64) in chunks of 16 from
+    a non-zero carry, h and the carry outputs all carrying gradients."""
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise_bh_ref
+
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(11)
+    tol = TOL[dt]
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dt)
+
+    q4, k4, v4 = r(2, 37, 15, 64), r(2, 37, 5, 64), r(2, 37, 5, 64)
+    mq = _mlstm_inputs(g, dev, 4, 48, 64, dt)
+    carry = (torch.randn(4, 64, 64, generator=g, device=dev) * 0.1,
+             torch.randn(4, 64, generator=g, device=dev) * 0.1, torch.randn(4, generator=g, device=dev))
+    cases = [
+        ("rmsnorm", rms_ops.rmsnorm, rmsnorm_ref, (r(64, 960), 0.5 + r(960).abs()), 1),
+        ("flash bshd", fa_ops.flash_attention,
+         lambda q, k, v: fa_ops._plain(q, k, v, "bshd"), (q4, k4, v4), 1),
+        ("flash bhsd", fa_ops.flash_attention_bhsd, attention_ref,
+         tuple(t.transpose(1, 2).contiguous() for t in (q4, k4, v4)), 1),
+        ("mlstm", lambda *a: mk_ops.mlstm_chunkwise_bh(*a, chunk=16),
+         lambda *a: mlstm_chunkwise_bh_ref(*a, chunk=16), (*mq, *carry), 1),
+    ]
+    for name, fn, plain, inputs, launches in cases:
+        counter = mk_ops.mlstm_chunkwise_bh if name == "mlstm" else (
+            rms_ops.rmsnorm if name == "rmsnorm" else fa_ops.flash_attention_bhsd)
+        before = counter.launches
+        (o_k, g_k), (o_p, g_p) = _fn_and_plain_grads(fn, plain, inputs)
+        assert counter.launches - before == launches, name
+        for i, (a, b) in enumerate(zip(o_k + list(g_k), o_p + list(g_p))):
+            assert a.dtype == b.dtype and a.shape == b.shape, (name, i)
+            assert _scaled_err(a, b) < tol, (name, i, _scaled_err(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_forward_only_kernels_raise_under_grad(cuda_device):
+    """The dense and paged decode and both page-pool writes have no backward:
+    each raises (naming itself) when grad is on and an input requires it,
+    and launches as before under ``torch.no_grad()``."""
+    dev = cuda_device
+    g = torch.Generator(dev).manual_seed(12)
+    q = torch.randn(2, 1, 6, 64, generator=g, device=dev, requires_grad=True)
+    kc = torch.randn(2, 16, 2, 64, generator=g, device=dev)
+    pool = torch.zeros(5, 2, 8, 64, device=dev)
+    tab = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    k = torch.randn(1, 9, 2, 64, generator=g, device=dev, requires_grad=True)
+    qk = torch.zeros(5, 2, 8, 64, dtype=torch.int8, device=dev)
+    sk = torch.zeros(5, 2, 8, 1, dtype=torch.bfloat16, device=dev)
+    calls = {
+        "decode_attention": lambda: da_ops.decode_attention(q, kc, kc, lens),
+        "paged_attention": lambda: pa_ops.paged_attention(q, pool, pool, tab, lens),
+        "paged_prefill_write": lambda: pa_ops.paged_prefill_write(pool, pool.clone(), k, k, tab[0]),
+        "paged_prefill_write_quant": lambda: pa_ops.paged_prefill_write_quant(qk, qk.clone(), sk, sk.clone(),
+                                                                               k, k, tab[0]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+GRAD_TOL = {"smollm-360m": 2e-5, "xlstm-350m": 1e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAD_TOL))
+def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
+    """Two train steps of the SMOKE model in f32 (TF32 off, remat full),
+    each from the CPU's parameters and state: the loss within f32 2e-5 and
+    every gradient on the card within GRAD_TOL of the CPU's (of the leaf's
+    largest, or of 1), the AdamW update on the card from the CPU's
+    gradients within 2e-5 of the CPU's; the rmsnorm (forward and
+    recompute), flash and, for xLSTM, mLSTM kernels launched. (The update
+    is held apart from the gradients: where a gradient is near AdamW's eps,
+    a rounding in it moves the update by up to the learning rate.) smollm's
+    gradients are held at 2e-5; xLSTM's at 1e-3: on the CPU alone, weights
+    moved by 1e-7 of themselves (f32 rounding) move its SMOKE gradients by
+    up to 3.4e-4 of a leaf's largest (smollm's by 6.3e-8), through its
+    stabiliser maxima and normaliser clamps
+    (``scripts/train_grad_sensitivity.py``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mlstm_chunk import ops as mk_ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config(arch, smoke=True).replace(remat="full")
+    model = get_model(cfg)
+    ocfg = OptConfig(lr=1e-3)
+    params = model.init(torch.Generator().manual_seed(0))
+    state = init_opt_state(params, ocfg)
+    data = SyntheticLM(DataConfig(batch_size=2, seq_len=32, vocab_size=cfg.vocab_size, seed=1))
+    wrappers = (rms_ops.rmsnorm, fa_ops.flash_attention_bhsd, mk_ops.mlstm_chunkwise_bh)
+    card = lambda tree: _map(tree, lambda t: t.to(cuda_device))  # noqa: E731
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+        before = [w.launches for w in wrappers]
+        (l_gpu, _), g_gpu = value_and_grad(model, card(params), card(batch))
+        n = [w.launches - b for w, b in zip(wrappers, before)]
+        (l_cpu, _), g_cpu = value_and_grad(model, params, batch)
+        assert abs(float(l_gpu) - float(l_cpu)) < TOL[torch.float32], i
+        if arch == "smollm-360m":
+            assert n == [2 * (2 * cfg.n_layers) + 1, 2 * cfg.n_layers, 0], n
+        else:
+            n_m = sum(k == "mlstm" for k in cfg.block_pattern) * cfg.n_superblocks
+            assert n[2] == 2 * n_m and n[0] > 0, n
+        for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
+            assert _scaled_err(a.cpu(), b) < GRAD_TOL[arch]
+        p_gpu, _, _ = adamw_update(card(g_cpu), card(state), card(params), ocfg)
+        params, state, _ = adamw_update(g_cpu, state, params, ocfg)
+        for a, b in zip(leaves(p_gpu), leaves(params)):
+            assert _scaled_err(a.cpu(), b) < TOL[torch.float32]
