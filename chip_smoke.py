@@ -53,7 +53,7 @@ result line:
                 against the write through a row shifted beforehand.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
                 and time; launch/serve.main() at FULL width in bf16 on the
-                first 16 of the 32 layers (--layers): 32
+                first 8 of the 32 layers (--layers): 32
                 requests onto dense engines (the decode_attention kernel), 4
                 router workers, prewarm, traces and metrics; chunked
                 prefill, then whole-prompt prefill
@@ -63,7 +63,7 @@ result line:
                 chained tables; bytes per cached token of each pool
   7. options  — the engines' options at FULL width in bf16 on phase 4's
                 weights, each under an EngineLoop: speculative decoding (8
-                motif prompts of 64 tokens, 32 new tokens, spec_tokens 4) on
+                motif prompts of 64 tokens, 24 new tokens, spec_tokens 4) on
                 a paged engine (spec off, on, on over an int8 pool) and a
                 dense one (off, on; whole-prompt, so flash runs), every
                 verify pass 65 rmsnorm launches and no decode kernel; the
@@ -89,7 +89,7 @@ result line:
                 decode step (81 rmsnorm and 40 paged decode launches, its
                 time and busy share), a batch-4 dense step (40
                 decode_attention), launch/serve.main(["--arch", "glm4-9b"])
-                with 32 requests on the first 10 layers (--layers),
+                with 32 requests on the first 6 layers (--layers),
                 whole-prompt; the pools phase's 8 prompts
                 on a paged engine in 32-token chunks on a bf16 flat pool and
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
@@ -105,13 +105,13 @@ result line:
                 rmsnorm and 36 paged decode launches, time, busy share,
                 device operations, side by side), a batch-4 dense step each
                 (36 decode_attention), launch/serve.main() with 32 requests
-                each on the first 6 layers (--layers), whole-prompt,
+                each on the first 4 layers (--layers), whole-prompt,
                 --weights-int8 on the int8 tree.
                 qwen1.5-32b FULL with int8 weights drawn on the card by the
                 quantized init (standard-normal q/k/v biases; its bytes and
                 its peak memory against the tree): a paged step (129 + 64),
                 a dense step (64), the launcher with --weights-int8 on the
-                first 8 layers, the
+                first 4 layers, the
                 pools phase's 8 prompts on an int8 chained pool. Then 2 of
                 the layers at FULL width (granite bf16 and int8 weights,
                 qwen int8 weights) on a dense engine and an int8 chained
@@ -119,7 +119,7 @@ result line:
  11. stubs    — the stub-frontend families, every earlier tree off the
                 card. qwen2-vl-2b FULL in bf16 (standard-normal q/k/v
                 biases): launch/serve.main() with 32 requests on the first
-                14 of its 28 layers (dense, 32-token chunks), a batch-8
+                7 of its 28 layers (dense, 32-token chunks), a batch-8
                 paged step (57 rmsnorm and 28
                 paged decode launches) and a batch-4 dense step (28
                 decode_attention), each timed and profiled; the pools
@@ -250,7 +250,24 @@ result line:
                 width cut to 2 layers: a step's loss and every gradient leaf
                 on the card in f32 (TF32 off) against the CPU in f32, and in
                 bf16 (loss, cosine of every leaf) against the CPU in f32
- 17. summary  — the kernels JSON line, then the result line.
+ 17. xception — no kernel: the Xception-analog classifier at the paper's
+                299 px, f32, on two legs: default (width 32, 4 blocks) and
+                wide (width 728, 8 blocks, Xception's middle flow). (b) The
+                fig3 task for XC_STEPS SGD steps (batch 32 / 8), the later
+                half's accuracy above the first half's; step time,
+                images a second, peak memory against the reckoning, busy
+                share. (a) The forward at batch 1 and 8: device time an
+                image, device operations, busy share, channels_last against
+                NCHW. (c) One step against the CPU in f32: logits and loss
+                within 2e-5, each gradient leaf within 1e-4 of its largest
+                (5e-4 on the wide leg, whose gradients' measured
+                sensitivity to rounding-sized weight changes needs it);
+                two card steps' logits, loss and every gradient but the
+                conv kernels' bit-identical. 0 launches of the
+                seven kernels over (a)-(c). (d) The fig3_training twin's rows,
+                train_small (crash, resume) and the quickstart on the card,
+                the smollm SMOKE steps at 2L + 1 rmsnorm and L flash each
+ 18. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -345,18 +362,26 @@ def stalled_device_ms(fn, n: int = 25, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ops(fn, n: int = 10) -> float:
-    """Device operations (kernels, copies, sets) per call, from torch.profiler."""
+def device_ops(fn, n: int = 10, tries: int = 3) -> float:
+    """Device operations (kernels, copies, sets) per call, from torch.profiler.
+    A window in which the profiler recorded no device event at all is no
+    reading (every caller launches work on the card; CUPTI dropped one such
+    window whole on the H100), so it is profiled again, up to ``tries``
+    times."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in device_events(prof)) / n
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in device_events(prof)) / n
+        if ops > 0:
+            break
+    return ops
 
 
 def device_events(prof):
@@ -1814,7 +1839,7 @@ def phase_pools(torch, cfg, params, dev):
     return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
 
 
-OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 32     # the options phase's spec traffic
+OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 24     # the options phase's spec traffic
 
 
 def motif_prompts(vocab: int) -> list:
@@ -2204,7 +2229,7 @@ def phase_glm4(torch, dev):
     """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
     rmsnorm and 40 paged decode launches, its time and the device's busy
     share), a batch-4 dense step (40 decode_attention launches), the
-    launcher's 32 requests on dense engines on the first 10 layers
+    launcher's 32 requests on dense engines on the first 6 layers
     (whole-prompt prefill: flash and decode_attention at G = 16), the pools
     phase's 8 prompts on a paged engine in 32-token chunks on a bf16 flat
     pool and whole-prompt on an int8 chained pool, 0 failures on each. Then
@@ -2438,8 +2463,8 @@ def expert_leaf(torch, dev, arch: str = "jamba-1.5-large-398b", n: int = 4):
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
 # depth of the launcher bursts of phases 5, 8, 9, 10 and 11 (the first layers
 # of the FULL trees the phases' steps run whole), for the script's time limit
-LAUNCHER_LAYERS = {"smollm-360m": 16, "xlstm-350m": 8, "glm4-9b": 10, "granite-8b": 6, "qwen1.5-32b": 8,
-                   "qwen2-vl-2b": 14}
+LAUNCHER_LAYERS = {"smollm-360m": 8, "xlstm-350m": 8, "glm4-9b": 6, "granite-8b": 4, "qwen1.5-32b": 4,
+                   "qwen2-vl-2b": 7}
 
 
 def free_card(torch) -> None:
@@ -2637,7 +2662,7 @@ def mrope_ops(torch, cfg, dev) -> None:
 
 def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
     """qwen2-vl-2b FULL in bf16 (standard-normal q/k/v biases): the
-    launcher's 32 requests on the first 14 of its 28 layers (dense,
+    launcher's 32 requests on the first 7 of its 28 layers (dense,
     32-token chunks: the whole-prompt dense
     prefill wants embeddings), a batch-8 paged step (57 rmsnorm and 28
     paged decode launches) and a batch-4 dense step (28 decode_attention),
@@ -2823,7 +2848,7 @@ def phase_stubs(torch, dev):
 MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
-REPLAY_STEPS = 3     # decode steps of each parity leg's replay
+REPLAY_STEPS = 2     # decode steps of each parity leg's replay
 LEG_MARGIN = 16e9    # host bytes the replayed parity legs need free beyond their f32 arena
 HOST_WAIT_S = 120.0  # the longest the replayed parity legs wait for that room
 
@@ -4424,6 +4449,278 @@ def phase_train(torch, dev) -> dict:
     return {"functions": funcs, "smollm": smollm, "xlstm": xlstm, "parity": parity, "counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the Xception-analog classifier and the training twins
+# ---------------------------------------------------------------------------
+
+XC_SIZE = 299             # the paper's input resolution
+XC_STEPS = 20             # SGD steps of each training leg
+XC_FWD_BATCHES = (1, 8)   # forward timing
+XC_LOGIT_TOL = 2e-5       # card f32 (TF32 off) against CPU f32: logits and loss, of their scale (or 1)
+# and each gradient leaf, of its largest magnitude. The wide leg's f32 gradients are ill-conditioned:
+# weights moved by 1e-7 of themselves moved them by 2.1e-4 of a leaf's largest on the H100
+# (``xc_parity`` measures it each run), and one card step was 2.08e-4 off the CPU's
+XC_GRAD_TOL = {"default": 1e-4, "wide": 5e-4}
+XC_SENS_EPS = (1e-7, 1e-6)  # relative weight perturbations of the sensitivity measurement
+FIG3_LM_STEPS = 2 * 40    # the fig3 twin's two LM profiles of 40 steps
+TRAIN_SMALL_STEPS = 40    # train_small: 20 steps, the crash, 20 resumed from the checkpoint at 20
+
+
+def xc_legs() -> dict:
+    """name -> (config, training batch, learning rate, parity batch). The
+    default leg is ``XceptionConfig``'s widths at 299 px; the wide leg
+    Xception's middle-flow width and repeats (728 channels, 8 blocks;
+    Chollet 2017, Fig. 5). The wide leg's learning rate is the fig3 task's
+    1e-2 scaled by 32 / 728: at 1e-2 its head moves the logits by about
+    width x lr a step, and on the CPU at 32 and 64 px its loss swung
+    between 1.5 and 108 over 20 steps."""
+    from repro_torch.models.xception import XceptionConfig
+
+    return {"default": (XceptionConfig(img_size=XC_SIZE), 32, 1e-2, 8),
+            "wide": (XceptionConfig(width=728, n_blocks=8, img_size=XC_SIZE), 8, 1e-2 * 32 / 728, 2)}
+
+
+def xc_flops(cfg) -> int:
+    """Operations of one image's forward pass: the convolutions' and the
+    head's multiply-adds, two operations each (the stride-2 entry conv's
+    output is ceil(size / 2) square)."""
+    side = -(-cfg.img_size // 2)
+    w, hw = cfg.width, side * side
+    return 2 * (hw * w * 27 + cfg.n_blocks * hw * (9 * w + w * w) + w * cfg.num_classes)
+
+
+def xc_act_bytes(cfg, batch: int) -> int:
+    """Bytes of one (batch, width, side, side) f32 activation."""
+    side = -(-cfg.img_size // 2)
+    return 4 * batch * cfg.width * side * side
+
+
+def xc_step_reckoning(cfg, batch: int, n_params: int) -> int:
+    """Bytes a training step adds above the resident tree and batches: the
+    activations autograd saves (5 a block: the depthwise and pointwise
+    outputs, the centred and the normalized values, the ReLU output; 1 for
+    the entry), 2 more of gradient buffers in the backward, and the
+    gradients and the updated tree (4 B a parameter each)."""
+    return (5 * cfg.n_blocks + 3) * xc_act_bytes(cfg, batch) + 2 * 4 * n_params
+
+
+def xc_train(torch, dev, name: str, cfg, batch: int, lr: float) -> dict:
+    """(b) The fig3 task (``task_batch``, default_rng(0)) at XC_SIZE for
+    XC_STEPS plain SGD steps from a seeded init on the card: the later
+    half's mean accuracy above the first half's, every loss finite; the
+    step's time (host clock over steps 1 to XC_STEPS - 1, synchronized),
+    images a second, its peak memory above the resident tree and batches
+    against ``xc_step_reckoning``, and a profiled step's device time and
+    busy share. Returns the trained tree."""
+    import numpy as np
+
+    from repro_torch.benchmarks.fig3_training import sgd_step, task_batch
+    from repro_torch.models import xception
+
+    rng = np.random.default_rng(0)
+    n = XC_STEPS + 2
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in task_batch(rng, batch, cfg.img_size)) for _ in range(n)]
+    state = {"p": xception.init(torch.Generator(dev).manual_seed(0), cfg, dev), "i": 0}
+    n_params = sum(t.numel() for t in state["p"].values())
+
+    def step():
+        state["p"], m = sgd_step(cfg, state["p"], *batches[state["i"]], lr=lr)
+        state["i"] += 1
+        return m
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms += [step() for _ in range(XC_STEPS - 1)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (XC_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    accs, losses = [float(m["acc"]) for m in ms], [float(m["loss"]) for m in ms]
+    prof = profiled_steps(torch, step, n=2)
+    want = xc_step_reckoning(cfg, batch, n_params)
+    bound_ms = 3 * xc_flops(cfg) * batch / F32_FLOPS_S * 1e3
+    first, late = statistics.mean(accs[:XC_STEPS // 2]), statistics.mean(accs[XC_STEPS // 2:])
+    log(f"  xception {name} train (width {cfg.width}, {cfg.n_blocks} blocks, {n_params} parameters, {XC_SIZE} px, "
+        f"batch {batch}, lr {lr:g}): step {step_ms:.3f} ms (host clock, synchronized, mean of {XC_STEPS - 1}), "
+        f"{batch / step_ms * 1e3:.1f} images/s, bound {bound_ms:.3f} ms (3 x the forward's operations at "
+        f"67 TFLOP/s f32); peak {peak} B above the resident tree and batches (reckoned {want}); {prof['text']}")
+    log(f"    accuracy: first half {first:.4f}, later half {late:.4f}; losses {[round(x, 4) for x in losses]}")
+    for e in prof["top"][:6]:
+        log(f"    device {e.self_device_time_total / prof['n']:12.1f} us/step  x{e.count / prof['n']:g}/step  "
+            f"{e.key[:90]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"xception {name}: a loss is not finite: {losses}")
+    if not late > first:
+        raise AssertionError(f"xception {name}: accuracy did not rise: {accs}")
+    return {"params": state["p"], "n_params": n_params, "step_ms": step_ms, "images_s": batch / step_ms * 1e3,
+            "bound_ms": bound_ms, "peak": peak, "reckoned": want, "busy": prof["busy"],
+            "device_us": prof["device_us"], "ops": prof["ops"], "acc_first": first, "acc_late": late}
+
+
+def xc_forward(torch, dev, name: str, cfg, params) -> dict:
+    """(a) The forward pass at XC_SIZE and each of XC_FWD_BATCHES: CUDA-event
+    time in the public layout (NHWC images viewed as channels_last) and with
+    the images copied to contiguous NCHW first (``forward_nchw``), and a
+    profiled call's device time, device operations and busy share."""
+    import numpy as np
+
+    from repro_torch.benchmarks.fig3_training import task_batch
+    from repro_torch.models import xception
+
+    out = {}
+    for batch in XC_FWD_BATCHES:
+        img = torch.from_numpy(task_batch(np.random.default_rng(batch), batch, cfg.img_size)[0]).to(dev)
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            ms = time_ms(lambda: xception.forward(cfg, params, img), iters=3, reps=3)
+            ms_nchw = time_ms(lambda: xception.forward_nchw(cfg, params, nchw), iters=3, reps=3)
+            prof = profiled_steps(torch, lambda: xception.forward(cfg, params, img), n=3)
+        b_ms = xc_flops(cfg) * batch / F32_FLOPS_S * 1e3
+        out[batch] = {"ms": ms, "ms_nchw": ms_nchw, "device_ms": prof["device_us"] / 1e3, "ops": prof["ops"],
+                      "busy": prof["busy"], "bound_ms": b_ms}
+        log(f"  xception {name} forward, batch {batch}: {ms:.3f} ms channels_last, {ms_nchw:.3f} ms NCHW "
+            f"(events); device {prof['device_us'] / 1e3 / batch:.4f} ms an image, bound {b_ms / batch:.4f} "
+            f"({xc_flops(cfg) / 1e9:.3f} GFLOP an image at 67 TFLOP/s f32); {prof['text']}")
+    return out
+
+
+def xc_parity(torch, dev, name: str, cfg, params, batch: int) -> dict:
+    """(c) One f32 step on the card (TF32 off) against the CPU's plain f32
+    on the same tree and batch: logits and loss within XC_LOGIT_TOL of their
+    scale (or 1), each gradient leaf within the leg's XC_GRAD_TOL of its
+    largest CPU magnitude; how far the card's gradients move when the
+    weights are moved by XC_SENS_EPS of themselves (seeded normals, as
+    ``scripts/train_grad_sensitivity.py`` does on the CPU), the spread no
+    card-against-CPU comparison can go below; and whether two identical
+    card steps give the same bits,
+    reported per output and asserted for the logits, the loss and every
+    leaf but the convolution kernels (cuDNN's weight gradients of the
+    pointwise and entry convs differed between two identical steps on the
+    H100)."""
+    import numpy as np
+
+    from repro_torch.benchmarks.fig3_training import task_batch
+    from repro_torch.models import xception
+
+    img, lab = task_batch(np.random.default_rng(7), batch, cfg.img_size)
+    img_d, lab_d = torch.from_numpy(img).to(dev), torch.from_numpy(lab).to(dev)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            logits = xception.forward(cfg, params, img_d)
+        (loss, _), g = xception.value_and_grad(cfg, params, img_d, lab_d)
+        runs.append((logits.cpu(), loss.cpu(), {k: v.cpu() for k, v in g.items()}))
+    (logits, loss, g), (logits2, loss2, g2) = runs
+    same = {"logits": torch.equal(logits, logits2), "loss": torch.equal(loss, loss2),
+            **{k: torch.equal(g[k], g2[k]) for k in g}}
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits_cpu = xception.forward(cfg, cpu_p, torch.from_numpy(img))
+    (loss_cpu, _), g_cpu = xception.value_and_grad(cfg, cpu_p, torch.from_numpy(img), torch.from_numpy(lab))
+    cpu_s = time.perf_counter() - t0
+    logit_err = float((logits - logits_cpu).abs().max()) / max(1.0, float(logits_cpu.abs().max()))
+    loss_err = abs(float(loss) - float(loss_cpu)) / max(1.0, abs(float(loss_cpu)))
+    rel = {k: float((g[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30) for k in g}
+    worst = max(rel, key=rel.get)
+    differ = sorted(k for k, v in same.items() if not v)
+    # how far the card's own two steps are apart, on the same scale: the
+    # spread of cuDNN's summation order
+    spread = max(float((g[k] - g2[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30) for k in g)
+    sens = {}
+    for i, eps in enumerate(XC_SENS_EPS):
+        gen = torch.Generator(dev).manual_seed(11 + i)
+        moved = {k: v * (1 + eps * torch.randn(v.shape, generator=gen, device=dev)) for k, v in params.items()}
+        gm = xception.value_and_grad(cfg, moved, img_d, lab_d)[1]
+        sens[eps] = max((float((gm[k].cpu() - g[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30), k)
+                        for k in g)
+    tol = XC_GRAD_TOL[name]
+    log(f"  xception {name} parity (batch {batch}): logits {logit_err:.3e}, loss {loss_err:.3e} (card "
+        f"{float(loss):.6f}, CPU {float(loss_cpu):.6f}; tol {XC_LOGIT_TOL:g}); largest leaf difference "
+        f"{rel[worst]:.3e} of its max ({worst}; tol {tol:g}); CPU {cpu_s:.1f} s; two card steps "
+        f"bit-identical: {'all' if not differ else 'all but ' + ', '.join(differ)} (largest leaf difference "
+        f"between them {spread:.3e} of the CPU leaf's max); weights moved by "
+        + ", ".join(f"{eps:g} move the card's gradients by {e:.3e} ({k})" for eps, (e, k) in sens.items()))
+    if not (logit_err <= XC_LOGIT_TOL and loss_err <= XC_LOGIT_TOL and max(rel.values()) <= tol):
+        raise AssertionError(f"xception {name} parity: logits {logit_err}, loss {loss_err}, leaves {rel}")
+    kernels = {k for k in g if k == "entry" or k.endswith(("_dw", "_pw"))}
+    if any(k not in kernels for k in differ):
+        raise AssertionError(f"xception {name}: two identical card steps differ in {differ}")
+    return {"logit_err": logit_err, "loss_err": loss_err, "rel": rel, "same_bits": same, "spread": spread,
+            "sensitivity": sens, "cpu_s": cpu_s}
+
+
+def xc_twins(torch) -> dict:
+    """(d) The fig3 twin's rows (its ``main`` on the card), ``train_small
+    --steps TRAIN_SMALL_STEPS`` (a crash at half the steps, the resume) and
+    the quickstart, each with the launch counts set to 0 just before and
+    read just after: the smollm SMOKE train steps (remat none) launch
+    2L + 1 rmsnorm and L flash a step, the Xception rows none."""
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import fig3_training
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import quickstart, train_small
+
+    L = get_config("smollm-360m", smoke=True).n_layers
+    per_step = {"rmsnorm": 2 * L + 1, "flash_attention": L}
+    out = {}
+    for label, fn, steps in (("fig3_training", lambda: fig3_training.main([]), FIG3_LM_STEPS),
+                             ("train_small", lambda: train_small.main(["--steps", str(TRAIN_SMALL_STEPS)]),
+                              TRAIN_SMALL_STEPS),
+                             ("quickstart", lambda: quickstart.main([]), 0)):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        out[label] = {"result": r, "counts": counts, "wall": wall}
+        log(f"  {label} on the card: {wall:.3f} s; launches {counts}"
+            + (f"; a step: {counts['rmsnorm'] / steps:g} rmsnorm, {counts['flash_attention'] / steps:g} flash"
+               if steps else ""))
+        if steps and any(counts[k] != steps * n for k, n in per_step.items()):
+            raise AssertionError(f"{label}: launches {counts}, expected {per_step} a step over {steps} steps")
+        if any(counts[k] for k in counts if k not in per_step and k != "decode_attention"):
+            raise AssertionError(f"{label} launched a paged-serving or mLSTM kernel: {counts}")
+    rows = bench_common.ROWS[-3:]
+    log(f"  fig3 rows: {rows}")
+    if not (rows[2].startswith("fig3.xception_analog,") and all(r.startswith("fig3.lm.") for r in rows[:2])):
+        raise AssertionError(f"fig3 rows: {rows}")
+    q = out["quickstart"]
+    if not (math.isfinite(q["result"]["loss"]) and q["counts"]["rmsnorm"] > 0 and q["counts"]["flash_attention"] > 0):
+        raise AssertionError(f"quickstart: loss {q['result']['loss']}, launches {q['counts']}")
+    return out
+
+
+def phase_xception(torch, dev) -> dict:
+    """Phase 17: the Xception analog at 299 px on both legs, (b) trained,
+    (a) timed forward and (c) held to the CPU, with 0 launches of the seven
+    kernels over all three; then (d) the training twins."""
+    t0 = time.perf_counter()
+    reset_counts()
+    legs = {}
+    for name, (cfg, batch, lr, parity_batch) in xc_legs().items():
+        tr = xc_train(torch, dev, name, cfg, batch, lr)
+        params = tr.pop("params")
+        legs[name] = {"train": tr, "forward": xc_forward(torch, dev, name, cfg, params),
+                      "parity": xc_parity(torch, dev, name, cfg, params, parity_batch)}
+        del params
+        free_card(torch)
+    counts = read_counts()
+    log(f"  xception path launches: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the Xception path launched a kernel: {counts}")
+    t1 = time.perf_counter()
+    twins = xc_twins(torch)
+    free_card(torch)
+    log(f"  phase 17 wall time: xception legs {t1 - t0:.1f} s, twins {time.perf_counter() - t1:.1f} s")
+    return {"legs": legs, "twins": twins,
+            "counts": {"xception": counts, **{k: t["counts"] for k, t in twins.items()}}}
+
+
 def main() -> int:
     import torch
 
@@ -4590,7 +4887,15 @@ def main() -> int:
     train = phase_train(torch, dev)
     log(f"  train phase {time.perf_counter() - t_train:.1f} s")
 
-    # 17. summary
+    # 17. xception: the paper's own model at 299 px and the training twins, every earlier tree off the card
+    log(f"phase 17 xception: the Xception analog at {XC_SIZE} px (width 32 and 728), fig3_training, "
+        f"train_small and the quickstart ({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated) "
+        f"[at {time.perf_counter() - T_START:.1f} s]")
+    t_xc = time.perf_counter()
+    xc = phase_xception(torch, dev)
+    log(f"  xception phase {time.perf_counter() - t_xc:.1f} s")
+
+    # 18. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -4598,7 +4903,8 @@ def main() -> int:
             **{f"options_spec_{k}": r["counts"] for k, r in opts["spec"].items()},
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
-            **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"], **train["counts"]}
+            **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"], **train["counts"],
+            **xc["counts"]}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
@@ -4615,7 +4921,7 @@ def main() -> int:
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s, "
-        f"sched and train {time.perf_counter() - t_summary:.1f} s)")
+        f"sched, train and xception {time.perf_counter() - t_summary:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

@@ -1,13 +1,14 @@
-"""Quickstart: the public API in ~60 lines — the twin of sections 2-4 of
-``examples/quickstart.py``: prefill and decode of glm4-9b (smoke) on
-``--device`` (default the card), Algorithm 1 on one request, and the paper
-testbed under a 2,000-session ramp through StraightLine.
+"""Quickstart: the public API in ~60 lines — the twin of
+``examples/quickstart.py``: the training loss, prefill and decode of
+glm4-9b (smoke) on ``--device`` (default the card), Algorithm 1 on one
+request, and the paper testbed under a 2,000-session ramp through
+StraightLine.
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart              # on the card
     PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu
 
-Section 1 of the JAX example, a training loss, waits for the port's
-``lm_loss`` (ROADMAP Queue 1 item 9): the port has only the greedy path.
+The port cannot replay ``jax.random``: its weights come from a seeded
+``torch.Generator`` and its tokens and labels from numpy.
 """
 import argparse
 
@@ -28,12 +29,19 @@ def main(argv=None) -> dict:
     dev = resolve_device(ap.parse_args(argv).device)
     print("assigned architectures:", ", ".join(list_archs()))
 
-    # --- 2. prefill + decode ------------------------------------------------
+    # --- 1. any architecture, one API -----------------------------------------
     cfg = get_config("glm4-9b", smoke=True)          # structurally-faithful reduction
     model = get_model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
-    tok, cache = model.prefill(params, {"tokens": tokens}, cap=24)
+    batch = {
+        "tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)),
+        "labels": np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)),
+    }
+    loss, _ = model.loss(params, batch)
+    print(f"glm4-9b (smoke) train loss: {float(loss):.3f}")
+
+    # --- 2. prefill + decode ------------------------------------------------
+    tok, cache = model.prefill(params, {"tokens": batch["tokens"]}, cap=24)
     tok2, cache = model.decode(params, cache, {"token": tok[:, None], "cache_index": 16})
     print("greedy next tokens:", tok.tolist(), "->", tok2.tolist())
 
@@ -46,7 +54,8 @@ def main(argv=None) -> dict:
     sim = Simulation(pol, paper_tiers(seed=0), SimConfig())
     summary = sim.run(ramp(2000, seed=0)).summary()
     print("2000-session ramp through StraightLine:", summary)
-    return {"tokens": tok.tolist(), "next_tokens": tok2.tolist(), "decision": d, "summary": summary}
+    return {"loss": float(loss), "params": params, "batch": batch, "tokens": tok.tolist(),
+            "next_tokens": tok2.tolist(), "decision": d, "summary": summary}
 
 
 if __name__ == "__main__":

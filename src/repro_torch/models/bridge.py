@@ -13,7 +13,9 @@ leaves carry the leading superblock axis, and ``embedding``, ``unembed`` and
 ``encoder``'s ``blocks`` and ``final_norm``, for an encoder-decoder). A tree that went through the JAX
 package's ``quantize_params`` carries a {"q", "s"} dict at each
 ``QUANT_LEAVES`` key: int8 values of the leaf's shape, which stay int8, and
-bf16 scales of that shape with axis ndim - 2 at 1.
+bf16 scales of that shape with axis ndim - 2 at 1. The Xception classifier's
+flat tree (``XceptionConfig``) comes across the same way, its HWIO kernels
+as they are.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.common import ModelConfig, ParamDef, is_def
+from repro_torch.models import xception
+from repro_torch.models.common import ParamDef, is_def
 from repro_torch.models.quant import QUANT_LEAVES, scale_shape
 from repro_torch.models.api import get_model
 
@@ -48,12 +51,15 @@ def _leaf(a, want: ParamDef, dtype, device, path: str):
     return {"q": q.to(device), "s": s.to(device)}
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig, device) -> Any:
+def params_from_jax(tree: Mapping, cfg, device) -> Any:
     """numpy tree -> port tree on ``device`` in ``cfg.param_dtype`` (a
     quantized leaf keeps its int8 values and bf16 scales); every leaf's shape
-    is checked against the port's ParamDefs, and a missing or extra key
-    raises."""
-    defs = get_model(cfg).param_defs()
+    is checked against the port's ParamDefs (``cfg`` a ``ModelConfig`` or an
+    ``XceptionConfig``), and a missing or extra key raises."""
+    if isinstance(cfg, xception.XceptionConfig):
+        defs = xception.param_defs(cfg)
+    else:
+        defs = get_model(cfg).param_defs()
 
     def walk(node, d, path):
         if is_def(d):

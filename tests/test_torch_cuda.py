@@ -1724,3 +1724,57 @@ def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
         params, state, _ = adamw_update(g_cpu, state, params, ocfg)
         for a, b in zip(leaves(p_gpu), leaves(params)):
             assert _scaled_err(a.cpu(), b) < TOL[torch.float32]
+
+
+XC_LOGIT_TOL, XC_GRAD_TOL = 2e-5, 1e-4   # chip_smoke.py phase 17 (c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,width", [(32, 8), (299, 16)])
+def test_cuda_xception_step_matches_cpu(cuda_device, size, width):
+    """The Xception analog (2 blocks) in f32, TF32 off: logits and loss on
+    the card within 2e-5 of the CPU's (of their scale, or 1), every gradient
+    leaf within 1e-4 of its largest CPU magnitude, and one SGD step's tree
+    within 2e-5 of the CPU's; no kernel launched (cuDNN convolutions)."""
+    import numpy as np
+
+    from repro_torch.benchmarks.fig3_training import sgd_step, task_batch
+    from repro_torch.models import xception
+
+    cfg = xception.XceptionConfig(img_size=size, width=width, n_blocks=2)
+    params = xception.init(torch.Generator().manual_seed(3), cfg, "cpu")
+    img, lab = (torch.from_numpy(a) for a in task_batch(np.random.default_rng(size), 4, size))
+    card = {k: v.to(cuda_device) for k, v in params.items()}
+    before = [w.launches for w in WRAPPERS]
+    with torch.no_grad():
+        logits = xception.forward(cfg, card, img.to(cuda_device)).cpu()
+        logits_cpu = xception.forward(cfg, params, img)
+    assert _scaled_err(logits, logits_cpu) <= XC_LOGIT_TOL
+    (l_gpu, _), g_gpu = xception.value_and_grad(cfg, card, img.to(cuda_device), lab.to(cuda_device))
+    (l_cpu, _), g_cpu = xception.value_and_grad(cfg, params, img, lab)
+    assert abs(float(l_gpu) - float(l_cpu)) <= XC_LOGIT_TOL * max(1.0, abs(float(l_cpu)))
+    for k in g_cpu:
+        assert float((g_gpu[k].cpu() - g_cpu[k]).abs().max()) <= XC_GRAD_TOL * float(g_cpu[k].abs().max()), k
+    p_gpu, _ = sgd_step(cfg, card, img.to(cuda_device), lab.to(cuda_device))
+    p_cpu, _ = sgd_step(cfg, params, img, lab)
+    for k in p_cpu:
+        assert _scaled_err(p_gpu[k].cpu(), p_cpu[k]) <= TOL[torch.float32], k
+    assert [w.launches for w in WRAPPERS] == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_small_resumes_with_its_launches(cuda_device, tmp_path, capsys):
+    """``launch/train_small`` on the card (its default device) at 40 steps:
+    the crash at 20, the resume from the checkpoint at 20, the loss falling,
+    and 2L + 1 rmsnorm and L flash launches a smollm SMOKE step (remat
+    none), no other kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train_small
+
+    L = get_config("smollm-360m", smoke=True).n_layers
+    before = [w.launches for w in WRAPPERS]
+    r = train_small.main(["--steps", "40", "--ckpt-dir", str(tmp_path / "ck")])
+    n = [w.launches - b for w, b in zip(WRAPPERS, before)]
+    assert r["resumed_from"] == 20 and r["resumed"]["steps_done"] == 40
+    assert "OK — checkpoint/restart training complete" in capsys.readouterr().out
+    assert n == [40 * (2 * L + 1), 0, 0, 0, 40 * L, 0], n

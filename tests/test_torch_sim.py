@@ -300,10 +300,23 @@ def test_elastic_burst_twin_prints_the_examples_lines(capsys):
 
 
 def test_quickstart_twin_on_the_cpu(capsys):
-    """Sections 2-4 of the quickstart on the CPU: two greedy tokens per
-    step in the vocabulary, Algorithm 1's burst decision, and the ramp's
-    summary equal to the JAX simulator's."""
+    """The quickstart on the CPU: section 1's training loss equal to the
+    JAX model's ``loss`` on the same batch and weights (the port's, carried
+    across) at f32 2e-5; two greedy tokens per step in the vocabulary,
+    Algorithm 1's burst decision, and the ramp's summary equal to the JAX
+    simulator's."""
+    import jax
+    import numpy as np
+
+    from repro.configs.registry import get_config as j_get_config
+    from repro.models import get_model as j_get_model
+    from repro_torch.models.bridge import params_to_numpy
+
     r = quickstart.main(["--device", "cpu"])
+    j_model = j_get_model(j_get_config("glm4-9b", smoke=True))
+    j_params = jax.tree.map(jax.numpy.asarray, params_to_numpy(r["params"]))
+    j_loss, _ = j_model.loss(None, j_params, {k: jax.numpy.asarray(v) for k, v in r["batch"].items()})
+    assert np.isfinite(r["loss"]) and abs(r["loss"] - float(j_loss)) <= 2e-5 * max(1.0, abs(float(j_loss)))
     vocab = quickstart.get_config("glm4-9b", smoke=True).vocab_size
     for toks in (r["tokens"], r["next_tokens"]):
         assert len(toks) == 2 and all(0 <= t < vocab for t in toks)
@@ -312,4 +325,6 @@ def test_quickstart_twin_on_the_cpu(capsys):
     j_sum = j_simulator.Simulation(j_pol, j_testbed.paper_tiers(seed=0),
                                    j_simulator.SimConfig()).run(j_wl.ramp(2000, seed=0)).summary()
     assert r["summary"] == j_sum
-    assert "2000-session ramp through StraightLine" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "2000-session ramp through StraightLine" in out
+    assert f"glm4-9b (smoke) train loss: {r['loss']:.3f}" in out
