@@ -53,7 +53,7 @@ result line:
                 against the write through a row shifted beforehand.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
                 and time; launch/serve.main() at FULL width in bf16 on the
-                first 8 of the 32 layers (--layers): 32
+                first 4 of the 32 layers (--layers): 32
                 requests onto dense engines (the decode_attention kernel), 4
                 router workers, prewarm, traces and metrics; chunked
                 prefill, then whole-prompt prefill
@@ -89,7 +89,7 @@ result line:
                 decode step (81 rmsnorm and 40 paged decode launches, its
                 time and busy share), a batch-4 dense step (40
                 decode_attention), launch/serve.main(["--arch", "glm4-9b"])
-                with 32 requests on the first 6 layers (--layers),
+                with 32 requests on the first 4 layers (--layers),
                 whole-prompt; the pools phase's 8 prompts
                 on a paged engine in 32-token chunks on a bf16 flat pool and
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
@@ -244,7 +244,7 @@ result line:
                 a fresh run within bf16 tolerance of the straight run; the
                 step's time, tokens a second, busy share, peak memory, and
                 the recompute's share of device time (remat full against
-                none); 2 steps each with bf16 and int8 states, their bytes
+                none); 1 step each with bf16 and int8 states, their bytes
                 against the reckoning. (c) xlstm-350m FULL, 2 steps of 4 x
                 256 tokens, 42 mLSTM launches a step. (d) smollm at full
                 width cut to 2 layers: a step's loss and every gradient leaf
@@ -267,7 +267,21 @@ result line:
                 seven kernels over (a)-(c). (d) The fig3_training twin's rows,
                 train_small (crash, resume) and the quickstart on the card,
                 the smollm SMOKE steps at 2L + 1 rmsnorm and L flash each
- 18. summary  — the kernels JSON line, then the result line.
+ 18. dryrun   — no kernel of its own: launch/dryrun.run_cell on the meta
+                device for smollm-360m's four cells (long_500k a skip record),
+                dbrx-132b train_4k (f32 states) and jamba-1.5-large long_500k,
+                each record's bound, compute and memory ms, GB a device and
+                useful ratio logged and written under chip_smoke_out/dryrun/;
+                smollm-360m FULL train (4 x 2048, remat full), whole-prompt
+                prefill (1 x 2048) and dense decode (batch 4 over a 2048-token
+                cache) on the card under launch/cost.CostCounter: FLOPs and
+                bytes equal to the meta trace of the same ShapeSpec,
+                argument_bytes equal to the bytes the card holds, the
+                roofline bound at most the step's device time (profiler),
+                the time over the bound and the predicted peak beside
+                max_memory_allocated's growth; LatencyEstimator reading the
+                records back, step_time equal to each record's
+ 19. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -290,8 +304,8 @@ BF16_FLOPS_S = 989e12       # H100 SXM dense bf16 tensor cores
 TF32_FLOPS_S = 495e12       # H100 SXM dense TF32 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17
 FLIP_BOUND = 0.25           # max CPU-f32 logit lead over a GPU token that differs
-PROFILED_STEPS = 3          # steps a serving step's profile covers (device time, busy share)
-TIMED_STEPS = 5             # steps a serving step's host-clock mean covers
+PROFILED_STEPS = 2          # steps a serving step's profile covers (device time, busy share)
+TIMED_STEPS = 3             # steps a serving step's host-clock mean covers
 
 
 def log(msg: str) -> None:
@@ -340,7 +354,7 @@ def device_ms(fn, n: int = 20):
     return us / n / 1e3 if us > 0 else None
 
 
-def stalled_device_ms(fn, n: int = 25, reps: int = 5) -> float:
+def stalled_device_ms(fn, n: int = 25, reps: int = 3) -> float:
     """Device time of one call by CUDA events around ``n`` calls queued
     behind a device-side stall (``torch.cuda._sleep``): the host enqueues the
     calls while the card sleeps, so the host's gaps between launches fall
@@ -2229,7 +2243,7 @@ def phase_glm4(torch, dev):
     """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
     rmsnorm and 40 paged decode launches, its time and the device's busy
     share), a batch-4 dense step (40 decode_attention launches), the
-    launcher's 32 requests on dense engines on the first 6 layers
+    launcher's 32 requests on dense engines on the first 4 layers
     (whole-prompt prefill: flash and decode_attention at G = 16), the pools
     phase's 8 prompts on a paged engine in 32-token chunks on a bf16 flat
     pool and whole-prompt on an int8 chained pool, 0 failures on each. Then
@@ -2463,8 +2477,8 @@ def expert_leaf(torch, dev, arch: str = "jamba-1.5-large-398b", n: int = 4):
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
 # depth of the launcher bursts of phases 5, 8, 9, 10 and 11 (the first layers
 # of the FULL trees the phases' steps run whole), for the script's time limit
-LAUNCHER_LAYERS = {"smollm-360m": 8, "xlstm-350m": 8, "glm4-9b": 6, "granite-8b": 4, "qwen1.5-32b": 4,
-                   "qwen2-vl-2b": 7}
+LAUNCHER_LAYERS = {"smollm-360m": 4, "xlstm-350m": 8, "glm4-9b": 4, "granite-8b": 4, "qwen1.5-32b": 4,
+                   "qwen2-vl-2b": 4}
 
 
 def free_card(torch) -> None:
@@ -2662,7 +2676,7 @@ def mrope_ops(torch, cfg, dev) -> None:
 
 def stubs_qwen2_vl(torch, dev, counts, steps) -> None:
     """qwen2-vl-2b FULL in bf16 (standard-normal q/k/v biases): the
-    launcher's 32 requests on the first 7 of its 28 layers (dense,
+    launcher's 32 requests on the first 4 of its 28 layers (dense,
     32-token chunks: the whole-prompt dense
     prefill wants embeddings), a batch-8 paged step (57 rmsnorm and 28
     paged decode launches) and a batch-4 dense step (28 decode_attention),
@@ -4238,7 +4252,7 @@ def drop_train(*runs) -> None:
 
 
 def train_step_profile(torch, cfg, params, opt_state, ocfg) -> dict:
-    """A train step's host time (synchronized, mean of 2), tokens a second,
+    """A train step's host time (synchronized, one step after a warm-up), tokens a second,
     and its device time and busy share over a profiled step, under the
     config's remat and under remat none (the backward's recompute share:
     the device time the first adds over the second)."""
@@ -4260,14 +4274,13 @@ def train_step_profile(torch, cfg, params, opt_state, ocfg) -> dict:
         step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(2):
-            step()
+        step()
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 2 * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
         prof = profiled_steps(torch, step, n=1)
         out[remat] = {"ms": ms, "tokens_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, **prof}
         log(f"  train step remat={remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.3f} ms (host clock, synchronized, "
-            f"mean of 2), {out[remat]['tokens_s']:.1f} tokens/s; {prof['text']}")
+            f"one step), {out[remat]['tokens_s']:.1f} tokens/s; {prof['text']}")
         for e in prof["top"][:8]:
             log(f"    device {e.self_device_time_total / prof['n']:12.1f} us/step  x{e.count / prof['n']:g}/step  "
                 f"{e.key[:90]}")
@@ -4287,7 +4300,7 @@ def train_smollm(torch) -> dict:
     losses within RESUME_TOL of the straight run's; 2 * (2L + 1) - 1 rmsnorm
     and 2L flash launches a step (remat full: the forward's and the
     backward's recompute), no decode kernel; the step's time, tokens a
-    second, busy share, peak memory and the recompute's share; then 2 steps
+    second, busy share, peak memory and the recompute's share; then 1 step
     each with bf16 and int8 states, their bytes against the reckoning."""
     import shutil
 
@@ -4343,7 +4356,7 @@ def train_smollm(torch) -> dict:
     drop_train(straight, resumed)
     peaks = {"float32": straight["peak"]}
     for dt in ("bfloat16", "int8"):
-        r = runs[f"train_smollm_{dt}"] = train_run(torch, base + ["--steps", "2", "--opt-dtype", dt],
+        r = runs[f"train_smollm_{dt}"] = train_run(torch, base + ["--steps", "1", "--opt-dtype", dt],
                                                    f"smollm-360m FULL {dt} states")
         states[dt], peaks[dt] = state_bytes(r["opt_state"]), r["peak"]
         want = opt_state_reckoning(cfg, dt)
@@ -4721,6 +4734,153 @@ def phase_xception(torch, dev) -> dict:
             "counts": {"xception": counts, **{k: t["counts"] for k, t in twins.items()}}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = [("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"), ("smollm-360m", "decode_32k"),
+                ("smollm-360m", "long_500k"), ("dbrx-132b", "train_4k"), ("jamba-1.5-large-398b", "long_500k")]
+DRYRUN_STEPS = {"train": (4, 2048), "prefill": (1, 2048), "decode": (4, 2048)}   # batch, sequence (the cache in decode)
+
+
+def dryrun_cells(outdir: Path) -> list:
+    """(a) ``run_cell`` on the meta device for production cells, each
+    record written to ``outdir`` as the dry run's CLI writes it."""
+    from repro_torch.configs.registry import skip_reason
+    from repro_torch.launch import dryrun
+
+    recs = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape)
+        (outdir / f"single__{arch}__{shape}.json").write_text(json.dumps(rec, indent=1))
+        want = "skip" if skip_reason(arch, shape) else "ok"
+        if rec["status"] != want:
+            raise AssertionError(f"dry run {arch} {shape}: {rec['status']}, expected {want}: {rec}")
+        if want == "ok":
+            t, m = rec["roofline"], rec["mem"]
+            log(f"  {arch} {shape}: bound {t['bound']}, compute {t['compute_s'] * 1e3:.3f} ms, memory "
+                f"{t['memory_s'] * 1e3:.3f} ms, {m['per_device_total'] / 1e9:.3f} GB a device, useful "
+                f"{rec['useful_compute_ratio']:.4f}; traced in {rec['trace_s']} s")
+        else:
+            log(f"  {arch} {shape}: skip ({rec['reason'][:48]}...)")
+        recs.append(rec)
+    return recs
+
+
+def card_args(torch, model, kind: str, dev, gen):
+    """The step and its arguments on the card for ``DRYRUN_STEPS[kind]``:
+    seeded weights, f32 AdamW states, int32 ids from a seeded generator, a
+    zero dense cache written at its last position."""
+    from repro_torch.launch import steps
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    B, S = DRYRUN_STEPS[kind]
+    params = model.init(gen)
+    ids = lambda *shape: torch.randint(0, model.cfg.vocab_size, shape, generator=gen, device=dev,  # noqa: E731
+                                       dtype=torch.int32)
+    if kind == "train":
+        return (steps.make_train_step(model, OptConfig()), (params, init_opt_state(params, OptConfig()),
+                {"tokens": ids(B, S), "labels": ids(B, S)}), 2)
+    if kind == "prefill":
+        return steps.make_prefill_step(model, cap=S), (params, {"tokens": ids(B, S)}), 0
+    return (steps.make_decode_step(model), (params, model.init_cache(B, S, dev),
+            {"token": ids(B, 1), "cache_index": S - 1}), 0)
+
+
+def dryrun_step(torch, kind: str, dev) -> dict:
+    """(b) one smollm-360m FULL step on the card under the counter against
+    the meta trace of the same ShapeSpec: FLOPs and bytes equal, the
+    arguments' bytes equal, the roofline bound at most the step's device
+    time; the measured time over the bound and the predicted peak beside
+    the measured one."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import cost, dryrun, steps
+    from repro_torch.models import get_model
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.train.optimizer import OptConfig
+
+    B, S = DRYRUN_STEPS[kind]
+    spec = ShapeSpec(f"{kind}_{S}", kind, S, B)
+    cfg = dryrun.adjust_config(get_config("smollm-360m"), spec)
+    model = get_model(cfg)
+    step, args, n_donated = card_args(torch, model, kind, dev, torch.Generator(dev).manual_seed(18))
+    state = {"args": args}
+
+    def run():
+        out = step(*state["args"])
+        if kind == "train":
+            state["args"] = (out[0], out[1], state["args"][2])
+        return out
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, card = cost.step_cost(run, state["args"], state["args"][:n_donated])
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    del out
+    lowered = {"train": lambda: steps.lower_train(model, spec, OptConfig()),
+               "prefill": lambda: steps.lower_prefill(model, spec),
+               "decode": lambda: steps.lower_decode(model, spec)}[kind]()
+    _, meta = cost.step_cost(lowered, lowered.args, lowered.donated)
+    if (card["flops"], card["mem_bytes"]) != (meta["flops"], meta["mem_bytes"]):
+        raise AssertionError(f"dry run {kind}: the card counted {card['flops']} FLOPs and {card['mem_bytes']} B, "
+                             f"the meta trace {meta['flops']} and {meta['mem_bytes']}")
+    held = cost.tree_bytes(state["args"])
+    if meta["argument_bytes"] != held:
+        raise AssertionError(f"dry run {kind}: argument_bytes {meta['argument_bytes']}, the card holds {held}")
+    terms = cost.roofline_terms(meta)
+    prof = profiled_steps(torch, run, n=1)
+    dev_s = prof["device_us"] * 1e-6
+    total = meta["argument_bytes"] + meta["peak_bytes"]
+    log(f"  smollm-360m {kind} B {B} S {S}: {meta['flops']} FLOPs, {meta['mem_bytes']} B of operation traffic "
+        f"(card == meta), arguments {held} B; bound {terms['step_s_lower_bound'] * 1e3:.4f} ms "
+        f"({terms['bound']}), device {dev_s * 1e3:.4f} ms ({dev_s / terms['step_s_lower_bound']:.2f}x the bound, "
+        f"{prof['ops']:g} device operations); predicted per_device_total {total} B (the step's peak "
+        f"{meta['peak_bytes']} B over the arguments), measured max_memory_allocated growth {grown} B over "
+        f"{base} B allocated")
+    if not terms["step_s_lower_bound"] <= dev_s:
+        raise AssertionError(f"dry run {kind}: bound {terms['step_s_lower_bound']} s above the step's "
+                             f"device time {dev_s} s")
+    return {"flops": meta["flops"], "mem_bytes": meta["mem_bytes"], "bound_s": terms["step_s_lower_bound"],
+            "device_s": dev_s, "peak_predicted": meta["peak_bytes"], "peak_growth": grown,
+            "per_device_total": total}
+
+
+def phase_dryrun(torch, dev) -> dict:
+    """Phase 18: the dry run's records on the meta device, three smollm
+    steps on the card counted against their meta traces, and the
+    estimator reading the records back."""
+    from repro_torch.core.estimator import LatencyEstimator
+
+    t0 = time.perf_counter()
+    outdir = OUT / "dryrun"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for p in outdir.glob("*.json"):
+        p.unlink()
+    recs = dryrun_cells(outdir)
+    t1 = time.perf_counter()
+    steps = {}
+    for kind in DRYRUN_STEPS:
+        steps[kind] = dryrun_step(torch, kind, dev)
+        free_card(torch)
+    t2 = time.perf_counter()
+    est = LatencyEstimator(str(outdir))
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        t = r["roofline"]
+        want = max(t["compute_s"], t["memory_s"], t["collective_s"])
+        got = est.step_time(r["arch"], r["shape"])
+        if got != want:
+            raise AssertionError(f"estimator {r['arch']} {r['shape']}: {got}, the record says {want}")
+    log(f"  the estimator reads {len(est.records)} records; phase 18 wall time: cells {t1 - t0:.1f} s, card "
+        f"steps {t2 - t1:.1f} s")
+    return {"records": recs, "steps": steps}
+
+
 def main() -> int:
     import torch
 
@@ -4895,7 +5055,15 @@ def main() -> int:
     xc = phase_xception(torch, dev)
     log(f"  xception phase {time.perf_counter() - t_xc:.1f} s")
 
-    # 18. summary
+    # 18. dryrun: the meta trace's records, three smollm steps counted on the card, the estimator
+    free_card(torch)
+    log(f"phase 18 dryrun: run_cell on the meta device, smollm-360m train, prefill and decode counted on the card "
+        f"[at {time.perf_counter() - T_START:.1f} s]")
+    t_dry = time.perf_counter()
+    phase_dryrun(torch, dev)
+    log(f"  dryrun phase {time.perf_counter() - t_dry:.1f} s")
+
+    # 19. summary
     runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],

@@ -7,6 +7,7 @@ is a stub: an image prompt arrives as precomputed patch and token embeddings
 """
 import torch
 
+from repro_torch.configs.shapes import FULL_ATTENTION_SKIP
 from repro_torch.models.common import ModelConfig
 
 FULL = ModelConfig(
@@ -32,3 +33,5 @@ SMOKE = FULL.replace(
     param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
     attn_chunk=8, ce_chunks=2,
 )
+
+SKIP_SHAPES = {"long_500k": FULL_ATTENTION_SKIP}

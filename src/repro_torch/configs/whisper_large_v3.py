@@ -10,6 +10,7 @@ package.
 """
 import torch
 
+from repro_torch.configs.shapes import FULL_ATTENTION_SKIP
 from repro_torch.models.common import EncoderCfg, ModelConfig
 
 FULL = ModelConfig(
@@ -35,3 +36,5 @@ SMOKE = FULL.replace(
     param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
     attn_chunk=8, ce_chunks=2,
 )
+
+SKIP_SHAPES = {"long_500k": FULL_ATTENTION_SKIP}

@@ -33,3 +33,5 @@ SMOKE = FULL.replace(
     remat="none",
     ce_chunks=2,
 )
+
+SKIP_SHAPES = {}

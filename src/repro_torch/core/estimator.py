@@ -4,9 +4,11 @@ Service-time models for the discrete-event simulator and the SLO-aware
 policy. Two sources, merged:
 
   * dry-run JSON records (``single__*.json`` in a directory the caller
-    names) — per (arch, shape) roofline terms of a measured program; the
-    port reads only records measured on the card (its dry run is not
-    ported yet, so none exist);
+    names, ``dryrun_out/`` by default of ``python -m
+    repro_torch.launch.dryrun``) — per (arch, shape) roofline terms of the
+    port's own step, its work counted on the meta device
+    (``launch/cost.py``) at one H100's rates (below); the JAX package's
+    records, TPU numbers, are not read;
   * analytic fallback — 2*N_active*D / peak with memory/collective floors,
     for arbitrary request sizes between the measured shapes.
 
@@ -92,7 +94,7 @@ class LatencyEstimator:
                     self.records[(r["arch"], r["shape"])] = r
 
     def step_time(self, arch: str, shape: str, chips_frac: float = 1.0) -> Optional[float]:
-        """Roofline lower bound from a measured dry-run cell, rescaled to a
+        """Roofline lower bound from a dry-run cell, rescaled to a
         smaller slice (compute/memory scale with chips; collectives shrink)."""
         r = self.records.get((arch, shape))
         if not r:

@@ -8,7 +8,8 @@ whole cache on every call). It takes any G = H / KV: past 8 query heads per
 KV head, each (b, KV head) is ``head_groups(G)`` blocks of 4 heads. When
 the blocks would leave the card's SMs idle, the T axis is split across
 blocks (``plan_splits``) and a second kernel combines the splits in a fixed
-order."""
+order. On a meta tensor only the output is allocated (the dry run); under a
+cost counter a call reports ``decode_attention_cost`` (``launch/cost.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.launch import cost as _cost
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +54,16 @@ def split_bounds(T: int, nsplit: int) -> list:
     return [(s * T // nsplit, (s + 1) * T // nsplit) for s in range(nsplit)]
 
 
+def decode_attention_cost(q, k, v, cache_len, softcap: float = 0.0):
+    """(FLOPs, bytes) of one call: the plain version's two products over
+    the whole cache (4 * B * H * T * hd), q and the cache read once, the
+    lengths (int32, B) read and the output written once."""
+    B, _, H, hd = q.shape
+    T = k.shape[1]
+    return 4 * B * H * T * hd, 2 * _cost.nbytes(q) + _cost.nbytes(k) + _cost.nbytes(v) + 4 * B
+
+
+@_cost.reports(decode_attention_cost)
 def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     """q: (B, 1, H, hd); k/v: (B, T, KV, hd); cache_len: scalar or (B,)
     valid positions per sequence. Returns (B, 1, H, hd) in q's dtype.
@@ -69,6 +81,8 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
         o = decode_attention_ref(qg, k.transpose(1, 2), v.transpose(1, 2), lens, softcap=softcap)
         return o.reshape(B, 1, H, hd)
     _grad.forward_only("decode_attention", q, k, v)
+    if q.is_meta:
+        return torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     if S != 1 or H % KV or k.shape != (B, T, KV, hd) or v.shape != k.shape:
         raise ValueError(f"decode_attention: q (B, 1, H, hd) over k/v (B, T, KV, hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")

@@ -8,8 +8,10 @@ both entry points hand it their tensors as they lie: ``flash_attention``
 the model's (B, S, H, hd) layout, ``flash_attention_bhsd`` the TPU kernel's
 (B, H, S, hd). Neither makes a copy. Both count their launches on
 ``flash_attention_bhsd.launches``. Where a gradient is wanted (training),
-the kernel runs inside ``FlashFn``, whose backward is the plain version's
-(``kernels/_grad.py``): the TPU kernel is forward only, as is this one."""
+the forward runs inside ``FlashFn`` on every device, whose backward is the
+plain version's (``kernels/_grad.py``): the TPU kernel is forward only, as
+is this one. On a meta tensor only the output is allocated (the dry run);
+under a cost counter a call reports ``flash_cost`` (``launch/cost.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.launch import cost as _cost
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +76,17 @@ def _plain(q, k, v, layout: str):
     return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
 
+def _forward(q, k, v, layout: str):
+    """The plain version on the CPU, the output alone on the meta device,
+    the kernel on the card; contiguous on every device, as the kernel
+    writes it."""
+    if q.device.type == "cpu":
+        return _plain(q, k, v, layout).contiguous()
+    if q.is_meta:
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, layout)
+
+
 class FlashFn(torch.autograd.Function):
     """The kernel forward; the backward of the plain version at the saved
     q, k, v (its S x S scores recomputed, as the reference's chunked jnp
@@ -82,7 +96,7 @@ class FlashFn(torch.autograd.Function):
     def forward(ctx, q, k, v, layout):
         ctx.save_for_backward(q, k, v)
         ctx.layout = layout
-        return _launch(q, k, v, layout)
+        return _forward(q, k, v, layout)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,13 +105,20 @@ class FlashFn(torch.autograd.Function):
 
 
 def _attend(q, k, v, layout: str):
-    if q.device.type == "cpu":
-        return _plain(q, k, v, layout)
     if _grad.wants_grad(q, k, v):
         return FlashFn.apply(q, k, v, layout)
-    return _launch(q, k, v, layout)
+    return _forward(q, k, v, layout)
 
 
+def flash_cost(q, k, v, layout: str = "bhsd"):
+    """(FLOPs, bytes) of one call: the plain version's two products over
+    the whole S x S scores (4 * B * H * S^2 * hd), q, k and v read once and
+    the output written once."""
+    B, S, H, hd = q.shape if layout == "bshd" else (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
+    return 4 * B * H * S * S * hd, 2 * _cost.nbytes(q) + _cost.nbytes(k) + _cost.nbytes(v)
+
+
+@_cost.reports(flash_cost)
 def flash_attention_bhsd(q, k, v):
     """q: (B, H, S, hd); k/v: (B, KV, S, hd) -> (B, H, S, hd)."""
     return _attend(q, k, v, "bhsd")
@@ -106,6 +127,7 @@ def flash_attention_bhsd(q, k, v):
 flash_attention_bhsd.launches = 0
 
 
+@_cost.reports(lambda q, k, v: flash_cost(q, k, v, "bshd"))
 def flash_attention(q, k, v):
     """q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd), causal; on a
     CUDA tensor the output is contiguous."""

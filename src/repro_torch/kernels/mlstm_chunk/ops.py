@@ -7,8 +7,11 @@ bf16 inputs take the tensor-core instance, whose blocks hold ``TC``
 columns of C each, ``plan_col_tile`` choosing TC from the shapes; f32
 inputs (the parity runs) take the exact-FMA instance, 32 columns a block,
 with a global scratch for its gate scalars. Where a gradient is wanted
-(training), the kernel runs inside ``MLSTMFn``, whose backward is the plain
-version's (``kernels/_grad.py``), the carry outputs ``(C, n, m)`` included."""
+(training), the forward runs inside ``MLSTMFn`` on every device, whose
+backward is the plain version's (``kernels/_grad.py``), the carry outputs
+``(C, n, m)`` included. On a meta tensor only the outputs are allocated
+(the dry run); under a cost counter a call reports ``mlstm_cost``
+(``launch/cost.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.mlstm_chunk import ref
+from repro_torch.launch import cost as _cost
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,17 +38,37 @@ def plan_col_tile(BH: int, DH: int, n_sms: int = SMS) -> int:
     return 16 if BH * DH // 32 < n_sms else 32
 
 
+def mlstm_cost(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
+    """(FLOPs, bytes) of one call: the plain version's products, S / L
+    chunks of q k^T and s v (2 * L^2 * DH each), q C and the carry update
+    k^T v (2 * L * DH^2 each) and q n (2 * L * DH) per head; every input
+    read once and h, C, n, m written once."""
+    BH, S, DH = q.shape
+    L = ref.chunk_len(S, chunk)
+    flops = BH * (S // L) * (4 * L * L * DH + 4 * L * DH * DH + 2 * L * DH)
+    return flops, sum(_cost.nbytes(t) for t in (q, k, v, i, lf, C0, n0, m0, q, C0, n0, m0))
+
+
+def _forward(q, k, v, i, lf, C0, n0, m0, chunk: int):
+    """The plain version on the CPU, the outputs alone on the meta device,
+    the kernel on the card."""
+    if q.device.type == "cpu":
+        return ref.mlstm_chunkwise_bh_ref(q, k, v, i, lf, C0, n0, m0, chunk=chunk)
+    if q.is_meta:
+        return torch.empty_like(q), torch.empty_like(C0), torch.empty_like(n0), torch.empty_like(m0)
+    return _launch(q, k, v, i, lf, C0, n0, m0, chunk)
+
+
+@_cost.reports(mlstm_cost)
 def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     """q, k, v: (BH, S, DH) f32 or bf16; i, lf: (BH, S) f32 (lf =
     log_sigmoid(f)); C0 (BH, DH, DH), n0 (BH, DH), m0 (BH) f32. Returns (h
     (BH, S, DH) in q's dtype, C, n, m) in f32. On the card the bf16 kernel
     takes a chunk length L up to what a block's shared memory holds (5348
     steps at DH 512; ``csrc/mlstm_chunk.cu``); past it the launch raises."""
-    if q.device.type == "cpu":
-        return ref.mlstm_chunkwise_bh_ref(q, k, v, i, lf, C0, n0, m0, chunk=chunk)
     if _grad.wants_grad(q, k, v, i, lf, C0, n0, m0):
         return MLSTMFn.apply(q, k, v, i, lf, C0, n0, m0, chunk)
-    return _launch(q, k, v, i, lf, C0, n0, m0, chunk)
+    return _forward(q, k, v, i, lf, C0, n0, m0, chunk)
 
 
 def _launch(q, k, v, i, lf, C0, n0, m0, chunk: int):
@@ -98,7 +122,7 @@ class MLSTMFn(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, i, lf, C0, n0, m0)
         ctx.chunk = chunk
-        return _launch(q, k, v, i, lf, C0, n0, m0, chunk)
+        return _forward(q, k, v, i, lf, C0, n0, m0, chunk)
 
     @staticmethod
     def backward(ctx, gh, gC, gn, gm):

@@ -11,7 +11,10 @@ The decode takes any G = H / KV: past 8 query heads a KV head, in head
 groups of 4 a block (``head_groups``). When the blocks would leave the
 card's SMs idle, it splits each row's pages across blocks
 (``plan_page_splits``) and a second kernel combines the splits in a fixed
-order; the call counts one launch. The prefill writes take a chunk's
+order; the call counts one launch. On a meta tensor the decode allocates
+its output and the writes do nothing (the dry run); under a cost counter
+each call reports its ``*_cost`` (``launch/cost.py``). The prefill writes
+take a chunk's
 offset as a page count that the kernel resolves (``write_page_ids``), so a
 chunked write is one device operation, on a grid from ``plan_write_grid``.
 ``paged_gather_context`` and the speculative verify writes
@@ -35,6 +38,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_verify_write_quant_ref,
     paged_verify_write_ref,
 )
+from repro_torch.launch import cost as _cost
 from repro_torch.models.quant import dequantize_kv
 
 _P = ctypes.c_void_p
@@ -131,6 +135,19 @@ def _write_args(name: str, pool_k, k, v, tab_row, offset):
     return tab, 0 if offset is None else max(-P, min(P, int(offset) // ps))
 
 
+def paged_write_cost(pool_k, pool_v, k, v, tab_row, offset=None):
+    """(FLOPs, bytes) of a prefill write: k, v and the row read once, the
+    Lp tokens' rows written once in the pool's dtype."""
+    tokens = k.numel() // max(1, k.shape[-1])
+    return 0, (_cost.nbytes(k) + _cost.nbytes(v) + 4 * _numel(tab_row)
+               + 2 * tokens * k.shape[-1] * pool_k.element_size())
+
+
+def _numel(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else len(x)
+
+
+@_cost.reports(paged_write_cost)
 def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     """Scatter one prefilled prompt's (or prompt chunk's) K/V through its
     block-table row, IN PLACE.
@@ -145,6 +162,8 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     if pool_k.device.type == "cpu":
         return paged_prefill_write_ref(pool_k, pool_v, k, v, tab)
     _grad.forward_only("paged_prefill_write", k, v)
+    if pool_k.is_meta:
+        return pool_k, pool_v
     num_pages, KV, ps, hd = pool_k.shape
     if pool_k.dtype not in _build.DTYPE_CODE or not (
             pool_v.dtype == k.dtype == v.dtype == pool_k.dtype) or pool_v.shape != pool_k.shape:
@@ -164,6 +183,14 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
 paged_prefill_write.launches = 0
 
 
+def paged_write_quant_cost(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, offset=None):
+    """(FLOPs, bytes) of a quantizing write: k, v and the row read once,
+    the Lp tokens' int8 rows and bf16 scales written once."""
+    tokens = k.numel() // max(1, k.shape[-1])
+    return 0, _cost.nbytes(k) + _cost.nbytes(v) + 4 * _numel(tab_row) + 2 * tokens * (k.shape[-1] + 2)
+
+
+@_cost.reports(paged_write_quant_cost)
 def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, offset=None):
     """Int8 leg of ``paged_prefill_write``: quantize per (token, head) at
     write time and land the int8 values in pool_k/pool_v (num_pages, KV, ps,
@@ -173,6 +200,8 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
     if pool_k.device.type == "cpu":
         return paged_prefill_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
     _grad.forward_only("paged_prefill_write_quant", k, v)
+    if pool_k.is_meta:
+        return pool_k, pool_v, pool_ks, pool_vs
     num_pages, KV, ps, hd = pool_k.shape
     if not (pool_k.dtype == pool_v.dtype == torch.int8 and pool_v.shape == pool_k.shape):
         raise ValueError("paged_prefill_write_quant: pool_k/pool_v must be int8 of one shape")
@@ -231,6 +260,23 @@ def paged_gather_context(pool_k, pool_v, tab_row, pool_ks=None, pool_vs=None):
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
+def paged_attention_cost(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
+                         pool_ks=None, pool_vs=None, l2_tab=None):
+    """(FLOPs, bytes) of one decode call, from the shapes: the plain
+    version's two products over the P * ps positions a row names (4 * B * H
+    * P * ps * hd); q, the tables and lengths read once, every page a row
+    names read once (K and V, with their scales on the int8 leg), the
+    output written once."""
+    B, _, H, hd = q.shape
+    _, KV, ps, _ = pool_k.shape
+    tab = block_tab if isinstance(block_tab, torch.Tensor) else torch.as_tensor(block_tab)
+    P = tab.shape[1] * (l2_tab.shape[1] if l2_tab is not None else 1)
+    row = hd * pool_k.element_size() + (2 if pool_ks is not None else 0)
+    tables = 4 * (tab.numel() + (l2_tab.numel() if l2_tab is not None else 0) + B)
+    return 4 * B * H * P * ps * hd, 2 * _cost.nbytes(q) + 2 * B * P * KV * ps * row + tables
+
+
+@_cost.reports(paged_attention_cost)
 def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
                     pool_ks=None, pool_vs=None, l2_tab=None):
     """q: (B, 1, H, hd); pools: (num_pages, KV, ps, hd); block_tab: (B, P)
@@ -251,6 +297,8 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
         return paged_attention_ref(qg, pool_k, pool_v, tab, lens, softcap=softcap, pool_ks=pool_ks,
                                    pool_vs=pool_vs, l2_tab=l2).reshape(B, 1, H, hd)
     _grad.forward_only("paged_attention", q, pool_k, pool_v)
+    if q.is_meta:
+        return torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     if S != 1 or H % KV:
         raise ValueError(f"paged_attention: q must be (B, 1, H, hd) with H % KV == 0, got {tuple(q.shape)}")
     if q.dtype not in _build.DTYPE_CODE or pool_v.dtype != pool_k.dtype:

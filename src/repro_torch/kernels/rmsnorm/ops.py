@@ -1,7 +1,9 @@
 """Model-facing RMSNorm: arbitrary leading dims, the CUDA kernel on a CUDA
-tensor (``csrc/rmsnorm.cu``), the plain version on a CPU tensor. Where a
-gradient is wanted (training), the kernel runs inside ``RMSNormFn``, whose
-backward is the plain version's (``kernels/_grad.py``)."""
+tensor (``csrc/rmsnorm.cu``), the plain version on a CPU tensor, and on a
+meta tensor only the output's allocation (the dry run). Where a gradient is
+wanted (training), the forward runs inside ``RMSNormFn`` on every device,
+whose backward is the plain version's (``kernels/_grad.py``). Under a cost
+counter the call reports ``rmsnorm_cost`` (``launch/cost.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,18 +12,34 @@ import torch
 
 from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.launch import cost as _cost
 
 _P = ctypes.c_void_p
 _RT = _build.Entry("rt_rmsnorm", [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                   ctypes.c_int, _P])
 
 
+def rmsnorm_cost(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    """(FLOPs, bytes): no matrix product; x and w read once, the output
+    written once."""
+    return 0, 2 * _cost.nbytes(x) + _cost.nbytes(w)
+
+
+@_cost.reports(rmsnorm_cost)
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); w: (D,). Returns x's shape and dtype."""
-    if x.is_cpu:
-        return rmsnorm_ref(x, w, eps)
     if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
         return RMSNormFn.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """The plain version on the CPU, the output alone on the meta device,
+    the kernel on the card."""
+    if x.is_cpu:
+        return rmsnorm_ref(x, w, eps)
+    if x.is_meta:
+        return torch.empty_like(x)
     return _launch(x, w, eps)
 
 
@@ -43,13 +61,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class RMSNormFn(torch.autograd.Function):
-    """The kernel forward; the backward of ``rmsnorm_ref`` at the saved x, w."""
+    """The kernel forward (``_forward``); the backward of ``rmsnorm_ref`` at
+    the saved x, w."""
 
     @staticmethod
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        return _launch(x, w, eps)
+        return _forward(x, w, eps)
 
     @staticmethod
     def backward(ctx, g):

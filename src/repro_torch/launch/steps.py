@@ -1,14 +1,17 @@
 """Step builders (the torch twin of ``repro/launch/steps.py``): the train
-step, with gradient accumulation over microbatches, and the serving steps.
-The JAX package's sharding trees and ``lower_*`` helpers wait for the
-port's sharding; PyTorch runs each step eagerly, so nothing is jitted."""
+step, with gradient accumulation over microbatches, the serving steps, and
+the dry run's ``lower_*`` helpers, which put each step over meta stand-ins.
+The JAX package's sharding trees wait for the port's sharding; PyTorch runs
+each step eagerly, so nothing is jitted: a "lowered" step is the step and
+its stand-ins, run once under ``launch/cost.CostCounter``."""
 from __future__ import annotations
 
-from typing import Any, Mapping
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping
 
 import torch
 
-from repro_torch.train.optimizer import OptConfig, adamw_update
+from repro_torch.train.optimizer import OptConfig, adamw_update, opt_state_shapes
 from repro_torch.train.tree import leaves, map_tree, unflatten
 
 
@@ -79,3 +82,56 @@ def make_decode_step(model):
         return model.decode(params, cache, batch)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Lowering helpers (the dry run)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Lowered:
+    """A step over its meta stand-ins: ``lowered()`` runs it once; ``args``
+    are its arguments and ``donated`` those its outputs take the place of
+    (the parameters and states in training, the cache in decode)."""
+
+    step: Callable
+    args: tuple
+    donated: tuple = ()
+
+    def __call__(self):
+        return self.step(*self.args)
+
+
+def lower_train(model, shape_spec, ocfg: OptConfig, microbatches: int = 1) -> Lowered:
+    pshapes = model.param_shapes()
+    oshapes = opt_state_shapes(pshapes, ocfg)
+    inputs = model.input_specs(shape_spec)
+    step = make_train_step(model, ocfg, microbatches=microbatches)
+    return Lowered(step, (pshapes, oshapes, inputs), (pshapes, oshapes))
+
+
+def _serve_params(model):
+    """The serving parameters' stand-ins: weight-only int8 when enabled."""
+    pshapes = model.param_shapes()
+    if model.cfg.weights_int8:
+        from repro_torch.models.quant import quantized_shape_tree
+
+        pshapes = quantized_shape_tree(pshapes)
+    return pshapes
+
+
+def lower_prefill(model, shape_spec) -> Lowered:
+    inputs = model.input_specs(shape_spec)
+    step = make_prefill_step(model, cap=shape_spec.seq_len)
+    return Lowered(step, (_serve_params(model), inputs))
+
+
+def lower_decode(model, shape_spec) -> Lowered:
+    """One decode step over a dense cache of ``seq_len`` positions, written
+    at its last one: ``cache_index`` is that host int (the port's decode
+    reads it on the host; a meta tensor has no value to read)."""
+    B, S = shape_spec.global_batch, shape_spec.seq_len
+    inputs = dict(model.input_specs(shape_spec), cache_index=S - 1)
+    cache = model.init_cache(B, S, "meta")          # cache_defs(B, S), nothing allocated
+    return Lowered(make_decode_step(model), (_serve_params(model), cache, inputs), (cache,))

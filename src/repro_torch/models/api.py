@@ -16,6 +16,7 @@ tokens), each chosen by ``get_model``.
     tok, cache = EmbedsLM(cfg).prefill(params, {"inputs_embeds": e, "positions": p})
     tok, cache = EncDecLM(cfg).prefill(params, {"frames": f, "tokens": t})
     loss, metrics = model.loss(params, {"tokens": t, "labels": l})   # training
+    model.param_shapes(); model.input_specs(shape)           # the dry run's meta stand-ins
 
 Batches hold tensors on the model's device, or host values the functions
 move there. Caches and page pools are updated in place.
@@ -30,10 +31,22 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
-from repro_torch.models.common import ModelConfig, init_tree
+from repro_torch.models.common import ModelConfig, init_tree, shape_tree
 from repro_torch.models.loss import lm_loss, logits, next_tokens, next_tokens_all
 from repro_torch.models.quant import check_int8_family, init_quantized
 from repro_torch.models.rotary import mrope_positions_for, positions_for
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+def _tok(shape, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device=device)
 
 
 def _last_valid(h: torch.Tensor, n_valid) -> torch.Tensor:
@@ -78,6 +91,12 @@ class DecoderLM:
             check_int8_family(self.cfg)
             return init_quantized(gen, self.param_defs(), self.cfg.param_dtype, gen.device)
         return init_tree(gen, self.param_defs(), self.cfg.param_dtype, gen.device)
+
+    def param_shapes(self, device="meta"):
+        """Empty tensors of the parameters' shapes and dtype (on the meta
+        device, the dry run's stand-ins; ``models/quant.quantized_shape_tree``
+        gives the weight-only int8 tree's)."""
+        return shape_tree(self.param_defs(), self.cfg.param_dtype, device)
 
     # -- cache ---------------------------------------------------------------
     def cache_defs(self, batch: int, cap: int):
@@ -336,6 +355,22 @@ class DecoderLM:
                               cache_index=idx)
         return next_tokens(self.cfg, params, h), cache
 
+    # -- dry-run specs ---------------------------------------------------------
+    def input_specs(self, shape: ShapeSpec, device="meta") -> dict:
+        """Empty tensors of every input of the step ``shape`` names, with the
+        JAX package's shapes and dtypes (int32 ids and a scalar
+        ``cache_index``), on the meta device by default: the port's
+        ``ShapeDtypeStruct``. The dry run hands the decode step a host int
+        for ``cache_index`` (``launch/steps.lower_decode``)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return {"tokens": _tok((B, S), device), "labels": _tok((B, S), device)}
+        if shape.kind == "prefill":
+            return {"tokens": _tok((B, S), device)}
+        if shape.kind == "decode":
+            return {"token": _tok((B, 1), device), "cache_index": _tok((), device)}
+        raise ValueError(shape.kind)
+
 
 @dataclass
 class EmbedsLM(DecoderLM):
@@ -358,6 +393,20 @@ class EmbedsLM(DecoderLM):
         in the JAX package). Returns (loss, metrics)."""
         h = self.hidden(params, positions=batch.get("positions"), inputs_embeds=batch["inputs_embeds"])
         return lm_loss(self.cfg, params, h, _tokens(batch["labels"], h.device))
+
+    def input_specs(self, shape: ShapeSpec, device="meta") -> dict:
+        """As ``DecoderLM.input_specs``, the prompt as inputs_embeds (B, S,
+        d) in the compute dtype with M-RoPE positions (3, B, S)."""
+        B, S, d = shape.global_batch, shape.seq_len, self.cfg.d_model
+        emb = torch.empty((B, S, d), dtype=self.cfg.compute_dtype, device=device)
+        pos = _tok((3, B, S), device)
+        if shape.kind == "train":
+            return {"inputs_embeds": emb, "positions": pos, "labels": _tok((B, S), device)}
+        if shape.kind == "prefill":
+            return {"inputs_embeds": emb, "positions": pos}
+        if shape.kind == "decode":
+            return {"token": _tok((B, 1), device), "cache_index": _tok((), device)}
+        raise ValueError(shape.kind)
 
 
 @dataclass
@@ -425,6 +474,20 @@ class EncDecLM(DecoderLM):
         h, cache = wh.forward(self.cfg, params, tokens=tok, positions=positions_for(B, S, idx, dev),
                               mode="decode", cache=cache, cache_index=idx)
         return next_tokens(self.cfg, params["decoder"], h), cache
+
+    def input_specs(self, shape: ShapeSpec, device="meta") -> dict:
+        """As ``DecoderLM.input_specs``, with the encoder's frames (B, n_ctx,
+        d) in the compute dtype for training and prefill."""
+        B, S = shape.global_batch, shape.seq_len
+        frames = torch.empty((B, self.cfg.encoder.n_ctx, self.cfg.d_model), dtype=self.cfg.compute_dtype,
+                             device=device)
+        if shape.kind == "train":
+            return {"frames": frames, "tokens": _tok((B, S), device), "labels": _tok((B, S), device)}
+        if shape.kind == "prefill":
+            return {"frames": frames, "tokens": _tok((B, S), device)}
+        if shape.kind == "decode":
+            return {"token": _tok((B, 1), device), "cache_index": _tok((), device)}
+        raise ValueError(shape.kind)
 
 
 def get_model(cfg: ModelConfig) -> DecoderLM:

@@ -245,17 +245,23 @@ def _group(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return q.reshape(B, S, kv_heads, H // kv_heads, hd)
 
 
-def _attend_block(q, k, v, mask, softcap: float = 0.0):
+def _attend_block(q, k, v, mask, softcap: float = 0.0, scores_bf16: bool = False):
     """q: (B,Cq,KV,G,hd); k/v: (B,T,KV,hd); mask: (B,1,1,Cq,T) bool. Scores
-    and softmax in f32; the probabilities meet V in q's dtype."""
-    hd = q.shape[-1]
+    and softmax in f32; the probabilities meet V in q's dtype. With
+    ``scores_bf16`` (``cfg.attn_scores_bf16``) the scores are materialised
+    in bf16, as the reference's ``preferred_element_type`` gives them, and
+    the softmax's exponent and sums stay f32."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("bqkgh,btkh->bkgqt", q.float(), k.float())
-    s = s * (1.0 / (hd ** 0.5))
+    if scores_bf16:
+        s = s.to(torch.bfloat16)
+        scale = s.new_tensor(scale)               # rounded to bf16, as the reference's
+    s = s * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.exp((s - m).float())
     p = p / torch.sum(p, dim=-1, keepdim=True)
     return torch.einsum("bkgqt,btkh->bqkgh", p.to(q.dtype), v.to(q.dtype))
 
@@ -274,7 +280,10 @@ def chunked_attention(
     attention with no softcap goes to the flash kernel (the plain version on
     the CPU), which masks by index — where the JAX package's ``use_pallas``
     path takes ``flash_attention_bhsd``, except that a softcap keeps the
-    plain path here, since the kernel has none. ``allow_kernel=False`` forces
+    plain path here, since the kernel has none. ``cfg.attn_scores_bf16``
+    applies to the plain path alone: the flash kernel keeps its scores in
+    f32, as the JAX package's Pallas kernel ignores the knob.
+    ``allow_kernel=False`` forces
     the plain path, masked by ``pos_q >= pos_k``: a chunk of queries over a
     longer context, or positions that are not ``arange(S)`` in every row
     (an image prompt's temporal stream repeats an index)."""
@@ -300,9 +309,10 @@ def chunked_attention(
             mask = torch.ones((B, 1, 1, pb.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
         if recompute:
             outs.append(ckpt.checkpoint(_attend_block, qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap,
-                                        use_reentrant=False))
+                                        cfg.attn_scores_bf16, use_reentrant=False))
         else:
-            outs.append(_attend_block(qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap))
+            outs.append(_attend_block(qg[:, c0:c0 + chunk], k, v, mask, cfg.logit_softcap,
+                                      cfg.attn_scores_bf16))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 

@@ -88,6 +88,8 @@ class ModelConfig:
     kv_cache_dtype: Any = None  # None -> compute_dtype
     logit_softcap: float = 0.0
     weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
+    attn_scores_bf16: bool = False  # the plain attention's scores in bf16 (attention._attend_block); not flash's
+    scan_unroll: int = 1        # no effect: the port loops over superblocks in Python, with no scan to unroll
     moe: Optional[MoECfg] = None
     mamba: Optional[MambaCfg] = None
     xlstm: Optional[XLSTMCfg] = None
@@ -207,6 +209,12 @@ def init_tree(gen: torch.Generator, defs, dtype, device) -> Any:
     """defs: nested dict of ParamDef -> same-structure dict of tensors, drawn
     from ``gen`` in the dicts' insertion order."""
     return map_defs(lambda d: init_param(gen, d, dtype, device), defs)
+
+
+def shape_tree(defs, dtype, device="meta") -> Any:
+    """Empty tensors of the defs' shapes in ``dtype``: on the meta device
+    (the default) the dry run's stand-ins, which allocate nothing."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype, device=device), defs)
 
 
 def stack_defs(defs: Any, n: int) -> Any:

@@ -26,7 +26,6 @@ import functools
 from typing import Mapping, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, ParamDef, activation
 from repro_torch.models.quant import qeinsum
@@ -131,7 +130,9 @@ def moe_core(cfg: ModelConfig, x_flat: torch.Tensor, logits: torch.Tensor, w1,
     buf.scatter_(1, sel_idx[..., None].expand(E, capacity, d), y)
     out = buf.sum(0)
 
-    counts = F.one_hot(r["topi"], E).sum((0, 1)).float()           # (E,)
+    # one_hot's CPU kernel reads the ids back to check their range (the
+    # card's does not); this comparison counts the same on every device
+    counts = (r["topi"][..., None] == torch.arange(E, device=x_flat.device)).sum((0, 1)).float()   # (E,)
     frac_tokens = counts / T / m.top_k
     frac_probs = r["probs"].mean(0)
     aux = E * torch.sum(frac_tokens * frac_probs)

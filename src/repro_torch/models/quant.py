@@ -156,6 +156,21 @@ def qeinsum(x: torch.Tensor, w: Union[torch.Tensor, QuantW]) -> torch.Tensor:
     return torch.mul(y, s, out=torch.empty(y.shape, dtype=x.dtype, device=y.device))
 
 
+def quantized_shape_tree(shapes: Any) -> Any:
+    """The tree ``quantize_params`` would give for a tree of tensors of the
+    parameters' shapes (the dry run's meta stand-ins), without computing
+    it: each eligible leaf becomes empty int8 values and bf16 scales on its
+    device."""
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return node
+        return {k: _empty_quant(v.shape, v.device)
+                if k in QUANT_LEAVES and isinstance(v, torch.Tensor) and v.ndim >= 2 else walk(v)
+                for k, v in node.items()}
+
+    return walk(shapes)
+
+
 def init_quantized(gen: torch.Generator, defs: Any, dtype, device) -> Any:
     """The tree ``quantize_params(init_tree(gen, defs, dtype, device))``
     would give, without the floating-point tree: every leaf is drawn in f32

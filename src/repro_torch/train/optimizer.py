@@ -11,8 +11,8 @@ State dtypes:
 Trees are nested dicts of tensors; the update walks the leaves in the JAX
 package's flatten order (``train/tree.py``), so the global norm sums them in
 its order. Every step is f32 arithmetic, cast back to each parameter's
-dtype. The reference's ``opt_state_shapes`` and its ZeRO-1 shardings wait
-for the port's sharding.
+dtype. ``opt_state_shapes`` gives the dry run's meta stand-ins; the
+reference's ZeRO-1 shardings wait for the port's sharding.
 """
 from __future__ import annotations
 
@@ -114,6 +114,24 @@ def init_opt_state(params: Any, ocfg: OptConfig) -> dict:
         "v": map_tree(lambda p: zero(p, False), params),
         "step": torch.zeros((), dtype=torch.int32, device=step_dev),
     }
+
+
+def opt_state_shapes(param_shapes: Any, ocfg: OptConfig, device="meta") -> dict:
+    """Empty tensors matching ``init_opt_state`` leaf for leaf (shapes and
+    dtypes), on the meta device by default: the dry run's stand-ins, which
+    allocate nothing. ``param_shapes`` is any tree of tensors of the
+    parameters' shapes."""
+    def enc(p):
+        if ocfg.state_dtype in ("float32", "bfloat16"):
+            return torch.empty(p.shape, dtype=getattr(torch, ocfg.state_dtype), device=device)
+        d = p.shape[-1] if p.ndim else 1
+        b = _block_for(d)
+        sshape = (tuple(p.shape) + (1,) if p.ndim else ()) if b == 0 else tuple(p.shape[:-1]) + (d // b,)
+        return {"q": torch.empty(p.shape, dtype=torch.int8, device=device),
+                "scale": torch.empty(sshape, dtype=torch.float32, device=device)}
+
+    return {"m": map_tree(enc, param_shapes), "v": map_tree(enc, param_shapes),
+            "step": torch.empty((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

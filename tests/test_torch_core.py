@@ -156,8 +156,10 @@ def test_import_loads_no_jax():
         "        'repro_torch.configs.whisper_large_v3', 'repro_torch.models.moe',\n"
         "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.llama4_maverick',\n"
         "        'repro_torch.configs.jamba_15_large', 'repro_torch.models.xception',\n"
-        "        'repro_torch.benchmarks.fig3_training', 'repro_torch.launch.train_small'}\n"
-        "sys.exit(1 if bad or len(names) < 76 or not need <= set(names) else 0)\n"
+        "        'repro_torch.benchmarks.fig3_training', 'repro_torch.launch.train_small',\n"
+        "        'repro_torch.configs.shapes', 'repro_torch.launch.flops', 'repro_torch.launch.cost',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.benchmarks.roofline'}\n"
+        "sys.exit(1 if bad or len(names) < 91 or not need <= set(names) else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

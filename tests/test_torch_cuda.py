@@ -1778,3 +1778,39 @@ def test_cuda_train_small_resumes_with_its_launches(cuda_device, tmp_path, capsy
     assert r["resumed_from"] == 20 and r["resumed"]["steps_done"] == 40
     assert "OK — checkpoint/restart training complete" in capsys.readouterr().out
     assert n == [40 * (2 * L + 1), 0, 0, 0, 40 * L, 0], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_cuda_cost_counter_matches_meta(cuda_device, kind):
+    """A smollm SMOKE train step and a dense decode step counted on the card
+    (the kernels reporting their own work) equal the meta trace of the same
+    shapes: FLOPs, operation traffic and argument bytes."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import cost, steps
+    from repro_torch.models import get_model
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    B, S = 2, 16
+    model = get_model(get_config("smollm-360m", smoke=True))
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    params = model.init(gen)
+    ids = lambda *s: torch.randint(0, model.cfg.vocab_size, s, generator=gen, device=cuda_device,  # noqa: E731
+                                   dtype=torch.int32)
+    spec = ShapeSpec(kind, kind, S, B)
+    if kind == "train":
+        step = steps.make_train_step(model, OptConfig())
+        args = (params, init_opt_state(params, OptConfig()), {"tokens": ids(B, S), "labels": ids(B, S)})
+        low = steps.lower_train(model, spec, OptConfig())
+    else:
+        step = steps.make_decode_step(model)
+        args = (params, model.init_cache(B, S, cuda_device), {"token": ids(B, 1), "cache_index": S - 1})
+        low = steps.lower_decode(model, spec)
+    before = rms_ops.rmsnorm.launches
+    _, card = cost.step_cost(lambda: step(*args), args)
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm.launches > before            # the kernels ran
+    _, meta = cost.step_cost(low, low.args, low.donated)
+    assert (card["flops"], card["mem_bytes"], card["argument_bytes"]) == (
+        meta["flops"], meta["mem_bytes"], meta["argument_bytes"])
