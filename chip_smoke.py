@@ -63,7 +63,7 @@ result line:
                 chained tables; bytes per cached token of each pool
   7. options  — the engines' options at FULL width in bf16 on phase 4's
                 weights, each under an EngineLoop: speculative decoding (8
-                motif prompts of 64 tokens, 24 new tokens, spec_tokens 4) on
+                motif prompts of 64 tokens, 16 new tokens, spec_tokens 4) on
                 a paged engine (spec off, on, on over an int8 pool) and a
                 dense one (off, on; whole-prompt, so flash runs), every
                 verify pass 65 rmsnorm launches and no decode kernel; the
@@ -281,7 +281,23 @@ result line:
                 the time over the bound and the predicted peak beside
                 max_memory_allocated's growth; LatencyEstimator reading the
                 records back, step_time equal to each record's
- 19. summary  — the kernels JSON line, then the result line.
+ 19. witness  — run right after phase 4, on its weights: the port's
+                analyzers (repro_torch.analysis) on this checkout, 0
+                unsuppressed findings and docs/lock_order_torch.json
+                fresh; then phase 4's chunked serve again with every lock
+                witnessed (the router, each backend's condition, each
+                EngineLoop and engine, the tracer, the sampler, and
+                kernels/_build's build and count locks), its 24 requests
+                from 6 submitter threads: 0 failures, the three kernels
+                of the path launched, the streams of requests served on
+                the same tier as in phase 4 equal to phase 4's (others
+                held to FLIP_BOUND on the CPU), observed lock orders
+                consistent with the static graph and the engine's step
+                lock seen taking the count lock; acquire counts, observed
+                and unknown edges; the witnessed serve's time beside
+                phase 4's, and a batch-8 decode step's time in
+                alternating unwitnessed and witnessed legs
+ 20. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -1853,7 +1869,7 @@ def phase_pools(torch, cfg, params, dev):
     return {"int8_chained": i8c, "int8_flat": i8f, "bf16_chained": bfc}
 
 
-OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 24     # the options phase's spec traffic
+OPT_MOTIF, OPT_PROMPT, OPT_NEW = 16, 64, 16     # the options phase's spec traffic
 
 
 def motif_prompts(vocab: int) -> list:
@@ -4881,6 +4897,182 @@ def phase_dryrun(torch, dev) -> dict:
     return {"records": recs, "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# 19. witness: the analysis tier, and phase 4's serve under the lock-order witness
+# ---------------------------------------------------------------------------
+
+WITNESS_SUBMITTERS = 6
+WITNESS_STEPS = 3           # decode steps a leg of the witnessed-step timing covers
+WITNESS_ROUNDS = 3          # rounds of four legs: unwitnessed, witnessed, witnessed, unwitnessed
+
+
+def witnessed_step_ms(torch, cfg, params, dev) -> dict:
+    """A batch-8 paged decode step's time on the host clock (synchronized,
+    mean of WITNESS_STEPS steps a leg) with no lock witnessed and with the
+    engine's step RLock and ``_build``'s two locks witnessed (the count lock
+    is taken at every launch: 97 a step), in WITNESS_ROUNDS rounds of
+    unwitnessed, witnessed, witnessed, unwitnessed legs on one engine."""
+    from repro_torch.analysis.witness import LockWitness, instrument_build, instrument_engine
+    from repro_torch.launch.serve_hybrid import MAXLEN, PROMPT, PS, prompt_for
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+
+    B = 8
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(
+        page_size=PS, num_pages=1 + B * MAXLEN // PS, max_slots=B, max_seq_len=MAXLEN,
+        max_new_tokens=MAXLEN - PROMPT), params=params, device=dev)
+    for i in range(B):
+        eng.submit(prompt_for(i, cfg.vocab_size))
+    while eng.waiting:
+        eng.step()
+    eng.step()
+    lock, w = eng.lock, LockWitness()
+
+    def leg(witnessed: bool) -> float:
+        restore = None
+        if witnessed:
+            instrument_engine(eng, w)
+            restore = instrument_build(w)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(WITNESS_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / WITNESS_STEPS
+        finally:
+            if restore is not None:
+                restore()
+                eng.lock = lock
+
+    plain, witnessed = [], []
+    for _ in range(WITNESS_ROUNDS):
+        for on in (False, True, True, False):
+            (witnessed if on else plain).append(leg(on))
+    n = WITNESS_ROUNDS * 2 * WITNESS_STEPS
+    return {"plain": plain, "witnessed": witnessed,
+            "count_lock_per_step": w.acquire_counts().get("_build._count_lock", 0) / n}
+
+
+def check_witnessed_streams(torch, r, chunked) -> None:
+    """The witnessed serve's greedy streams against phase 4's, request by
+    request. Where both runs served a request on the same tier (an engine
+    of the same shapes), the streams must be equal token for token: the
+    witness must not change a bit of the computation. The 1-, 8- and
+    4-slot tiers run their bf16 products at other batch sizes, which may
+    round apart; a stream served on another tier than in phase 4 that
+    differs is held, every token, to the parity phase's rule (its lead on
+    the CPU in f32 on the same weights within FLIP_BOUND)."""
+    from repro_torch.launch import serve_hybrid
+    from repro_torch.models import get_model
+
+    N = serve_hybrid.N
+    tier = {q.rid: q.tier.name for q in r["metrics"].completed}
+    tier4 = {q.rid: q.tier.name for q in chunked["metrics"].completed}
+    differ = [rid for rid in range(N) if r["results"][rid] != chunked["results"][rid]]
+    same = [rid for rid in range(N) if tier[rid] == tier4[rid]]
+    log(f"  greedy streams equal to phase 4's: {N - len(differ)} of {N}; {len(same)} requests on "
+        f"the same tier as in phase 4, {sum(rid not in differ for rid in same)} of them equal")
+    for rid in differ:
+        a, b = r["results"][rid], chunked["results"][rid]
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        log(f"    rid {rid}: tier {tier[rid]} (phase 4 {tier4[rid]}), first difference at token {j}: "
+            f"{a[j]} against {b[j]}")
+    bad = [rid for rid in differ if rid in same]
+    if bad:
+        raise AssertionError(f"witnessed serve: streams differ from phase 4's on the same tier: rids {bad}")
+    if differ:
+        par = Parity(torch)
+        model = get_model(par.f32(chunked["cfg"]))
+        p32 = par.to_cpu(chunked["params"])
+        with torch.no_grad():
+            for rid in differ:
+                par.forced(model, p32, "smollm-witness", rid, r["prompts"][rid], r["results"][rid])
+        par.report()
+
+
+def phase_witness(torch, dev, chunked) -> dict:
+    """The port's analyzers on this checkout (0 unsuppressed findings, the
+    committed lock-order graph fresh), then phase 4's chunked serve again
+    under the lock-order witness: 24 requests from WITNESS_SUBMITTERS
+    threads through the router and three EngineLoops as
+    launch/serve_hybrid builds them, on phase 4's weights, with the
+    router, every backend's condition, each loop and engine, the tracer,
+    the sampler and ``_build``'s two locks witnessed. Asserts 0 failures,
+    the path's three kernels launched, the same greedy outputs as phase 4
+    for every request, observed orders consistent with the static graph
+    (the engine's step lock reentrant), and the edge from the engine's
+    step lock to the count lock both observed and static."""
+    from repro_torch.analysis.__main__ import run_all
+    from repro_torch.analysis.common import unsuppressed
+    from repro_torch.analysis.witness import LockWitness, instrument_build
+    from repro_torch.launch import serve_hybrid
+
+    t0 = time.perf_counter()
+    findings, graph = run_all(ROOT, ["locklint", "lockorder", "kernelcheck"])
+    loud = unsuppressed(findings)
+    if loud:
+        raise AssertionError("analysis findings:\n" + "\n".join(f.format() for f in loud))
+    doc = json.dumps(graph.to_json(), indent=2, sort_keys=True) + "\n"
+    if (ROOT / "docs" / "lock_order_torch.json").read_text() != doc:
+        raise AssertionError("docs/lock_order_torch.json is stale against the tree")
+    static = {(e.src, e.dst) for e in graph.edges}
+    log(f"  analyzers: 0 unsuppressed findings, {len(findings)} suppressed with reasons; "
+        f"{len(graph.edges)} static edges, docs/lock_order_torch.json fresh; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    w = LockWitness()
+    restore = instrument_build(w)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        r = serve_hybrid.main(device="cuda", smoke=False, chunk_tokens=32,
+                              out_dir=str(OUT / "serve_witness"), seed=0, params=chunked["params"],
+                              verbose=False, witness=w, submitters=WITNESS_SUBMITTERS)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    m = r["metrics"].summary()
+    log(f"  witnessed serve: {m['total']} requests from {WITNESS_SUBMITTERS} submitters, "
+        f"{m['failed']} failed, serve {r['serve_s']:.3f} s (wall {wall:.3f} s incl. tier set-up), "
+        f"placement {r['by_tier']}, {r['hedged']} hedged; launches {counts}")
+    log(f"  serve time witnessed {r['serve_s']:.3f} s against phase 4's unwitnessed "
+        f"{chunked['serve_s']:.3f} s (1 submitter; same requests, weights and tiers)")
+    if m["failed"] or m["total"] != serve_hybrid.N:
+        raise AssertionError(f"witnessed serve: {m}")
+    for name in ("rmsnorm", "paged_prefill_write", "paged_attention[flat]"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the witnessed serve")
+
+    check_witnessed_streams(torch, r, chunked)
+
+    counts_w = w.acquire_counts()
+    observed = w.edges()
+    unknown = w.unknown_edges(static)
+    log(f"  acquires: {dict(sorted(counts_w.items()))}")
+    log("  observed edges: " + ", ".join(f"{e.src} -> {e.dst} x{e.count}" for e in observed))
+    log(f"  unknown_edges (observed, not static): {sorted(unknown)}")
+    w.assert_consistent(static, reentrant={"_EngineBase.lock"})
+    edge = ("_EngineBase.lock", "_build._count_lock")
+    if edge not in static or edge not in w.edge_set(strip_instances=True):
+        raise AssertionError(f"{edge[0]} -> {edge[1]} must be static and observed: "
+                             f"static {edge in static}, observed {sorted(w.edge_set(strip_instances=True))}")
+    for name in ("StraightLineRouter._lock", "EngineLoop._lock", "_EngineBase.lock", "Tracer._lock",
+                 "MonitorSampler._lock", "_build._count_lock"):
+        if counts_w.get(name, 0) <= 0:
+            raise AssertionError(f"witnessed serve: {name} was never acquired: {counts_w}")
+
+    step = witnessed_step_ms(torch, chunked["cfg"], chunked["params"], dev)
+    log(f"  batch-8 decode step (host clock, synchronized, {WITNESS_STEPS} steps a leg, {WITNESS_ROUNDS} "
+        f"rounds of unwitnessed, witnessed, witnessed, unwitnessed): median unwitnessed "
+        f"{statistics.median(step['plain']):.3f} ms {[round(x, 3) for x in step['plain']]}, median "
+        f"witnessed {statistics.median(step['witnessed']):.3f} ms "
+        f"{[round(x, 3) for x in step['witnessed']]}; {step['count_lock_per_step']:g} count-lock "
+        f"acquires a witnessed step")
+    return {"counts": counts, "serve_s": r["serve_s"], "step": step}
+
+
 def main() -> int:
     import torch
 
@@ -4947,6 +5139,13 @@ def main() -> int:
     prefill_ops(torch, chunked["cfg"], chunked["params"], dev)
     next(r for r in rows if r["name"] == "paged_prefill_write")["chunked_prefill_ops"] = (
         chunked_write_ops(torch, chunked["cfg"], chunked["params"], dev))
+
+    # 19. witness: the analysis tier, and phase 4's chunked serve under the lock-order witness
+    log(f"phase 19 witness: the port's analyzers; phase 4's chunked serve from {WITNESS_SUBMITTERS} "
+        f"submitters with every lock witnessed [at {time.perf_counter() - T_START:.1f} s]")
+    t_witness = time.perf_counter()
+    witness = phase_witness(torch, dev, chunked)
+    log(f"  witness phase {time.perf_counter() - t_witness:.1f} s")
 
     # 5. launcher
     log(f"phase 5 launcher: launch/serve.main(), smollm-360m FULL bf16, 32 requests, dense engines [at {time.perf_counter() - T_START:.1f} s]")
@@ -5063,8 +5262,8 @@ def main() -> int:
     phase_dryrun(torch, dev)
     log(f"  dryrun phase {time.perf_counter() - t_dry:.1f} s")
 
-    # 19. summary
-    runs = {"serve_chunk32": c_counts, "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
+    # 20. summary
+    runs = {"serve_chunk32": c_counts, "witness_chunk32": witness["counts"], "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
             "pools_bf16_chained": pools["bf16_chained"]["counts"],

@@ -33,10 +33,13 @@ NVCC_FLAGS = [
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()  # locklint: blocking-ok one build a process: a later caller waits for the nvcc run, then loads its library
+_lib: Optional[ctypes.CDLL] = None  # guarded by: _lock
 _count_lock = threading.Lock()
-build_info: Dict[str, object] = {}   # seconds and compiler output of this process's build
+build_info: Dict[str, object] = {}  # guarded by: _lock -- seconds and compiler output of this process's build
+# the launch counters each wrapper carries (``wrapper.launches``, and
+# ``wrapper.leg_launches`` for a kernel with several legs)
+_GUARDED = {"launches": "_count_lock", "leg_launches": "_count_lock"}
 
 
 def _nvcc() -> str:

@@ -269,11 +269,13 @@ def main(argv: Optional[List[str]] = None, params=None) -> dict:
     prefill = f"chunked prefill ({args.chunk_tokens} tok)" if args.chunk_tokens else "whole-prompt prefill"
     print(f"{args.requests} requests in {wall:.1f}s ({mode}, {batching}, {prefill}): {m.summary()}")
     print(f"placement: {by_tier}")
+    with router._lock:                 # the field's lock, though stop() has joined every worker
+        results = {rid: list(out) for rid, out in router.results.items()}
     return {
         "metrics": m,
         "by_tier": by_tier,
         "wall_s": wall,
-        "results": {rid: list(out) for rid, out in router.results.items()},
+        "results": results,
         "prompts": {rid: prompt_for(rid) for rid in range(args.requests)},
         "params": params,
         "cfg": cfg,

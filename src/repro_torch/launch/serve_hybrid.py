@@ -57,11 +57,17 @@ def prompt_for(rid: int, vocab_size: int):
 
 
 def main(device=None, smoke: bool = False, chunk_tokens: int = 32, out_dir: Optional[str] = None,
-         seed: int = 0, params=None, verbose: bool = True) -> dict:
+         seed: int = 0, params=None, verbose: bool = True, witness=None,
+         submitters: int = 1) -> dict:
     """Serve the burst and check its outputs. ``params`` (the port's tree on
     ``device``) defaults to random weights from ``torch.Generator(device)``
-    seeded with ``seed``. Returns the router metrics, each request's prompt
-    and output tokens, the weights, and the trace and Prometheus paths."""
+    seeded with ``seed``. ``submitters`` threads share the burst (request i
+    from thread i % submitters; the same requests and payloads at any
+    count). With a ``LockWitness`` (``repro_torch.analysis.witness``), the
+    router and its backends' conditions, every loop and its engine, the
+    tracer and the sampler are witnessed before they start. Returns the
+    router metrics, each request's prompt and output tokens, the weights,
+    and the trace and Prometheus paths."""
     dev = resolve_device(device)
     cfg = get_config("smollm-360m", smoke=smoke)
     if smoke:
@@ -89,16 +95,28 @@ def main(device=None, smoke: bool = False, chunk_tokens: int = 32, out_dir: Opti
         eng.prewarm()
     log(f"batch tier: {batch_tier.capacity_now()}")
 
+    if witness is not None:
+        from repro_torch.analysis import witness as wit
+
+    def started(loop):
+        if witness is not None:
+            wit.instrument_loop(loop, witness)
+        return loop.start()
+
     registry = MetricsRegistry()
-    interactive_loop = EngineLoop(interactive, name="flask", registry=registry).start()
-    batch_loop = EngineLoop(batch_tier, name="docker", registry=registry).start()
+    interactive_loop = started(EngineLoop(interactive, name="flask", registry=registry))
+    batch_loop = started(EngineLoop(batch_tier, name="docker", registry=registry))
     gauge = CapacityGauge()
     gauge.register("flask", lambda: interactive.admission_capacity(PROMPT + NEW))
     gauge.register("docker", lambda: batch_tier.admission_capacity(PROMPT + NEW))
     gauge.register_stats("flask", interactive_loop.capacity_now)
     gauge.register_stats("docker", batch_loop.capacity_now)
     tracer = Tracer()
-    sampler = MonitorSampler(gauge, interval_s=0.02, registry=registry).start()
+    sampler = MonitorSampler(gauge, interval_s=0.02, registry=registry)
+    if witness is not None:
+        wit.instrument_tracer(tracer, witness)
+        wit.instrument_sampler(sampler, witness)
+    sampler.start()
 
     elastic_pool = []
     elastic_lock = threading.Lock()
@@ -111,7 +129,7 @@ def main(device=None, smoke: bool = False, chunk_tokens: int = 32, out_dir: Opti
                 t = time.time()
                 eng = PagedInferenceEngine(cfg, pcfg(1 + 2 * MAXLEN // PS, 4), params=params,
                                            device=dev)
-                elastic_pool.append(EngineLoop(eng, name="elastic", registry=registry).start())
+                elastic_pool.append(started(EngineLoop(eng, name="elastic", registry=registry)))
                 gauge.register_stats("elastic", elastic_pool[0].capacity_now)
                 log(f"  [elastic cold start: {time.time() - t:.1f}s]")
         loop = elastic_pool[0]
@@ -144,12 +162,22 @@ def main(device=None, smoke: bool = False, chunk_tokens: int = 32, out_dir: Opti
         registry=registry,
     )
 
+    if witness is not None:
+        wit.instrument_router(router, witness)
+    rng = np.random.default_rng(0)
+    sizes = [float(rng.choice([512.0, 16384.0], p=[0.8, 0.2])) for _ in range(N)]   # bimodal payloads
+
+    def submit(first: int) -> None:
+        for i in range(first, N, submitters):
+            router.submit(Request(rid=i, arrival_t=0.0, data_size=sizes[i], timeout_s=120.0))
+
     t_serve = time.perf_counter()
     router.start(16)
-    rng = np.random.default_rng(0)
-    for i in range(N):
-        size = float(rng.choice([512.0, 16384.0], p=[0.8, 0.2]))   # bimodal payloads
-        router.submit(Request(rid=i, arrival_t=0.0, data_size=size, timeout_s=120.0))
+    threads = [threading.Thread(target=submit, args=(k,)) for k in range(submitters)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     router.drain()
     router.stop()
     serve_s = time.perf_counter() - t_serve
@@ -202,12 +230,14 @@ def main(device=None, smoke: bool = False, chunk_tokens: int = 32, out_dir: Opti
     log(f"wrote {trace_out} ({len(chrome['traceEvents'])} events), "
         f"{metrics_out} ({len(prom.splitlines())} lines)")
 
+    with router._lock:                 # the field's lock, though stop() has joined every worker
+        results = {rid: list(out) for rid, out in router.results.items()}
     return {
         "metrics": m,
         "serve_s": serve_s,
         "by_tier": by_tier,
         "hedged": len(hedged),
-        "results": {rid: list(out) for rid, out in router.results.items()},
+        "results": results,
         "prompts": {rid: prompt_for(rid, cfg.vocab_size) for rid in range(N)},
         "params": params,
         "cfg": cfg,

@@ -1814,3 +1814,57 @@ def test_cuda_cost_counter_matches_meta(cuda_device, kind):
     _, meta = cost.step_cost(low, low.args, low.donated)
     assert (card["flops"], card["mem_bytes"], card["argument_bytes"]) == (
         meta["flops"], meta["mem_bytes"], meta["argument_bytes"])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_loop_soak_under_witness(cuda_device):
+    """A smollm-360m SMOKE paged engine under an EngineLoop on the card,
+    with the loop's registry lock, the engine's step RLock and ``_build``'s
+    build and count locks witnessed while five submitter threads run the
+    admit->resolve cycle (the last prompt repeats the first): every stream
+    complete, the repeat equal to its first, the three kernels of the path
+    launched, the engine's step lock seen taking the count lock (an edge
+    the CPU soaks cannot see) and every observed order consistent with the
+    port's static lock-order graph."""
+    from repro_torch.analysis.__main__ import build_graph, repo_root
+    from repro_torch.analysis.witness import LockWitness, instrument_build, instrument_loop
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import PagedEngineConfig, PagedInferenceEngine
+    from repro_torch.serving.scheduler import EngineLoop
+
+    cfg = get_config("smollm-360m", smoke=True).replace(attn_chunk=64)
+    eng = PagedInferenceEngine(cfg, PagedEngineConfig(page_size=16, num_pages=9, max_slots=2,
+                                                      max_seq_len=64, max_new_tokens=3, chunk_tokens=16),
+                               device=cuda_device)
+    eng.prewarm()                       # builds the library before the loop thread exists
+    w = LockWitness()
+    loop = EngineLoop(eng)
+    instrument_loop(loop, w)
+    for fn in WRAPPERS:
+        _build.reset_launches(fn)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 21, 9, 30)]
+    prompts.append(list(prompts[0]))
+    outs = [None] * len(prompts)
+    restore = instrument_build(w)
+    try:
+        with loop:
+            def worker(i):
+                outs[i] = loop.wait(loop.submit(prompts[i]), 120).out
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        restore()
+    assert all(len(o) == 3 for o in outs) and outs[4] == outs[0]
+    assert rms_ops.rmsnorm.launches > 0 and pa_ops.paged_prefill_write.launches > 0
+    assert pa_ops.paged_attention.leg_launches["flat"] > 0
+    static = {(e.src, e.dst) for e in build_graph(repo_root()).edges}
+    edge = ("_EngineBase.lock", "_build._count_lock")
+    assert edge in static and edge in w.edge_set(strip_instances=True), w.edge_set()
+    w.assert_consistent(static, reentrant={"_EngineBase.lock"})
