@@ -297,7 +297,27 @@ result line:
                 and unknown edges; the witnessed serve's time beside
                 phase 4's, and a batch-8 decode step's time in
                 alternating unwitnessed and witnessed legs
- 20. summary  — the kernels JSON line, then the result line.
+ 20. mesh     — no kernel: the mesh path's explicit collectives on dbrx-132b's
+                MoE layer at FULL width (16 experts top-4, d 6144, d_ff 10752,
+                bf16, capacity factor 1.25, fsdp_experts), every earlier tree
+                off the card. (a) NCCL at world size 1: moe_ffn under
+                make_tier_mesh(1, 1)'s ctx equals ctx=None bit for bit on 8
+                decode tokens; the compressed psum over the 1-rank axis, its
+                int8 blocks equal to the CPU's (1 LSB at rounding ties).
+                (b) MESH_WORLD gloo ranks spawned on the one card, a (2, 2)
+                mesh over ('data', 'model'), each drawing the whole layer
+                from one seed and cutting its block: the weight gather on a
+                decode batch (8, 1) and a masked prefill (2, 128), the token
+                gather on the decode batch, the weight gather with int8
+                experts, each rank's output against the single-device layer
+                on the card over its batch shard (the whole batch for the
+                token gather) at bf16 2e-2, the aux at f32 2e-5, its routing
+                equal to the single-device route's rows of its experts; the
+                compressed all-reduce of (4, 6144 x 64) on CUDA tensors, the
+                same bits on every rank and as the CPU tensors' through the
+                same group, within 0.05 of the true sum. One call's host
+                time and CUDA-event span per path
+ 21. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -2878,7 +2898,7 @@ def phase_stubs(torch, dev):
 MOE_RUNS = {"dbrx-132b": (4, 28_538_941_440), "llama4-maverick-400b-a17b": (2, 68_816_783_360)}
 ROUTE_GAP = 0.03     # a routing decision on the card (bf16) that differs from the CPU's (f32) is put
                      # down to bf16 routing when the CPU's gap at that decision is below this
-REPLAY_STEPS = 2     # decode steps of each parity leg's replay
+REPLAY_STEPS = 1     # decode steps of each parity leg's replay
 LEG_MARGIN = 16e9    # host bytes the replayed parity legs need free beyond their f32 arena
 HOST_WAIT_S = 120.0  # the longest the replayed parity legs wait for that room
 
@@ -5073,6 +5093,337 @@ def phase_witness(torch, dev, chunked) -> dict:
     return {"counts": counts, "serve_s": r["serve_s"], "step": step}
 
 
+# ---------------------------------------------------------------------------
+# 20. mesh: the explicit-collective half of the mesh path
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4              # gloo ranks sharing cuda:0 in part (b), a (2, 2) ('data', 'model') mesh
+MESH_TP = 2
+MESH_TIMEOUT_S = 120.0      # every collective's timeout
+MESH_SPAWN_S = 300.0        # the longest part (b) waits for its ranks
+MESH_SEED = 20
+MESH_DECODE = (8, 1)        # decode batch: 8 sequences, 1 token
+MESH_PREFILL = (2, 128)     # prefill batch; the second sequence holds MESH_PREFILL_VALID tokens
+MESH_PREFILL_VALID = 77
+MESH_PSUM = (MESH_WORLD, 6144 * 64)   # the compressed all-reduce's input, a row a rank
+
+
+def mesh_layer(torch, dev, int8: bool = False):
+    """dbrx-132b's MoE layer at FULL width (16 experts top-4, d 6144, d_ff
+    10752, gated, bf16, capacity factor 1.25, fsdp_experts), drawn on
+    ``dev`` from MESH_SEED (the same on every rank); with ``int8`` its
+    weight-only int8 tree from the quantized init."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import init_tree
+    from repro_torch.models.moe import moe_defs
+    from repro_torch.models.quant import init_quantized
+
+    cfg = get_config("dbrx-132b")
+    gen = torch.Generator(dev).manual_seed(MESH_SEED)
+    return cfg, (init_quantized if int8 else init_tree)(gen, moe_defs(cfg), cfg.param_dtype, dev)
+
+
+def mesh_inputs(torch, cfg, dev) -> dict:
+    """The decode batch, the prefill batch and its mask (right-padded), the
+    compressed all-reduce's rows, all from MESH_SEED + 1."""
+    g = torch.Generator(dev).manual_seed(MESH_SEED + 1)
+    B, S = MESH_PREFILL
+    return {"decode": torch.randn(*MESH_DECODE, cfg.d_model, generator=g, device=dev).to(cfg.compute_dtype),
+            "prefill": torch.randn(B, S, cfg.d_model, generator=g, device=dev).to(cfg.compute_dtype),
+            "valid": torch.arange(S, device=dev)[None] < torch.tensor([S, MESH_PREFILL_VALID], device=dev)[:, None],
+            "psum": torch.randn(*MESH_PSUM, generator=g, device=dev)}
+
+
+def int8_equal_at_ties(torch, x, q, q_cpu) -> int:
+    """int8 blocks of ``_quantize`` on the card against the CPU's: equal but
+    for 1 LSB where x / scale sits at a rounding tie (ground rule 4); the
+    count of values that differ."""
+    from repro_torch.train.compression import _quantize
+
+    _, scale, _ = _quantize(x.cpu())
+    flat = torch.nn.functional.pad(x.cpu().float().reshape(-1), (0, q.numel() - x.numel())).reshape(q.shape)
+    frac = (flat / scale).abs()
+    tie = (frac - frac.floor() - 0.5).abs() < 1e-6
+    d = (q.cpu().int() - q_cpu.int()).abs()
+    if int(d.max()) > 1 or not bool((d.eq(0) | tie).all()):
+        raise AssertionError(f"int8 blocks on the card differ from the CPU's off rounding ties: {int(d.max())}")
+    return int(d.ne(0).sum())
+
+
+def mesh_world1(torch, dev) -> dict:
+    """Part (a): NCCL at world size 1. ``moe_ffn`` under the ctx of
+    ``make_tier_mesh(1, 1)`` equals ``ctx=None`` bit for bit on dbrx-132b's
+    layer (8 decode tokens); the compressed psum over the 1-rank 'data' axis
+    on the card against the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_tier_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.axes import P, make_ctx
+    from repro_torch.train.compression import _dequantize, _quantize, make_compressed_psum
+
+    store = OUT / "mesh" / "store_world1"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    init_world("nccl", 0, 1, dist.FileStore(str(store), 1), timeout_s=MESH_TIMEOUT_S)
+    try:
+        ctx = make_ctx(make_tier_mesh(1, 1))
+        cfg, p = mesh_layer(torch, dev)
+        x = mesh_inputs(torch, cfg, dev)
+        out, aux = moe.moe_ffn(cfg, p, x["decode"], ctx=ctx)
+        ref, ref_aux = moe.moe_ffn(cfg, p, x["decode"])
+        if not (ctx.tp_size == 1 and torch.equal(out, ref) and torch.equal(aux, ref_aux)):
+            raise AssertionError("moe_ffn under the world-size-1 mesh differs from ctx=None")
+        del p
+        xs = x["psum"][:1]
+        got = make_compressed_psum(ctx, "data", P(None, None))(xs)
+        q, scale, pad = _quantize(xs)
+        q_cpu, scale_cpu, _ = _quantize(xs.cpu())
+        ties = int8_equal_at_ties(torch, xs, q, q_cpu)
+        if not torch.equal(got, _dequantize(q, scale, pad, xs.shape)):
+            raise AssertionError("the world-size-1 compressed psum is not its own int8 round trip")
+        same = (q.cpu() == q_cpu).all(-1, keepdim=True)
+        if not torch.equal(torch.where(same, got.cpu().reshape(q.shape), 0),
+                           torch.where(same, _dequantize(q_cpu, scale_cpu, 0, q.shape), 0)):
+            raise AssertionError("the compressed psum on the card differs from the CPU's on equal int8 blocks")
+        return {"backend": dist.get_backend(), "moe_equal": True, "psum_values": xs.numel(),
+                "int8_differing_at_ties": ties, "scales_equal": bool(torch.equal(scale.cpu(), scale_cpu))}
+    finally:
+        dist.destroy_process_group()
+
+
+def _owned(tree):
+    """A tree's leaves as tensors of their own (the blocks, not views of the
+    full layer), so the full layer can be freed."""
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _route_rows(r: dict, e_off: int, n: int) -> dict:
+    return {k: r[k][e_off:e_off + n] for k in ("sel_idx", "sel_valid", "gate")}
+
+
+def _timed(torch, fn):
+    """``fn()`` and its one call's host ms (to the card's synchronize) and
+    CUDA-event span on the rank's stream (which includes the waits of
+    gloo's host-side exchange)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, {"host_ms": (time.perf_counter() - t0) * 1e3, "event_ms": start.elapsed_time(end)}
+
+
+def mesh_rank(rank: int, out_dir: str) -> None:
+    """One of part (b)'s ranks: gloo on cuda:0 in a (2, 2) mesh over
+    ('data', 'model'). Draws dbrx-132b's whole layer, computes the
+    single-device references on the card, cuts its blocks and frees the
+    layer, then runs the sharded ``moe_ffn`` (weight gather on the decode
+    and the masked prefill, token gather on the decode, weight gather with
+    int8 experts) and the compressed all-reduce on CUDA and CPU tensors.
+    Writes rank{r}.json; raises on any check that fails."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import init_world, make_tier_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.axes import P, coordinate, make_ctx
+    from repro_torch.train.compression import make_compressed_psum
+
+    res = {"rank": rank}
+    out = Path(out_dir)
+    try:
+        dev = init_world("gloo", rank, MESH_WORLD, dist.FileStore(str(out / "store"), MESH_WORLD),
+                         timeout_s=MESH_TIMEOUT_S, device="cuda:0")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_tier_mesh(MESH_WORLD, MESH_TP, device=dev)
+        ctx = make_ctx(mesh)
+        coord = coordinate(mesh)
+        cfg, p = mesh_layer(torch, dev)
+        x = mesh_inputs(torch, cfg, dev)
+        tok = cfg.replace(moe_token_gather=True)
+        n_local = cfg.moe.n_experts // MESH_TP
+        e_off = coord["model"] * n_local
+        res.update(coord=coord, e_off=e_off, device=torch.cuda.get_device_name(dev))
+
+        def route_of(xb, vb=None):
+            xf = xb.reshape(-1, cfg.d_model)
+            return moe.route(cfg, xf.float() @ p["router"].float(), moe.capacity_for(cfg, xf.shape[0]),
+                             None if vb is None else vb.reshape(-1))
+
+        # single-device references on the card: every data shard's (the aux
+        # is their mean), the whole decode batch's for the token gather
+        dec, pre, valid = x["decode"], x["prefill"], x["valid"]
+        d_i = coord["data"]
+        ref = {"decode": [moe.moe_ffn(cfg, p, xs) for xs in dec.chunk(2)],
+               "prefill": [moe.moe_ffn(cfg, p, xs, vs) for xs, vs in zip(pre.chunk(2), valid.chunk(2))],
+               "token": moe.moe_ffn(cfg, p, dec)}
+        rows = {"decode": _route_rows(route_of(dec.chunk(2)[d_i]), e_off, n_local),
+                "prefill": _route_rows(route_of(pre.chunk(2)[d_i], valid.chunk(2)[d_i]), e_off, n_local),
+                "token": _route_rows(route_of(dec), e_off, n_local)}
+        p_l, dec_l, _ = moe.moe_blocks(cfg, ctx, p, dec)
+        _, pre_l, valid_l = moe.moe_blocks(cfg, ctx, p, pre, valid)
+        p_l = _owned(p_l)
+        blocks = {"decode": (p_l, dec_l.clone(), None), "prefill": (p_l, pre_l.clone(), valid_l.clone())}
+        res["block_gb"] = sum(t.numel() * t.element_size() for t in p_l.values()) / 1e9
+        del p, p_l, dec_l, pre_l, valid_l
+        torch.cuda.empty_cache()
+
+        seen = []
+        orig_route = moe.route
+
+        def recording(*a, **kw):
+            r = orig_route(*a, **kw)
+            seen.append(r)
+            return r
+
+        def sharded(c, pb, xb, vb):
+            seen.clear()
+            moe.route = recording
+            try:
+                return moe.moe_ffn(c, pb, xb, vb, ctx=ctx)
+            finally:
+                moe.route = orig_route
+
+        checks = {}
+        for name, c, key in (("weight gather decode", cfg, "decode"), ("weight gather prefill", cfg, "prefill"),
+                             ("token gather decode", tok, "decode")):
+            pb, xb, vb = blocks[key]
+            (got, aux), timing = _timed(torch, lambda: sharded(c, pb, xb, vb))
+            if c.moe_token_gather:
+                whole, want_aux = ref["token"]
+                want = whole.chunk(2)[d_i]
+                route_key = "token"
+            else:
+                want = ref[key][d_i][0]
+                want_aux = sum(a for _, a in ref[key]) / 2
+                route_key = key
+            e = scaled_err(got, want)
+            ea = abs(float(aux) - float(want_aux))
+            same_route = all(torch.equal(seen[0][k], rows[route_key][k]) for k in ("sel_idx", "sel_valid", "gate"))
+            checks[name] = {"scaled_err": e, "max_abs_err": err(got, want), "aux_err": ea,
+                            "route_equal": same_route, "slots": list(seen[0]["sel_idx"].shape),
+                            "kept": int(seen[0]["sel_valid"].sum()), "assigned": int(seen[0]["assigned"].sum())}
+            if not (e <= TOL["bfloat16"] and ea <= TOL["float32"] and same_route and got.shape == xb.shape):
+                raise AssertionError(f"rank {rank} {name}: {checks[name]}")
+            if key == "decode":
+                checks[name].update(timing)
+        del blocks, ref, pb, xb, vb, got, want, whole
+        torch.cuda.empty_cache()
+
+        cfg8, p8 = mesh_layer(torch, dev, int8=True)
+        want, _ = moe.moe_ffn(cfg8, p8, dec.chunk(2)[d_i])
+        want_aux = sum(moe.moe_ffn(cfg8, p8, xs)[1] for xs in dec.chunk(2)) / 2
+        pb, xb, vb = moe.moe_blocks(cfg8, ctx, p8, dec)
+        pb, xb = _owned(pb), xb.clone()
+        del p8
+        torch.cuda.empty_cache()
+        (got, aux), timing = _timed(torch, lambda: moe.moe_ffn(cfg8, pb, xb, vb, ctx=ctx))
+        name = "weight gather decode, int8 experts"
+        checks[name] = {"scaled_err": scaled_err(got, want), "max_abs_err": err(got, want),
+                        "aux_err": abs(float(aux) - float(want_aux))}
+        if not (checks[name]["scaled_err"] <= TOL["bfloat16"] and checks[name]["aux_err"] <= TOL["float32"]):
+            raise AssertionError(f"rank {rank} {name}: {checks[name]}")
+        checks[name].update(timing)
+        del pb, xb, vb
+        torch.cuda.empty_cache()
+
+        pod = init_device_mesh("cuda", (MESH_WORLD,), mesh_dim_names=("pod",))
+        fn = make_compressed_psum(pod, "pod", P("pod", None))
+        row = x["psum"][rank:rank + 1]
+        got, timing = _timed(torch, lambda: fn(row))
+        got_cpu = fn(row.cpu())
+        true = x["psum"].sum(0, keepdim=True)
+        rel = float((got - true).abs().max() / true.abs().max())
+        checks["compressed all-reduce"] = {
+            "equal_to_cpu_ranks": bool(torch.equal(got.cpu(), got_cpu)), "rel_err": rel,
+            "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(), **timing}
+        if not (checks["compressed all-reduce"]["equal_to_cpu_ranks"] and rel < 0.05):
+            raise AssertionError(f"rank {rank} compressed all-reduce: {checks['compressed all-reduce']}")
+        res["checks"] = checks
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase_mesh(torch, dev) -> dict:
+    """Phase 20: part (a) in this process, part (b) in MESH_WORLD spawned
+    ranks, each joined or killed by MESH_SPAWN_S; a rank that fails or hangs
+    fails the phase."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    one = mesh_world1(torch, dev)
+    log(f"  (a) NCCL world size 1 ({one['backend']}): moe_ffn under make_tier_mesh(1, 1) == ctx=None bit for "
+        f"bit (dbrx-132b FULL layer, {MESH_DECODE[0]} decode tokens); compressed psum of {one['psum_values']} "
+        f"values: int8 == the CPU's but {one['int8_differing_at_ties']} at rounding ties, scales equal "
+        f"{one['scales_equal']} [{time.perf_counter() - t0:.1f} s]")
+    free_card(torch)
+
+    t1 = time.perf_counter()
+    out = OUT / "mesh" / "ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, str(out))) for r in range(MESH_WORLD)]
+    for pr in procs:
+        pr.start()
+    try:
+        deadline = time.monotonic() + MESH_SPAWN_S
+        for pr in procs:
+            pr.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        stuck = [r for r, pr in enumerate(procs) if pr.is_alive()]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+            pr.join()
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) if (out / f"rank{r}.json").exists() else {}
+             for r in range(MESH_WORLD)]
+    bad = [(r, pr.exitcode, ranks[r].get("error", "no result")[-2000:]) for r, pr in enumerate(procs)
+           if pr.exitcode != 0 or "checks" not in ranks[r]]
+    if stuck or bad:
+        raise AssertionError(f"phase 20 (b): ranks past {MESH_SPAWN_S} s {stuck}; failed {bad}")
+    digests = {r["checks"]["compressed all-reduce"]["sha256"] for r in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"phase 20 (b): the compressed all-reduce differs between ranks: {digests}")
+    log(f"  (b) {MESH_WORLD} gloo ranks on {ranks[0]['device']}, mesh ({MESH_WORLD // MESH_TP}, {MESH_TP}) over "
+        f"('data', 'model'), dbrx-132b FULL layer, each rank's experts block {ranks[0]['block_gb']:.3f} GB, peak "
+        f"{max(r['peak_gb'] for r in ranks):.3f} GB [{time.perf_counter() - t1:.1f} s]")
+    for name in ranks[0]["checks"]:
+        cs = [r["checks"][name] for r in ranks]
+        parts = [f"{k} max {max(c[k] for c in cs):.3e}" for k in ("scaled_err", "max_abs_err", "aux_err", "rel_err")
+                 if k in cs[0]]
+        if "route_equal" in cs[0]:
+            parts.append(f"routes == the single-device rows [e_off, e_off + {cs[0]['slots'][0]}) on "
+                         f"{sum(c['route_equal'] for c in cs)} of {len(cs)} ranks (slots {cs[0]['slots']}, kept "
+                         f"of assigned {[(c['kept'], c['assigned']) for c in cs]})")
+        if "equal_to_cpu_ranks" in cs[0]:
+            parts.append(f"== the CPU ranks' bit for bit on {sum(c['equal_to_cpu_ranks'] for c in cs)} ranks, "
+                         f"one digest on all")
+        if "host_ms" in cs[0]:
+            parts.append("one call host ms " + ", ".join(f"{c['host_ms']:.3f}" for c in cs)
+                         + "; CUDA-event span ms " + ", ".join(f"{c['event_ms']:.3f}" for c in cs)
+                         + " (the checked call, after the single-device references warmed the card)")
+        log(f"  {name}: " + "; ".join(parts))
+    return {"world1": one, "ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -5262,7 +5613,14 @@ def main() -> int:
     phase_dryrun(torch, dev)
     log(f"  dryrun phase {time.perf_counter() - t_dry:.1f} s")
 
-    # 20. summary
+    # 20. mesh: NCCL at world size 1 here, then MESH_WORLD gloo ranks on the card
+    free_card(torch)
+    log(f"phase 20 mesh: dbrx-132b's FULL MoE layer expert-parallel, the compressed all-reduce; NCCL at world "
+        f"size 1, then {MESH_WORLD} gloo ranks on the card [at {time.perf_counter() - T_START:.1f} s]")
+    mesh = phase_mesh(torch, dev)
+    log(f"  mesh phase {mesh['seconds']:.1f} s")
+
+    # 21. summary
     runs = {"serve_chunk32": c_counts, "witness_chunk32": witness["counts"], "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -5288,7 +5646,7 @@ def main() -> int:
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s, "
-        f"sched, train and xception {time.perf_counter() - t_summary:.1f} s)")
+        f"sched, train, xception, dryrun and mesh {time.perf_counter() - t_summary:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

@@ -20,11 +20,14 @@ computed) under ``launch/cost.CostCounter``, and records:
 
 The port's one mesh is one H100 (``--mesh single``, recorded as
 ``"mesh": "1xH100"``); ``multi`` and ``both`` raise until the port has the
-mesh path. The JAX record's XLA keys (``xla_cost``, ``hlo_bytes``,
-``while_trips``, ``compile_s``) describe a compiled XLA program, which an
-eager step does not have: they are left out, and ``trace_s`` (the meta
-trace's wall time) is added. The dry run needs no card: the meta device
-holds the shapes alone, and nothing computes on the CPU.
+mesh path's GSPMD half. On that mesh no ctx reaches the model, so the
+``moetok`` variants give ``baseline``'s and ``w8``'s records, as in the JAX
+package (``moe_ffn`` takes its single-device path). The JAX record's XLA
+keys (``xla_cost``, ``hlo_bytes``, ``while_trips``, ``compile_s``)
+describe a compiled XLA program, which an eager step does not have: they
+are left out, and ``trace_s`` (the meta trace's wall time) is added. The
+dry run needs no card: the meta device holds the shapes alone, and
+nothing computes on the CPU.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k
@@ -52,13 +55,13 @@ POLICY = {
 }
 
 MESH = "1xH100"
-NO_MESH = ("the multi-pod mesh waits for the port's mesh path (ROADMAP Queue 1 item 10: "
-           "sharding/axes.py and launch/mesh.py on torch.distributed)")
+NO_MESH = ("the multi-pod mesh waits for the mesh path's GSPMD half (ROADMAP Queue 1 item 10: "
+           "a ctx through the model API and launch/steps.py's sharding trees)")
 
 
 def _mesh_knob(knob: str):
-    """A variant whose knob is a sharding knob of the mesh path, which the
-    port lacks: it raises."""
+    """A variant whose knob is a sharding knob of the mesh path's GSPMD
+    half, which the port lacks: it raises."""
     def variant(cfg, spec):
         raise NotImplementedError(f"the port has no {knob} knob (a sharding knob of the mesh path, "
                                   f"ROADMAP Queue 1 item 10)")
@@ -70,8 +73,8 @@ def _mesh_knob(knob: str):
 # --variant. Each maps cfg -> cfg.
 VARIANTS = {
     "w8": lambda cfg, spec: cfg.replace(weights_int8=True),
-    "moetok": _mesh_knob("moe_token_gather"),
-    "w8+moetok": _mesh_knob("moe_token_gather"),
+    "moetok": lambda cfg, spec: cfg.replace(moe_token_gather=True),
+    "w8+moetok": lambda cfg, spec: cfg.replace(weights_int8=True, moe_token_gather=True),
     "sbf16": lambda cfg, spec: cfg.replace(attn_scores_bf16=True),
     "remat0": lambda cfg, spec: cfg.replace(remat="none"),
     "sp": _mesh_knob("seq_shard_activations"),

@@ -16,7 +16,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import _grad
-from repro_torch.models.common import ModelConfig, ParamDef
+from repro_torch.models.common import NULL, TP, ModelConfig, ParamDef
 from repro_torch.models.quant import dequantize_kv, qeinsum, quantize_kv
 from repro_torch.models.rotary import apply_mrope, apply_rope
 
@@ -38,15 +38,15 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     H, hd, d = cfg.n_heads, cfg.hd, cfg.d_model
     KV = H if cross else min(cfg.n_kv_heads, H)
     defs = {
-        "wq": ParamDef((d, H * hd)),
-        "wk": ParamDef((d, KV * hd)),
-        "wv": ParamDef((d, KV * hd)),
-        "wo": ParamDef((H * hd, d)),
+        "wq": ParamDef((d, H * hd), (NULL, TP)),
+        "wk": ParamDef((d, KV * hd), (NULL, TP)),
+        "wv": ParamDef((d, KV * hd), (NULL, TP)),
+        "wo": ParamDef((H * hd, d), (TP, NULL)),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H * hd,), "zeros")
-        defs["bk"] = ParamDef((KV * hd,), "zeros")
-        defs["bv"] = ParamDef((KV * hd,), "zeros")
+        defs["bq"] = ParamDef((H * hd,), (TP,), "zeros")
+        defs["bk"] = ParamDef((KV * hd,), (TP,), "zeros")
+        defs["bv"] = ParamDef((KV * hd,), (TP,), "zeros")
     return defs
 
 

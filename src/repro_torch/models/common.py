@@ -4,8 +4,9 @@ The torch twin of ``repro/models/common.py`` for the families ported so far:
 the attention-only decoder, its mixture-of-experts FFN, Mamba, xLSTM, the VLM
 backbone (token or embedding inputs, M-RoPE) and the whisper encoder-decoder
 (layernorm, cross-attention).
-Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes and
-init rules from one source of truth, as in the JAX package.
+Parameters are nested dicts of tensors; ``ParamDef`` trees give shapes,
+logical sharding axes and init rules from one source of truth, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ class MoECfg:
     every_k: int = 1            # MoE FFN on layers where (layer_idx % every_k == every_k - 1)
     capacity_factor: float = 1.25
     aux_weight: float = 0.01
-    fsdp_experts: bool = False  # a sharding knob of the JAX package; no effect on one device
+    fsdp_experts: bool = False  # shard expert weights over 'data' too; all-gather at use (moe.moe_ffn)
 
 
 @dataclass(frozen=True)
@@ -89,6 +90,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     weights_int8: bool = False  # DecoderLM.init draws weight-only int8 (models/quant.py)
     attn_scores_bf16: bool = False  # the plain attention's scores in bf16 (attention._attend_block); not flash's
+    moe_token_gather: bool = False  # sharded MoE under fsdp_experts: gather the tokens, keep experts sharded
     scan_unroll: int = 1        # no effect: the port loops over superblocks in Python, with no scan to unroll
     moe: Optional[MoECfg] = None
     mamba: Optional[MambaCfg] = None
@@ -135,15 +137,28 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# Parameter definitions
+# Parameter definitions: one source of truth for shape, sharding and init
 # ---------------------------------------------------------------------------
+
+# Logical axis names of ParamDef dims; sharding.axes.Rules maps them onto a
+# mesh's axes.
+EMBED = "embed"      # d_model dims of weights -> replicated
+TP = "tp"            # tensor-parallel dim (heads, ff, vocab, d_inner, experts) -> 'model'
+FSDP = "fsdp"        # fully-sharded dim -> 'data'
+STACK = "stack"      # superblock stacking dim -> replicated
+NULL = None
 
 
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    axes: tuple           # logical axis per dim (as long as shape)
     init: str = "normal"  # normal | zeros | ones
     scale: float = 0.0    # 0 -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamDef axes {self.axes} do not match shape {self.shape}")
 
     def fan_in(self) -> int:
         if len(self.shape) == 1:
@@ -219,7 +234,7 @@ def shape_tree(defs, dtype, device="meta") -> Any:
 
 def stack_defs(defs: Any, n: int) -> Any:
     """Prepend a superblock-stacking dim to every ParamDef in a tree."""
-    return map_defs(lambda d: ParamDef((n,) + d.shape, d.init, d.scale), defs)
+    return map_defs(lambda d: ParamDef((n,) + d.shape, (STACK,) + d.axes, d.init, d.scale), defs)
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +257,8 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e
 def norm_defs(cfg: ModelConfig, d: int = 0) -> dict:
     d = d or cfg.d_model
     if cfg.norm == "layernorm":
-        return {"w": ParamDef((d,), "ones"), "b": ParamDef((d,), "zeros")}
-    return {"w": ParamDef((d,), "ones")}
+        return {"w": ParamDef((d,), (NULL,), "ones"), "b": ParamDef((d,), (NULL,), "zeros")}
+    return {"w": ParamDef((d,), (NULL,), "ones")}
 
 
 def apply_norm(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
@@ -269,9 +284,9 @@ def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_defs(cfg: ModelConfig) -> dict:
-    d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), scale=1.0)}
+    d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), (TP, NULL), scale=1.0)}
     if not cfg.tie_embeddings:
-        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size), (NULL, TP))
     return d
 
 

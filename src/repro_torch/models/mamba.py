@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.attention import TensorSpec
-from repro_torch.models.common import ModelConfig, ParamDef
+from repro_torch.models.common import NULL, TP, ModelConfig, ParamDef
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -33,15 +33,15 @@ def mamba_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     dI, dtR, dS = _dims(cfg)
     return {
-        "in_proj": ParamDef((d, 2 * dI)),
-        "conv_w": ParamDef((m.d_conv, dI), scale=0.5),
-        "conv_b": ParamDef((dI,), "zeros"),
-        "x_proj": ParamDef((dI, dtR + 2 * dS)),
-        "dt_proj": ParamDef((dtR, dI)),
-        "dt_bias": ParamDef((dI,), "zeros"),
-        "A_log": ParamDef((dI, dS), "zeros"),   # A = -exp(A_log) ~ -1
-        "D": ParamDef((dI,), "ones"),
-        "out_proj": ParamDef((dI, d)),
+        "in_proj": ParamDef((d, 2 * dI), (NULL, TP)),
+        "conv_w": ParamDef((m.d_conv, dI), (NULL, TP), scale=0.5),
+        "conv_b": ParamDef((dI,), (TP,), "zeros"),
+        "x_proj": ParamDef((dI, dtR + 2 * dS), (TP, NULL)),
+        "dt_proj": ParamDef((dtR, dI), (NULL, TP)),
+        "dt_bias": ParamDef((dI,), (TP,), "zeros"),
+        "A_log": ParamDef((dI, dS), (TP, NULL), "zeros"),   # A = -exp(A_log) ~ -1
+        "D": ParamDef((dI,), (TP,), "ones"),
+        "out_proj": ParamDef((dI, d), (TP, NULL)),
     }
 
 

@@ -7,15 +7,15 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.models.common import ModelConfig, ParamDef, activation
+from repro_torch.models.common import NULL, TP, ModelConfig, ParamDef, activation
 from repro_torch.models.quant import qeinsum
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: int = 0) -> dict:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
-    defs = {"w1": ParamDef((d, f)), "w2": ParamDef((f, d))}
+    defs = {"w1": ParamDef((d, f), (NULL, TP)), "w2": ParamDef((f, d), (TP, NULL))}
     if cfg.gated_mlp:
-        defs["w3"] = ParamDef((d, f))
+        defs["w3"] = ParamDef((d, f), (NULL, TP))
     return defs
 
 

@@ -22,7 +22,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamDef, init_tree, map_defs
+from repro_torch.models.common import NULL, ParamDef, init_tree, map_defs
 
 BN_EPS = 1e-5
 
@@ -37,22 +37,22 @@ class XceptionConfig:
 
 
 def _conv_def(k: int, cin: int, cout: int) -> ParamDef:
-    return ParamDef((k, k, cin, cout))
+    return ParamDef((k, k, cin, cout), (NULL,) * 4)
 
 
 def param_defs(cfg: XceptionConfig) -> dict:
     w = cfg.width
     defs = {
         "entry": _conv_def(3, 3, w),
-        "entry_b": ParamDef((w,), "zeros"),
+        "entry_b": ParamDef((w,), (NULL,), "zeros"),
     }
     for i in range(cfg.n_blocks):
-        defs[f"b{i}_dw"] = ParamDef((3, 3, 1, w))                    # depthwise
+        defs[f"b{i}_dw"] = ParamDef((3, 3, 1, w), (NULL,) * 4)       # depthwise
         defs[f"b{i}_pw"] = _conv_def(1, w, w)                         # pointwise
-        defs[f"b{i}_bn_scale"] = ParamDef((w,), "ones")
-        defs[f"b{i}_bn_bias"] = ParamDef((w,), "zeros")
-    defs["head"] = ParamDef((w, cfg.num_classes))
-    defs["head_b"] = ParamDef((cfg.num_classes,), "zeros")
+        defs[f"b{i}_bn_scale"] = ParamDef((w,), (NULL,), "ones")
+        defs[f"b{i}_bn_bias"] = ParamDef((w,), (NULL,), "zeros")
+    defs["head"] = ParamDef((w, cfg.num_classes), (NULL, NULL))
+    defs["head_b"] = ParamDef((cfg.num_classes,), (NULL,), "zeros")
     return defs
 
 

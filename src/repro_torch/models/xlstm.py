@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mlstm_chunk import ops as mk_ops
 from repro_torch.kernels.mlstm_chunk import ref as mk_ref
 from repro_torch.models.attention import TensorSpec
-from repro_torch.models.common import ModelConfig, ParamDef, rmsnorm
+from repro_torch.models.common import NULL, TP, ModelConfig, ParamDef, rmsnorm
 from repro_torch.models.mamba import conv_state_at
 
 NEG = mk_ref.NEG
@@ -48,18 +48,18 @@ def mlstm_defs(cfg: ModelConfig) -> dict:
     NH = cfg.n_heads
     K = cfg.xlstm.conv
     return {
-        "up_proj": ParamDef((d, 2 * dU)),
-        "conv_w": ParamDef((K, dU), scale=0.5),
-        "conv_b": ParamDef((dU,), "zeros"),
-        "wq": ParamDef((dU, dU)),
-        "wk": ParamDef((dU, dU)),
-        "wv": ParamDef((dU, dU)),
-        "wi": ParamDef((dU, NH)),
-        "wf": ParamDef((dU, NH)),
-        "bi": ParamDef((NH,), "zeros"),
-        "bf": ParamDef((NH,), "ones"),   # bias toward remembering
-        "hnorm": ParamDef((dU,), "ones"),
-        "down_proj": ParamDef((dU, d)),
+        "up_proj": ParamDef((d, 2 * dU), (NULL, TP)),
+        "conv_w": ParamDef((K, dU), (NULL, TP), scale=0.5),
+        "conv_b": ParamDef((dU,), (TP,), "zeros"),
+        "wq": ParamDef((dU, dU), (NULL, TP)),
+        "wk": ParamDef((dU, dU), (NULL, TP)),
+        "wv": ParamDef((dU, dU), (NULL, TP)),
+        "wi": ParamDef((dU, NH), (TP, NULL)),
+        "wf": ParamDef((dU, NH), (TP, NULL)),
+        "bi": ParamDef((NH,), (NULL,), "zeros"),
+        "bf": ParamDef((NH,), (NULL,), "ones"),   # bias toward remembering
+        "hnorm": ParamDef((dU,), (TP,), "ones"),
+        "down_proj": ParamDef((dU, d), (TP, NULL)),
     }
 
 
@@ -187,11 +187,11 @@ def slstm_defs(cfg: ModelConfig) -> dict:
     NH = cfg.n_heads
     DH = d // NH
     return {
-        "w_gates": ParamDef((d, 4 * d)),
-        "r_gates": ParamDef((NH, DH, 4 * DH), scale=0.3),
-        "b_gates": ParamDef((4 * d,), "zeros"),
-        "out_proj": ParamDef((d, d)),
-        "hnorm": ParamDef((d,), "ones"),
+        "w_gates": ParamDef((d, 4 * d), (NULL, NULL)),
+        "r_gates": ParamDef((NH, DH, 4 * DH), (NULL, NULL, NULL), scale=0.3),
+        "b_gates": ParamDef((4 * d,), (NULL,), "zeros"),
+        "out_proj": ParamDef((d, d), (NULL, TP)),
+        "hnorm": ParamDef((d,), (NULL,), "ones"),
     }
 
 

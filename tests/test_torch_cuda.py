@@ -1868,3 +1868,68 @@ def test_cuda_engine_loop_soak_under_witness(cuda_device):
     edge = ("_EngineBase.lock", "_build._count_lock")
     assert edge in static and edge in w.edge_set(strip_instances=True), w.edge_set()
     w.assert_consistent(static, reentrant={"_EngineBase.lock"})
+
+
+@pytest.fixture
+def nccl_world1(cuda_device, tmp_path):
+    """The ctx of ``make_tier_mesh(1, 1)`` over an NCCL process group of
+    world size 1 on the card, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_tier_mesh
+    from repro_torch.sharding.axes import make_ctx
+
+    init_world("nccl", 0, 1, dist.FileStore(str(tmp_path / "store"), 1), timeout_s=60.0)
+    try:
+        yield make_ctx(make_tier_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_under_world1_mesh_is_single_device(nccl_world1):
+    """Under a mesh whose 'model' axis is 1, ``moe_ffn`` takes the
+    single-device path: the same bits as ``ctx=None`` in bf16, on a decode
+    batch and on a masked prefill, plain and with int8 experts."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import MoECfg
+    from repro_torch.models.quant import quantize_params
+
+    ctx = nccl_world1
+    assert (ctx.tp_size, ctx.dp_size, ctx.n_devices) == (1, 1, 1)
+    cfg, p, x = _moe_layer(16, 4, 64)
+    cfg = cfg.replace(moe=MoECfg(n_experts=16, top_k=4, fsdp_experts=True), compute_dtype=torch.bfloat16)
+    dev = ctx.mesh.device_type
+    gp = {n: t.to(dev, torch.bfloat16) for n, t in p.items()}
+    valid = torch.arange(32, device=dev)[None] < torch.tensor([32, 19], device=dev)[:, None]
+    for params in (gp, quantize_params(gp)):
+        for xb, vb in ((x[:, :1].reshape(2, 1, -1), None), (x, valid)):
+            xb = xb.to(dev, torch.bfloat16)
+            out, aux = moe.moe_ffn(cfg, params, xb, vb, ctx=ctx)
+            ref, ref_aux = moe.moe_ffn(cfg, params, xb, vb)
+            assert torch.equal(out, ref) and torch.equal(aux, ref_aux)
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_matches_cpu(nccl_world1):
+    """The compressed psum over the 1-rank 'data' axis on the card: its int8
+    blocks and scales equal the CPU's ``_quantize`` (1 LSB allowed at a
+    rounding tie), and its sum is their round trip, equal to the CPU's."""
+    from repro_torch.sharding.axes import P
+    from repro_torch.train.compression import _dequantize, _quantize, make_compressed_psum
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 6144 * 8 + 77, generator=g) * 3
+    gx = x.to(nccl_world1.mesh.device_type)
+    got = make_compressed_psum(nccl_world1, "data", P(None, None))(gx)
+    q, s, pad = _quantize(gx)
+    qc, sc, padc = _quantize(x)
+    assert pad == padc == (-x.numel()) % 128
+    assert torch.equal(s.cpu(), sc)
+    d = (q.cpu().int() - qc.int()).abs()
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, pad)).reshape(qc.shape) / sc
+    tie = ((flat.abs() - flat.abs().floor()) - 0.5).abs() < 1e-6
+    assert int(d.max()) <= 1 and bool((d.eq(0) | tie).all())
+    assert torch.equal(got, _dequantize(q, s, pad, x.shape))
+    if int(d.max()) == 0:
+        assert torch.equal(got.cpu(), _dequantize(qc, sc, padc, x.shape))

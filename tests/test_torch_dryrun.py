@@ -13,7 +13,8 @@ closed-form structural differences of ``torch_dryrun_common.py``, and the
 meta trace counts exactly what the CPU run counts. The peak tracker
 against a count by hand; each kernel wrapper's meta branch; the
 ``attn_scores_bf16`` knob; ``run_cell``'s records, the estimator and the
-roofline twin reading them; the mesh and variants the port lacks raising.
+roofline twin reading them; the mesh and variants the port lacks raising,
+and the ``moetok`` variants giving their base records.
 """
 import json
 import math
@@ -334,11 +335,25 @@ def test_the_mesh_and_knobs_the_port_lacks_raise(smoke_cells, tmp_path):
         dryrun.main(["--mesh", "both", "--outdir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         dryrun.run_cell("smollm-360m", "train_4k", multi_pod=True)
-    for variant, knob in (("moetok", "moe_token_gather"), ("w8+moetok", "moe_token_gather"),
-                          ("sp", "seq_shard_activations"), ("sbf16+sp", "seq_shard_activations")):
-        with pytest.raises(NotImplementedError, match=knob):
+    for variant in ("sp", "sbf16+sp"):
+        with pytest.raises(NotImplementedError, match="seq_shard_activations"):
             dryrun.run_cell("dbrx-132b", "decode_32k", variant=variant)
     assert set(dryrun.VARIANTS) == {"w8", "moetok", "w8+moetok", "sbf16", "remat0", "sp", "sbf16+remat0",
                                     "sbf16+sp", "kvbf16", "unroll", "mb4", "mb4+sbf16"}
     w8 = dryrun.run_cell("smollm-360m", "decode_32k", variant="w8")
     assert w8["status"] == "ok" and w8["variant"] == "w8"
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
+def test_moetok_variants_keep_their_base_records(smoke_cells, shape):
+    """``moetok`` and ``w8+moetok`` are JAX's lambdas; on the 1xH100 mesh no
+    ctx reaches ``moe_ffn``, so their records are ``baseline``'s and
+    ``w8``'s but for the variant (and the trace's wall time)."""
+    def rec(variant):
+        r = dryrun.run_cell("dbrx-132b", shape, variant=variant)
+        assert r["status"] == "ok" and r["variant"] == variant
+        return {k: v for k, v in r.items() if k not in ("variant", "trace_s")}
+
+    assert dryrun.VARIANTS["moetok"](registry.get_config("dbrx-132b"), None).moe_token_gather
+    assert rec("moetok") == rec("")
+    assert rec("w8+moetok") == rec("w8")

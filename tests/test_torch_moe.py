@@ -162,11 +162,11 @@ def test_blocked_draw_on_the_cpu(monkeypatch):
     time, in order (BLOCK shrunk to 64 values here)."""
     from repro_torch.models import common
 
-    small = common.ParamDef((4, 16))
+    small = common.ParamDef((4, 16), (None, None))
     got = common.init_param(torch.Generator().manual_seed(0), small, torch.float32, "cpu")
     assert torch.equal(got, torch.randn(4, 16, generator=torch.Generator().manual_seed(0)) * 0.5)
     monkeypatch.setattr(common, "BLOCK", 64)
-    got = common.init_param(torch.Generator().manual_seed(0), common.ParamDef((3, 4, 8, 8)),
+    got = common.init_param(torch.Generator().manual_seed(0), common.ParamDef((3, 4, 8, 8), (None,) * 4),
                             torch.bfloat16, "cpu")
     g = torch.Generator().manual_seed(0)
     want = torch.stack([torch.stack([torch.randn(8, 8, generator=g) for _ in range(4)]) for _ in range(3)])
