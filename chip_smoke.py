@@ -53,7 +53,7 @@ result line:
                 against the write through a row shifted beforehand.
   5. launcher — a batch-4 dense decode step's launches (32 decode_attention)
                 and time; launch/serve.main() at FULL width in bf16 on the
-                first 4 of the 32 layers (--layers): 32
+                first 2 of the 32 layers (--layers): 32
                 requests onto dense engines (the decode_attention kernel), 4
                 router workers, prewarm, traces and metrics; chunked
                 prefill, then whole-prompt prefill
@@ -89,7 +89,7 @@ result line:
                 decode step (81 rmsnorm and 40 paged decode launches, its
                 time and busy share), a batch-4 dense step (40
                 decode_attention), launch/serve.main(["--arch", "glm4-9b"])
-                with 32 requests on the first 4 layers (--layers),
+                with 32 requests on the first 2 layers (--layers),
                 whole-prompt; the pools phase's 8 prompts
                 on a paged engine in 32-token chunks on a bf16 flat pool and
                 whole-prompt on an int8 chained pool, 0 failures; then 4 of
@@ -105,13 +105,13 @@ result line:
                 rmsnorm and 36 paged decode launches, time, busy share,
                 device operations, side by side), a batch-4 dense step each
                 (36 decode_attention), launch/serve.main() with 32 requests
-                each on the first 4 layers (--layers), whole-prompt,
+                each on the first 2 layers (--layers), whole-prompt,
                 --weights-int8 on the int8 tree.
                 qwen1.5-32b FULL with int8 weights drawn on the card by the
                 quantized init (standard-normal q/k/v biases; its bytes and
                 its peak memory against the tree): a paged step (129 + 64),
                 a dense step (64), the launcher with --weights-int8 on the
-                first 4 layers, the
+                first 2 layers, the
                 pools phase's 8 prompts on an int8 chained pool. Then 2 of
                 the layers at FULL width (granite bf16 and int8 weights,
                 qwen int8 weights) on a dense engine and an int8 chained
@@ -317,7 +317,23 @@ result line:
                 same bits on every rank and as the CPU tensors' through the
                 same group, within 0.05 of the true sum. One call's host
                 time and CUDA-event span per path
- 21. summary  — the kernels JSON line, then the result line.
+ 21. gspmd    — the mesh path's GSPMD half on glm4-9b at FULL width (d 4096,
+                32 heads over 2, d_ff 13696, vocab 151552, bf16), 2 of its
+                40 layers, batch 4 x 256, every earlier tree off the card.
+                (a) NCCL at world size 1: the train step under
+                make_tier_mesh(1, 1)'s ctx on DTensor parameters and f32
+                AdamW states equals ctx=None bit for bit (loss, gradients,
+                parameters and states, rmsnorm and flash launches).
+                (b) GSPMD_WORLD ranks on the one card (gloo, CUDA operands
+                staged through the host: sharding/staged.py), a (2, 2) mesh
+                over ('data', 'model'), param_shardings(fsdp=True): every
+                leaf in its tree's placements and block shape, the loss
+                within 0.05 of (a)'s and each gradient block's cosine at
+                least 0.98 against it, the CE's logits blocks (2, 32,
+                75776), rmsnorm and flash launched as in (a); two train
+                steps, one's host time, CUDA-event span, peak memory and
+                bytes staged a rank
+ 22. summary  — the kernels JSON line, then the result line.
 Writes its longer outputs (build log, traces, metrics, and timeline.log:
 every printed line behind the seconds elapsed) under chip_smoke_out/.
 """
@@ -2279,7 +2295,7 @@ def phase_glm4(torch, dev):
     """glm4-9b FULL in bf16 on the card: a batch-8 paged decode step (81
     rmsnorm and 40 paged decode launches, its time and the device's busy
     share), a batch-4 dense step (40 decode_attention launches), the
-    launcher's 32 requests on dense engines on the first 4 layers
+    launcher's 32 requests on dense engines on the first 2 layers
     (whole-prompt prefill: flash and decode_attention at G = 16), the pools
     phase's 8 prompts on a paged engine in 32-token chunks on a bf16 flat
     pool and whole-prompt on an int8 chained pool, 0 failures on each. Then
@@ -2513,8 +2529,9 @@ def expert_leaf(torch, dev, arch: str = "jamba-1.5-large-398b", n: int = 4):
 INT8W_NEED = ("decode_attention", "flash_attention", "rmsnorm")
 # depth of the launcher bursts of phases 5, 8, 9, 10 and 11 (the first layers
 # of the FULL trees the phases' steps run whole), for the script's time limit
-LAUNCHER_LAYERS = {"smollm-360m": 4, "xlstm-350m": 8, "glm4-9b": 4, "granite-8b": 4, "qwen1.5-32b": 4,
-                   "qwen2-vl-2b": 4}
+# (4 until phase 21 came; xlstm-350m keeps its one whole superblock)
+LAUNCHER_LAYERS = {"smollm-360m": 2, "xlstm-350m": 8, "glm4-9b": 2, "granite-8b": 2, "qwen1.5-32b": 2,
+                   "qwen2-vl-2b": 2}
 
 
 def free_card(torch) -> None:
@@ -5424,6 +5441,286 @@ def phase_mesh(torch, dev) -> dict:
     return {"world1": one, "ranks": ranks, "seconds": time.perf_counter() - t0}
 
 
+GSPMD_WORLD = 4             # gloo ranks sharing cuda:0 in part (b), a (2, 2) ('data', 'model') mesh
+GSPMD_TP = 2
+GSPMD_LAYERS = 2            # of glm4-9b's 40, at FULL width
+GSPMD_BATCH = (4, 256)      # tokens a step
+GSPMD_STEPS = 2
+GSPMD_SEED = 21
+GSPMD_TIMEOUT_S = 300.0     # every collective's timeout
+GSPMD_SPAWN_S = 420.0       # the longest part (b) waits for its ranks
+GSPMD_LOSS_TOL = 0.05       # phase 16's bf16 bounds against the single-device step
+GSPMD_COS = 0.98
+
+
+def gspmd_model(torch):
+    """glm4-9b at FULL width (d 4096, 32 heads over 2, hd 128, d_ff 13696,
+    vocab 151552, bf16, remat full), GSPMD_LAYERS of its 40 layers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+
+    return get_model(get_config("glm4-9b").replace(n_layers=GSPMD_LAYERS))
+
+
+def gspmd_batch(torch, cfg, dev) -> dict:
+    g = torch.Generator(dev).manual_seed(GSPMD_SEED + 1)
+    B, S = GSPMD_BATCH
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev),
+            "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)}
+
+
+def gspmd_counts(c: dict) -> dict:
+    return {"rmsnorm": c["rmsnorm"], "flash_attention": c["flash_attention"]}
+
+
+def gspmd_world1(torch, dev, out: Path) -> dict:
+    """Part (a): NCCL at world size 1. The train step under the ctx of
+    ``make_tier_mesh(1, 1)``, its parameters and states DTensors of the
+    trees, against the ``ctx=None`` step bit for bit: the loss, every
+    gradient and every parameter and state after AdamW, and the launches.
+    Writes the single-device step's loss and gradients for part (b)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_tier_mesh
+    from repro_torch.launch.steps import (distribute_tree, make_train_step, opt_shardings, param_shardings,
+                                          value_and_grad)
+    from repro_torch.sharding.axes import make_ctx
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import leaves, paths
+
+    store = out / "store_world1"
+    store.unlink(missing_ok=True)
+    init_world("nccl", 0, 1, dist.FileStore(str(store), 1), timeout_s=GSPMD_TIMEOUT_S)
+    try:
+        ctx = make_ctx(make_tier_mesh(1, 1))
+        model = gspmd_model(torch)
+        ocfg = OptConfig(lr=1e-4)
+        params = model.init(torch.Generator(dev).manual_seed(GSPMD_SEED))
+        batch = gspmd_batch(torch, model.cfg, dev)
+        reset_counts()
+        (loss, _), grads = value_and_grad(model, params, batch)
+        all_counts = read_counts()
+        counts = gspmd_counts(all_counts)
+        torch.save({"loss": loss.cpu(), "grads": {k: g.cpu() for k, g in zip(paths(grads), leaves(grads))},
+                    "counts": counts}, out / "reference.pt")
+        reset_counts()
+        (loss1, _), grads1 = value_and_grad(model, params, batch, ctx)
+        all_counts1 = read_counts()
+        counts1 = gspmd_counts(all_counts1)
+        if not (torch.equal(loss, loss1) and all(torch.equal(a, b) for a, b in zip(leaves(grads), leaves(grads1)))
+                and counts == counts1):
+            raise AssertionError("phase 21 (a): the world-size-1 loss or gradients differ from ctx=None's")
+        del grads, grads1
+        opt = init_opt_state(params, ocfg)
+        p_ref, o_ref, m_ref = make_train_step(model, ocfg)(params, opt, batch)
+        dp = distribute_tree(params, param_shardings(model, ctx, fsdp=True))
+        do = distribute_tree(opt, opt_shardings(model, ctx, ocfg))
+        del params, opt
+        p1, o1, m1 = make_train_step(model, ocfg, ctx=ctx)(dp, do, batch)
+        same = all(torch.equal(a.to_local(), b) for a, b in zip(leaves(p1), leaves(p_ref))) and all(
+            torch.equal(a.to_local(), b) for a, b in zip(leaves(o1), leaves(o_ref)))
+        if not (same and torch.equal(m1["loss"], m_ref["loss"])):
+            raise AssertionError("phase 21 (a): the world-size-1 step's parameters or states differ from ctx=None's")
+        return {"backend": dist.get_backend(), "loss": float(loss), "counts": counts, "all_counts": all_counts1,
+                "leaves": len(leaves(p1)), "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    finally:
+        dist.destroy_process_group()
+
+
+def _cos(torch, a, b) -> float:
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    n = float(a.norm() * b.norm())
+    return 1.0 if n == 0 and float(a.norm() + b.norm()) == 0 else float(a @ b) / max(n, 1e-30)
+
+
+def gspmd_rank(rank: int, out_dir: str) -> None:
+    """One of part (b)'s ranks: the staged gloo backend on cuda:0 in a (2, 2)
+    mesh over ('data', 'model'). Draws glm4-9b's 2-layer tree, puts it on
+    the mesh by ``param_shardings(fsdp=True)`` (f32 AdamW states by
+    ``opt_shardings``), takes the gradient once and GSPMD_STEPS train steps
+    on the same batch. Checks the loss and each gradient block against part
+    (a)'s single-device step, every leaf's placements and block shape, the
+    CE's local logits and the kernels' launches. Writes rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_tier_mesh
+    from repro_torch.launch.steps import (distribute_tree, make_train_step, opt_shardings, param_shardings,
+                                          value_and_grad)
+    from repro_torch.models import loss as loss_mod
+    from repro_torch.sharding.axes import coordinate, make_ctx, placements
+    from repro_torch.sharding.staged import STAGED, staged_log
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import leaves, paths
+
+    res = {"rank": rank}
+    out = Path(out_dir)
+    try:
+        dev = init_world(STAGED, rank, GSPMD_WORLD, dist.FileStore(str(out / "store"), GSPMD_WORLD),
+                         timeout_s=GSPMD_TIMEOUT_S, device="cuda:0")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_tier_mesh(GSPMD_WORLD, GSPMD_TP, device=dev)
+        ctx = make_ctx(mesh)
+        coord = coordinate(mesh)
+        model = gspmd_model(torch)
+        ocfg = OptConfig(lr=1e-4)
+        psh = param_shardings(model, ctx, fsdp=True)
+        osh = opt_shardings(model, ctx, ocfg)
+        full = model.init(torch.Generator(dev).manual_seed(GSPMD_SEED))
+        params = distribute_tree(full, psh)
+        del full
+        torch.cuda.empty_cache()
+        opt = distribute_tree(init_opt_state(params, ocfg), osh)
+        batch = gspmd_batch(torch, model.cfg, dev)
+        ref = torch.load(out.parent / "reference.pt", mmap=True)
+        res.update(coord=coord, device=torch.cuda.get_device_name(dev))
+
+        bad = []
+        for name, tree, shard in (("param", params, psh), ("m", opt["m"], osh["m"]), ("v", opt["v"], osh["v"])):
+            for path, t, sh in zip(paths(tree), leaves(tree), leaves(shard)):
+                want = tuple(sh.block(torch.empty(t.shape, device="meta"), coord).shape)
+                if tuple(t.placements) != placements(sh.spec, mesh) or tuple(t.to_local().shape) != want:
+                    bad.append((name, path, str(t.placements), tuple(t.to_local().shape), want))
+        if tuple(opt["step"].placements) != placements(osh["step"].spec, mesh):
+            bad.append(("step", str(opt["step"].placements)))
+        if bad:
+            raise AssertionError(f"rank {rank}: leaves off their trees' layouts: {bad[:4]}")
+        res["leaves"] = len(leaves(params)) + len(leaves(opt["m"])) * 2 + 1
+        res["param_block_gb"] = sum(t.to_local().numel() * t.element_size() for t in leaves(params)) / 1e9
+
+        shapes = []
+        orig = loss_mod.qeinsum
+
+        def recording(x, w):
+            y = orig(x, w)
+            shapes.append(tuple(y.shape))
+            return y
+
+        loss_mod.qeinsum = recording
+        try:
+            reset_counts()
+            (loss, _), grads = value_and_grad(model, params, batch, ctx)
+            res["all_counts"] = read_counts()
+            counts = gspmd_counts(res["all_counts"])
+        finally:
+            loss_mod.qeinsum = orig
+        res["logits_blocks"] = sorted(set(shapes))
+        V_l = model.cfg.vocab_size // GSPMD_TP
+        if not shapes or any(sh[-1] != V_l or sh[0] != GSPMD_BATCH[0] // (GSPMD_WORLD // GSPMD_TP)
+                             for sh in shapes):
+            raise AssertionError(f"rank {rank}: CE logits blocks {sorted(set(shapes))}, expected (2, C, {V_l})")
+        if counts != ref["counts"]:
+            raise AssertionError(f"rank {rank}: launches {counts}, the single-device step's {ref['counts']}")
+        res["counts"] = counts
+        res["loss"] = float(loss)
+        res["loss_err"] = abs(float(loss) - float(ref["loss"]))
+        coss = {}
+        for path, g, p, sh in zip(paths(grads), leaves(grads), leaves(params), leaves(psh)):
+            if tuple(g.placements) != tuple(p.placements):
+                raise AssertionError(f"rank {rank}: gradient {path} in {g.placements}, parameter in {p.placements}")
+            coss[path] = _cos(torch, g.to_local(), sh.block(ref["grads"][path], coord).to(dev))
+        res["min_cos"] = min(coss.values())
+        res["min_cos_leaf"] = min(coss, key=coss.get)
+        if res["loss_err"] > GSPMD_LOSS_TOL or res["min_cos"] < GSPMD_COS:
+            raise AssertionError(f"rank {rank}: loss {loss} vs {float(ref['loss'])}, gradient cosines {coss}")
+        del grads, ref
+        torch.cuda.empty_cache()
+
+        step = make_train_step(model, ocfg, ctx=ctx)
+        losses, timing = [], {}
+        before = {a: {k: list(v) for k, v in d.items()} for a, d in staged_log(mesh).items()}
+        for i in range(GSPMD_STEPS):
+            torch.cuda.reset_peak_memory_stats(dev)
+            (params, opt, metrics), timing = _timed(torch, lambda: step(params, opt, batch))
+            losses.append(float(metrics["loss"]))
+        after = staged_log(mesh)
+        moved = {a: {k: [v[0] - before.get(a, {}).get(k, [0, 0])[0], v[1] - before.get(a, {}).get(k, [0, 0])[1]]
+                     for k, v in d.items()} for a, d in after.items()}
+        res["losses"] = losses
+        res["step"] = timing
+        res["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res["moved_per_step"] = {a: {k: [v[0] // GSPMD_STEPS, v[1] // GSPMD_STEPS] for k, v in d.items()}
+                                 for a, d in moved.items()}
+        res["bytes_per_step"] = sum(v[1] for d in res["moved_per_step"].values() for v in d.values())
+        if not all(math.isfinite(x) for x in losses) or abs(losses[0] - res["loss"]) > 1e-3:
+            raise AssertionError(f"rank {rank}: step losses {losses} against the gradient pass's {res['loss']}")
+        for t, sh in zip(leaves(params), leaves(psh)):
+            if tuple(t.placements) != placements(sh.spec, mesh):
+                raise AssertionError(f"rank {rank}: a parameter after the steps in {t.placements}")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase_gspmd(torch, dev) -> dict:
+    """Phase 21: part (a) in this process, part (b) in GSPMD_WORLD spawned
+    ranks, each joined or killed by GSPMD_SPAWN_S; a rank that fails or
+    hangs fails the phase."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    base = OUT / "gspmd"
+    base.mkdir(parents=True, exist_ok=True)
+    one = gspmd_world1(torch, dev, base)
+    log(f"  (a) NCCL world size 1 ({one['backend']}): glm4-9b FULL width {GSPMD_LAYERS}L bf16, batch "
+        f"{GSPMD_BATCH[0]} x {GSPMD_BATCH[1]}, the train step under make_tier_mesh(1, 1) == ctx=None bit for bit "
+        f"(loss {one['loss']:.6f}, every gradient, {one['leaves']} parameters and their f32 AdamW states), "
+        f"launches {one['counts']} a gradient pass in both, peak {one['peak_gb']:.3f} GB "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    free_card(torch)
+
+    t1 = time.perf_counter()
+    out = base / "ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gspmd_rank, args=(r, str(out))) for r in range(GSPMD_WORLD)]
+    for pr in procs:
+        pr.start()
+    try:
+        deadline = time.monotonic() + GSPMD_SPAWN_S
+        for pr in procs:
+            pr.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        stuck = [r for r, pr in enumerate(procs) if pr.is_alive()]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+            pr.join()
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) if (out / f"rank{r}.json").exists() else {}
+             for r in range(GSPMD_WORLD)]
+    bad = [(r, pr.exitcode, ranks[r].get("error", "no result")[-2000:]) for r, pr in enumerate(procs)
+           if pr.exitcode != 0 or "losses" not in ranks[r]]
+    if stuck or bad:
+        raise AssertionError(f"phase 21 (b): ranks past {GSPMD_SPAWN_S} s {stuck}; failed {bad}")
+    (base / "ranks.json").write_text(json.dumps(ranks, indent=1))
+    r0 = ranks[0]
+    log(f"  (b) {GSPMD_WORLD} ranks on {r0['device']} (gloo, CUDA operands staged through the host), mesh "
+        f"({GSPMD_WORLD // GSPMD_TP}, {GSPMD_TP}) over ('data', 'model'), param_shardings(fsdp=True), f32 AdamW; "
+        f"{r0['leaves']} leaves a rank in their trees' placements and block shapes; parameter blocks "
+        f"{r0['param_block_gb']:.3f} GB a rank [{time.perf_counter() - t1:.1f} s]")
+    log(f"  loss against the single-device step: " + ", ".join(f"{r['loss']:.6f} (err {r['loss_err']:.3e})"
+                                                              for r in ranks)
+        + f" (tol {GSPMD_LOSS_TOL}); least gradient-block cosine " + ", ".join(
+            f"{r['min_cos']:.6f} ({r['min_cos_leaf']})" for r in ranks) + f" (bound {GSPMD_COS})")
+    log(f"  CE logits blocks a rank {r0['logits_blocks']} (vocab {151552} over {GSPMD_TP}); launches a gradient "
+        f"pass " + ", ".join(str(r["counts"]) for r in ranks))
+    log(f"  {GSPMD_STEPS} train steps, losses " + "; ".join(str(r["losses"]) for r in ranks))
+    log("  one step (the last): host ms " + ", ".join(f"{r['step']['host_ms']:.3f}" for r in ranks)
+        + "; CUDA-event span ms " + ", ".join(f"{r['step']['event_ms']:.3f}" for r in ranks)
+        + "; peak GB " + ", ".join(f"{r['step_peak_gb']:.3f}" for r in ranks)
+        + "; bytes staged through the host a step " + ", ".join(str(r["bytes_per_step"]) for r in ranks))
+    log(f"  staged collectives a step, rank 0: {json.dumps(r0['moved_per_step'])}")
+    return {"world1": one, "ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -5620,7 +5917,14 @@ def main() -> int:
     mesh = phase_mesh(torch, dev)
     log(f"  mesh phase {mesh['seconds']:.1f} s")
 
-    # 21. summary
+    # 21. gspmd: the mesh path's GSPMD half, glm4-9b's train step; NCCL at world size 1, then GSPMD_WORLD ranks
+    free_card(torch)
+    log(f"phase 21 gspmd: glm4-9b FULL width {GSPMD_LAYERS}L, the sharded train step on DTensors; NCCL at world "
+        f"size 1, then {GSPMD_WORLD} ranks on the card [at {time.perf_counter() - T_START:.1f} s]")
+    gspmd = phase_gspmd(torch, dev)
+    log(f"  gspmd phase {gspmd['seconds']:.1f} s")
+
+    # 22. summary
     runs = {"serve_chunk32": c_counts, "witness_chunk32": witness["counts"], "serve_whole_prompt": w_counts, "launcher_chunk32": lc_counts,
             "launcher_whole_prompt": lw_counts, "pools_int8_chained": pools["int8_chained"]["counts"],
             "pools_int8_flat": pools["int8_flat"]["counts"],
@@ -5629,7 +5933,8 @@ def main() -> int:
             **{f"options_prefix_{k}": r["counts"] for k, r in opts["prefix"].items()},
             "options_fork": opts["fork"]["counts"], **xlstm["counts"], **glm4["counts"],
             **int8w["counts"], **stubs["counts"], **moe["counts"], **hybrid["counts"], **train["counts"],
-            **xc["counts"]}
+            **xc["counts"], "gspmd_world1": gspmd["world1"]["all_counts"],
+            **{f"gspmd_rank{r['rank']}": r["all_counts"] for r in gspmd["ranks"]}}
     main_run = {"rmsnorm": "serve_chunk32", "paged_prefill_write": "serve_chunk32",
                 "paged_attention": "serve_chunk32", "flash_attention": "serve_whole_prompt",
                 "decode_attention": "launcher_chunk32", "paged_prefill_write_quant": "pools_int8_flat",
@@ -5646,7 +5951,7 @@ def main() -> int:
     extra = ("shape", "device_ms", "device_source", "stalled_ms", "plain_device_ms",
              "library_device_ms", "main_run", "launches_by_run")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.3f} s (parity {t_summary - t_parity:.1f} s, "
-        f"sched, train, xception, dryrun and mesh {time.perf_counter() - t_summary:.1f} s)")
+        f"sched, train, xception, dryrun, mesh and gspmd {time.perf_counter() - t_summary:.1f} s)")
     table = []
     for r in rows:
         table.append({k: r[k] for k in keys + extra})

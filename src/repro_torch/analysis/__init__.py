@@ -21,7 +21,8 @@ package checks them:
 - ``kernelcheck``  the CUDA wrappers' contract: ops.py/ref.py pairs, C entry
                    points that exist and report launch errors, wrappers that
                    check and count every launch, no fallback, in-place pools,
-                   a card test and a JAX parity test per family.
+                   a card test and a JAX parity test per family; and
+                   (``check_dtensor``) every wrapper refusing a DTensor.
 
 Everything is stdlib-``ast`` based and imports neither torch nor JAX. Run
 the whole tier with ``python -m repro_torch.analysis`` (see

@@ -16,7 +16,7 @@ from pathlib import Path
 from typing import List
 
 from .common import Finding, SourceFile, render_report, unsuppressed
-from .kernelcheck import KernelCheck
+from .kernelcheck import KernelCheck, check_dtensor
 from .locklint import LockLint
 from .lockorder import LockOrder
 
@@ -79,6 +79,7 @@ def run_all(root: Path, only: List[str]) -> tuple:
         findings += graph.check()
     if "kernelcheck" in only:
         findings += KernelCheck(str(root / KERNELS), str(root / "tests")).run()
+        findings += check_dtensor(str(root / KERNELS))
     return findings, graph
 
 

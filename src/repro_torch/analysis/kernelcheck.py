@@ -29,6 +29,12 @@ that never reached the kernel. Checked here, each under its own code:
   named ``*_ref`` / ``_plain*``).
 - **env-switch**: no ``os.environ`` / ``os.getenv`` in an ``ops.py``: the
   device of the tensor decides, nothing else.
+- **dtensor-unrefused** (``check_dtensor``, the port's rule on top of the
+  contract): every public function of an ``ops.py`` that reaches a launch
+  calls ``_build.refuse_dtensor`` (itself, or through a module function it
+  calls by its bare name): a DTensor's storage is one rank's block, so a
+  kernel handed one would compute on the wrong tensor; sharded callers
+  launch on each rank's block inside ``local_map``.
 - **inplace-copy**: a pool-like operand (``POOL_NAME``) reaches an entry
   only as itself: never rebound in the wrapper, never through
   ``.contiguous()``, ``.clone()`` or ``.to(...)``; a wrapper that hands a
@@ -544,6 +550,30 @@ def _data_ptr_of(arg: ast.AST) -> Optional[ast.AST]:
 
 def check(kernels_root: str, tests_root: str) -> List[Finding]:
     return KernelCheck(kernels_root, tests_root).run()
+
+
+def check_dtensor(kernels_root: str) -> List[Finding]:
+    """**dtensor-unrefused** over every family of ``kernels_root``: each
+    public function of its ``ops.py`` that reaches a launch calls
+    ``_build.refuse_dtensor``, itself or through a module function it
+    calls by its bare name. The port's own rule on top of the wrapper
+    contract (``KernelCheck``), run over the port's kernels by ``python -m
+    repro_torch.analysis``."""
+    out: List[Finding] = []
+    for name in families(kernels_root):
+        ops = SourceFile.load(Path(kernels_root) / name / "ops.py")
+        entries = _entries(ops)
+        fns = [n for n in ops.tree.body if isinstance(n, ast.FunctionDef)]
+        reaching = _reaching(fns, {n.name for n in fns if any(_entry_call(c, entries) for c in ast.walk(n))})
+        refusing = _reaching(fns, {n.name for n in fns if any(
+            isinstance(c, ast.Call) and _callee_leaf(c) == "refuse_dtensor" for c in ast.walk(n))})
+        for fn in fns:
+            if fn.name in reaching and not fn.name.startswith("_") and fn.name not in refusing:
+                f = Finding(tool=TOOL, path=ops.path, line=fn.lineno, code="dtensor-unrefused",
+                            message=f"{fn.name}: reaches a launch without _build.refuse_dtensor; a DTensor "
+                                    f"would launch on one rank's block as if it were the tensor")
+                out.append(apply_suppression(ops, f))
+    return out
 
 
 def families(kernels_root: str) -> Sequence[str]:

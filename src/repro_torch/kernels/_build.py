@@ -22,6 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -174,6 +175,18 @@ def reset_launches(wrapper) -> None:
         wrapper.launches = 0
         for leg in getattr(wrapper, "leg_launches", {}):
             wrapper.leg_launches[leg] = 0
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if a tensor is a DTensor. A kernel launches on a
+    tensor's own storage, which for a DTensor is one rank's block of a
+    larger tensor: a sharded caller runs the wrapper on each rank's block
+    inside a ``local_map`` region (``models/common.rmsnorm_sharded``,
+    ``models/attention._attend_sharded``)."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name}: got a DTensor; call the kernel on each rank's block (to_local(), "
+                            f"or a local_map region)")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> int:

@@ -68,6 +68,7 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     """q: (B, 1, H, hd); k/v: (B, T, KV, hd); cache_len: scalar or (B,)
     valid positions per sequence. Returns (B, 1, H, hd) in q's dtype.
     Forward only: on the card it raises where a gradient is wanted."""
+    _build.refuse_dtensor("decode_attention", q, k, v, cache_len)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV

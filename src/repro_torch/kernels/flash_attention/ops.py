@@ -105,6 +105,7 @@ class FlashFn(torch.autograd.Function):
 
 
 def _attend(q, k, v, layout: str):
+    _build.refuse_dtensor("flash_attention", q, k, v)
     if _grad.wants_grad(q, k, v):
         return FlashFn.apply(q, k, v, layout)
     return _forward(q, k, v, layout)

@@ -66,6 +66,7 @@ def mlstm_chunkwise_bh(q, k, v, i, lf, C0, n0, m0, chunk: int = 64):
     (BH, S, DH) in q's dtype, C, n, m) in f32. On the card the bf16 kernel
     takes a chunk length L up to what a block's shared memory holds (5348
     steps at DH 512; ``csrc/mlstm_chunk.cu``); past it the launch raises."""
+    _build.refuse_dtensor("mlstm_chunkwise", q, k, v, i, lf, C0, n0, m0)
     if _grad.wants_grad(q, k, v, i, lf, C0, n0, m0):
         return MLSTMFn.apply(q, k, v, i, lf, C0, n0, m0, chunk)
     return _forward(q, k, v, i, lf, C0, n0, m0, chunk)

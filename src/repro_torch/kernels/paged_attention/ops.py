@@ -158,6 +158,7 @@ def paged_prefill_write(pool_k, pool_v, k, v, tab_row, offset=None):
     t lands at absolute position offset + t, in page ``tab_row[offset // ps
     + t // ps]`` (``write_page_ids``). Lp need not be a page multiple: the
     kernel writes the ragged tail itself. Returns (pool_k, pool_v)."""
+    _build.refuse_dtensor("paged_prefill_write", pool_k, pool_v, k, v, tab_row)
     tab, shift = _write_args("paged_prefill_write", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_ref(pool_k, pool_v, k, v, tab)
@@ -196,6 +197,7 @@ def paged_prefill_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row, o
     write time and land the int8 values in pool_k/pool_v (num_pages, KV, ps,
     hd) and the bf16 scales in pool_ks/pool_vs (num_pages, KV, ps, 1), all
     IN PLACE. k/v are f32 or bf16 activations. Returns the four pools."""
+    _build.refuse_dtensor("paged_prefill_write_quant", pool_k, pool_v, pool_ks, pool_vs, k, v, tab_row)
     tab, shift = _write_args("paged_prefill_write_quant", pool_k, k, v, tab_row, offset)
     if pool_k.device.type == "cpu":
         return paged_prefill_write_quant_ref(pool_k, pool_v, pool_ks, pool_vs, k, v, tab)
@@ -284,6 +286,7 @@ def paged_attention(q, pool_k, pool_v, block_tab, lengths, softcap: float = 0.0,
     rows of a chained table; lengths: (B,) valid tokens per sequence.
     ``pool_ks``/``pool_vs`` (num_pages, KV, ps, 1) bf16 select the int8
     leg. Returns (B, 1, H, hd) in q's dtype."""
+    _build.refuse_dtensor("paged_attention", q, pool_k, pool_v, block_tab, lengths, pool_ks, pool_vs, l2_tab)
     B, S, H, hd = q.shape
     num_pages, KV, ps, _ = pool_k.shape
     G = H // KV

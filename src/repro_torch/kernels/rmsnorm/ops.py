@@ -28,6 +28,7 @@ def rmsnorm_cost(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
 @_cost.reports(rmsnorm_cost)
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); w: (D,). Returns x's shape and dtype."""
+    _build.refuse_dtensor("rmsnorm", x, w)
     if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
         return RMSNormFn.apply(x, w, eps)
     return _forward(x, w, eps)

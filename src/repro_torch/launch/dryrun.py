@@ -55,8 +55,8 @@ POLICY = {
 }
 
 MESH = "1xH100"
-NO_MESH = ("the multi-pod mesh waits for the mesh path's GSPMD half (ROADMAP Queue 1 item 10: "
-           "a ctx through the model API and launch/steps.py's sharding trees)")
+NO_MESH = ("the multi-pod mesh waits for the dry run's multi-device stand-ins (ROADMAP Queue 1 item 10, "
+           "sub-item 4)")
 
 
 def _mesh_knob(knob: str):
@@ -64,7 +64,7 @@ def _mesh_knob(knob: str):
     half, which the port lacks: it raises."""
     def variant(cfg, spec):
         raise NotImplementedError(f"the port has no {knob} knob (a sharding knob of the mesh path, "
-                                  f"ROADMAP Queue 1 item 10)")
+                                  f"ROADMAP Queue 1 item 10, sub-item 2)")
 
     return variant
 

@@ -7,7 +7,9 @@ A mesh is a ``DeviceMesh`` whose axis groups carry the collectives of
 ``sharding/collectives.py``. One rank computes on one device; several ranks
 may share a card over the gloo backend. The backend is always the
 caller's: NCCL on the card, gloo on the CPU (or on CUDA tensors where the
-caller names it); none is picked by probing.
+caller names it); none is picked by probing. Ranks that share one card
+and run DTensor code name ``sharding.staged.STAGED``: gloo with CUDA
+operands staged through the host.
 """
 from __future__ import annotations
 
@@ -27,7 +29,12 @@ def init_world(backend: str, rank: int, world_size: int, store, timeout_s: float
     """Start the default process group over ``store`` (a
     ``torch.distributed`` Store: a ``FileStore`` or a ``TCPStore`` on
     localhost) with ``timeout_s`` seconds on every collective, and select
-    this rank's device (``None``: the card). Returns the device."""
+    this rank's device (``None``: the card). Returns the device.
+    ``backend`` ``sharding.staged.STAGED`` registers that backend first."""
+    from repro_torch.sharding import staged
+
+    if backend == staged.STAGED:
+        staged.register()
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:

@@ -16,7 +16,15 @@ tokens), each chosen by ``get_model``.
     tok, cache = EmbedsLM(cfg).prefill(params, {"inputs_embeds": e, "positions": p})
     tok, cache = EncDecLM(cfg).prefill(params, {"frames": f, "tokens": t})
     loss, metrics = model.loss(params, {"tokens": t, "labels": l})   # training
+    loss, metrics = model.loss(params, batch, ctx=make_ctx(mesh))    # sharded: DTensor params
     model.param_shapes(); model.input_specs(shape)           # the dry run's meta stand-ins
+
+Every method the JAX package gives a ``ctx`` takes one as a keyword
+(``ctx=None``: one device). A ctx over one device takes the single-device
+path. Over more than one, ``loss`` runs sharded on DTensor parameters (laid
+out as ``launch/steps.param_shardings`` says); the serving methods raise
+``NotImplementedError``: their sequence-sharded cache waits for ROADMAP
+Queue 1 item 10, sub-item 5.
 
 Batches hold tensors on the model's device, or host values the functions
 move there. Caches and page pools are updated in place.
@@ -35,6 +43,7 @@ from repro_torch.models.common import ModelConfig, init_tree, shape_tree
 from repro_torch.models.loss import lm_loss, logits, next_tokens, next_tokens_all
 from repro_torch.models.quant import check_int8_family, init_quantized
 from repro_torch.models.rotary import mrope_positions_for, positions_for
+from repro_torch.models.transformer import sharded
 
 
 @dataclass(frozen=True)
@@ -63,6 +72,12 @@ def _last_valid(h: torch.Tensor, n_valid) -> torch.Tensor:
 
 def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.long)
+
+
+def _serving(ctx) -> None:
+    """Serving on a multi-device mesh raises (its cache is not ported)."""
+    if sharded(ctx):
+        raise NotImplementedError(attn_mod.SERVING_ON_MESH)
 
 
 @dataclass
@@ -136,7 +151,7 @@ class DecoderLM:
         tokens = _tokens(tokens, dev)
         return tokens, None, *tokens.shape
 
-    def hidden(self, params, tokens=None, positions=None, inputs_embeds=None) -> torch.Tensor:
+    def hidden(self, params, tokens=None, positions=None, inputs_embeds=None, ctx=None) -> torch.Tensor:
         """Final hidden states of a whole sequence, causal, no cache: the
         teacher-forcing path, tokens (B, S) or ``inputs_embeds`` (B, S, d)
         -> (B, S, d). ``positions`` as ``prefill`` takes them."""
@@ -144,22 +159,24 @@ class DecoderLM:
         tokens, inputs_embeds, B, S = self._inputs(tokens, inputs_embeds, dev)
         pos, index = self._prompt_positions(positions, B, S, dev)
         h, _ = tf.forward(self.cfg, params, tokens, pos, mode="train", inputs_embeds=inputs_embeds,
-                          index_positions=index)
+                          index_positions=index, ctx=ctx)
         return h
 
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params, hidden)
 
-    def loss(self, params, batch: Mapping):
+    def loss(self, params, batch: Mapping, ctx=None):
         """The training loss of tokens (B, S) against labels (B, S) (IGNORE
         masks a position), positions optional as ``hidden`` takes them:
         ``lm_loss`` plus, for an MoE model, ``moe.aux_weight`` times the
-        layers' aux loss. Returns (loss, metrics)."""
+        layers' aux loss. Returns (loss, metrics). On a mesh the batch's
+        entries (full tensors or DTensors) are sharded over the batch axes,
+        and the loss and metrics are replicated DTensors."""
         dev = params["embedding"].device
         tokens, _, B, S = self._inputs(batch["tokens"], None, dev)
         pos, index = self._prompt_positions(batch.get("positions"), B, S, dev)
-        h, aux = tf.forward(self.cfg, params, tokens, pos, mode="train", index_positions=index)
-        loss, metrics = lm_loss(self.cfg, params, h, _tokens(batch["labels"], dev))
+        h, aux = tf.forward(self.cfg, params, tokens, pos, mode="train", index_positions=index, ctx=ctx)
+        loss, metrics = lm_loss(self.cfg, params, h, _tokens(batch["labels"], dev), ctx=ctx)
         if self.cfg.moe is not None:
             loss = loss + self.cfg.moe.aux_weight * aux
             metrics["moe_aux"] = aux
@@ -176,7 +193,7 @@ class DecoderLM:
                 leaf.zero_()
         return cache
 
-    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0, ctx=None):
         """Dense whole-prompt prefill. batch: tokens (B, Lp) right-padded,
         n_valid (B,) optional (pad positions are identity for every
         recurrent update, and the token comes from the last valid position),
@@ -186,6 +203,7 @@ class DecoderLM:
         recurrent state is zeroed first; without it a fresh cache of
         capacity ``cap`` (default Lp) is made. Returns (next_token (B,),
         cache)."""
+        _serving(ctx)
         return self._prefill(params, batch, cache, cap, tokens=batch["tokens"])
 
     def _prefill(self, params, batch: Mapping, cache, cap: int, tokens=None, inputs_embeds=None):
@@ -199,7 +217,7 @@ class DecoderLM:
                               n_valid=n_valid, inputs_embeds=inputs_embeds, index_positions=index)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache
 
-    def prefill_paged(self, params, batch: Mapping, cache):
+    def prefill_paged(self, params, batch: Mapping, cache, ctx=None):
         """Paged prefill of ONE sequence straight into the shared page pool.
 
         batch: tokens (1, Lp) right-padded to a bucket length, n_valid (1,),
@@ -207,6 +225,7 @@ class DecoderLM:
         optional, as ``prefill`` takes them. Recurrent mixers run from zero
         state and land their final state at ``slot``. Returns (next_token
         (1,), cache)."""
+        _serving(ctx)
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -237,7 +256,7 @@ class DecoderLM:
                 cache["blocks"][key][name][:, slot:slot + 1].copy_(part)
         return cache
 
-    def prefill_chunk(self, params, batch: Mapping, cache, chunk_state):
+    def prefill_chunk(self, params, batch: Mapping, cache, chunk_state, ctx=None):
         """Dense resumable partial-context prefill of ONE slot's stripe.
 
         batch: tokens (1, Cp) one right-padded chunk; n_valid (1,) valid
@@ -248,6 +267,7 @@ class DecoderLM:
         the previous chunk, ``init_chunk_state`` for the first) and leave the
         cache's state as it is. Returns (next_token (1,), cache, the new
         chunk_state); only the final chunk's token is meaningful."""
+        _serving(ctx)
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -259,7 +279,7 @@ class DecoderLM:
             chunk_state=chunk_state)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
 
-    def prefill_chunk_paged(self, params, batch: Mapping, cache, chunk_state):
+    def prefill_chunk_paged(self, params, batch: Mapping, cache, chunk_state, ctx=None):
         """Paged resumable partial-context prefill of ONE sequence.
 
         batch: tokens (1, Cp) one right-padded chunk; n_valid (1,) valid
@@ -267,6 +287,7 @@ class DecoderLM:
         pool; tab_row (P,) the FULL block-table row; slot. Recurrent mixers
         resume from ``chunk_state``. Returns (next_token (1,), cache, the new
         chunk_state); only the final chunk's token is meaningful."""
+        _serving(ctx)
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -284,7 +305,7 @@ class DecoderLM:
             cache=cache, cache_index=cidx, n_valid=n_valid, chunk_state=chunk_state)
         return next_tokens(self.cfg, params, _last_valid(h, n_valid)), cache, chunk_state
 
-    def verify(self, params, batch: Mapping, cache):
+    def verify(self, params, batch: Mapping, cache, ctx=None):
         """Dense speculative verify of ONE slot's stripe (B = 1).
 
         batch: tokens (1, S), the slot's pending last token then k proposal
@@ -293,6 +314,7 @@ class DecoderLM:
         at ``offset`` (a verify step is a chunk: ``ChunkPrefillIndex``) and
         the greedy next token is read at every position. Attention-only
         decoders (the engines enforce it). Returns (tokens (1, S), cache)."""
+        _serving(ctx)
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -304,13 +326,14 @@ class DecoderLM:
                               cache_index=attn_mod.ChunkPrefillIndex(offset))
         return next_tokens_all(self.cfg, params, h), cache
 
-    def verify_paged(self, params, batch: Mapping, cache):
+    def verify_paged(self, params, batch: Mapping, cache, ctx=None):
         """Paged speculative verify of ONE sequence (B = 1): as ``verify``,
         against the shared page pool; batch also carries tab_row (P,), the
         sequence's full block-table row. The S tokens scatter through the
         row at a mid-page offset (``PagedVerifyIndex``) and attend over the
         gathered context by absolute position. Returns (tokens (1, S),
         cache)."""
+        _serving(ctx)
         dev = params["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -323,7 +346,7 @@ class DecoderLM:
                               mode="prefill", cache=cache, cache_index=vidx)
         return next_tokens_all(self.cfg, params, h), cache
 
-    def decode(self, params, cache, batch: Mapping):
+    def decode(self, params, cache, batch: Mapping, ctx=None):
         """One batched decode step. Paged (batch has ``block_tab``): token
         (B, 1), lengths (B,) tokens already in cache, block_tab (B, P), or
         with ``l2_tab`` (n_rows, tpp) the (B, W1) first level of a chained
@@ -332,6 +355,7 @@ class DecoderLM:
         follow the cache index, under M-RoPE in all three streams (after an
         image prompt too, as in the JAX package). Returns (next_tokens (B,),
         cache)."""
+        _serving(ctx)
         dev = params["embedding"].device
         tok = _tokens(batch["token"], dev)
         B, S = tok.shape
@@ -378,21 +402,22 @@ class EmbedsLM(DecoderLM):
     embeddings (the vision frontend is a stub). Token prompts take the
     decoder LM's paths, with text-only M-RoPE positions."""
 
-    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0, ctx=None):
         """Dense whole-prompt prefill of inputs_embeds (B, S, d), with
         positions (3, B, S) optional (``vlm.mrope_positions_with_image`` for
         an image prompt; default text-only) and n_valid optional; ``cache``
         and ``cap`` as ``DecoderLM.prefill`` takes them. A batch without
         ``inputs_embeds`` raises KeyError, as the JAX package's does.
         Returns (next_token (B,), cache)."""
+        _serving(ctx)
         return self._prefill(params, batch, cache, cap, inputs_embeds=batch["inputs_embeds"])
 
-    def loss(self, params, batch: Mapping):
+    def loss(self, params, batch: Mapping, ctx=None):
         """The training loss over inputs_embeds (B, S, d) against labels (B,
         S), positions (3, B, S) optional: ``lm_loss`` alone (no aux term, as
         in the JAX package). Returns (loss, metrics)."""
-        h = self.hidden(params, positions=batch.get("positions"), inputs_embeds=batch["inputs_embeds"])
-        return lm_loss(self.cfg, params, h, _tokens(batch["labels"], h.device))
+        h = self.hidden(params, positions=batch.get("positions"), inputs_embeds=batch["inputs_embeds"], ctx=ctx)
+        return lm_loss(self.cfg, params, h, _tokens(batch["labels"], h.device), ctx=ctx)
 
     def input_specs(self, shape: ShapeSpec, device="meta") -> dict:
         """As ``DecoderLM.input_specs``, the prompt as inputs_embeds (B, S,
@@ -439,20 +464,25 @@ class EncDecLM(DecoderLM):
     def logits(self, params, hidden) -> torch.Tensor:
         return logits(self.cfg, params["decoder"], hidden)
 
-    def loss(self, params, batch: Mapping):
+    def loss(self, params, batch: Mapping, ctx=None):
         """The training loss of the decoder over tokens (B, S) after the
         encoder over frames (B, T, d), against labels (B, S): ``lm_loss``
         on the decoder's unembedding, no aux term. Returns (loss,
-        metrics)."""
+        metrics). The encoder-decoder on a multi-device mesh is not
+        ported: such a ctx raises ``NotImplementedError``."""
+        if sharded(ctx):
+            raise NotImplementedError("the encoder-decoder on a multi-device mesh is not ported "
+                                      "(ROADMAP Queue 1 item 10)")
         h = self.hidden(params, batch["tokens"], batch["frames"])
         return lm_loss(self.cfg, params["decoder"], h, _tokens(batch["labels"], h.device))
 
-    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0):
+    def prefill(self, params, batch: Mapping, cache=None, cap: int = 0, ctx=None):
         """batch: frames (B, n_ctx, d), tokens (B, Lp) right-padded, n_valid
         (B,) optional. The encoder runs over the frames, each decoder layer
         caches its cross K/V, and the tokens' K/V go into the cache from
         position 0 (a fresh cache of capacity ``cap``, default Lp, when none
         is given). Returns (next_token (B,), cache)."""
+        _serving(ctx)
         dev = params["decoder"]["embedding"].device
         tokens = _tokens(batch["tokens"], dev)
         B, S = tokens.shape
@@ -464,9 +494,10 @@ class EncDecLM(DecoderLM):
                               cache_index=0, n_valid=n_valid)
         return next_tokens(self.cfg, params["decoder"], _last_valid(h, n_valid)), cache
 
-    def decode(self, params, cache, batch: Mapping):
+    def decode(self, params, cache, batch: Mapping, ctx=None):
         """One aligned decode step: token (B, 1) at the scalar
         ``cache_index``. Returns (next_tokens (B,), cache)."""
+        _serving(ctx)
         dev = params["decoder"]["embedding"].device
         tok = _tokens(batch["token"], dev)
         B, S = tok.shape

@@ -10,6 +10,7 @@ the cache dict's tensors and returns the same dict.
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, NamedTuple, Optional
 
 import torch
@@ -19,8 +20,15 @@ from repro_torch.kernels import _grad
 from repro_torch.models.common import NULL, TP, ModelConfig, ParamDef
 from repro_torch.models.quant import dequantize_kv, qeinsum, quantize_kv
 from repro_torch.models.rotary import apply_mrope, apply_rope
+from repro_torch.sharding.axes import is_dtensor, redistribute
 
 NEG_INF = -1e30
+# prefill and decode over a multi-device mesh: the cache shards its sequence
+# axis over the model axis (launch/steps.cache_shardings), which needs a
+# softmax combine across ranks
+SERVING_ON_MESH = ("prefill, decode, chunks and verify on a multi-device mesh wait for the mesh "
+                   "path's sharded serving (ROADMAP Queue 1 item 10, sub-item 5: a softmax "
+                   "combine over the sequence-sharded cache)")
 
 
 class TensorSpec(NamedTuple):
@@ -372,8 +380,25 @@ def _apply_pos(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> to
     return x
 
 
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd). A DTensor whose shards of the last
+    dim would cut through a head (n not a multiple of the shard count) is
+    first gathered over the axes that shard it, so that every rank's view
+    holds whole heads."""
+    B, S = t.shape[:2]
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = list(t.placements)
+        cut = [i for i, a in enumerate(pl) if isinstance(a, Shard) and a.dim == t.ndim - 1]
+        if n % math.prod(t.device_mesh.size(i) for i in cut):
+            for i in cut:
+                pl[i] = Replicate()
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(B, S, n, hd)
+
+
 def _project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor, n_heads: int):
-    B, S, _ = x.shape
     H = n_heads
     KV = min(cfg.n_kv_heads, H)
     hd = cfg.hd
@@ -384,7 +409,52 @@ def _project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor, n_heads: int):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    return _heads(q, H, hd), _heads(k, KV, hd), _heads(v, KV, hd)
+
+
+def _attend_sharded(cfg: ModelConfig, q, k, v, positions, causal: bool, index_positions: bool):
+    """Position encoding and attention of DTensor q (B, S, H, hd), k/v (B, S,
+    KV, hd) on each rank's block (``local_map``): batch as the projections
+    split it, q's heads as they split them. K/V heads that are split as q's
+    are (KV a multiple of the model shards) give each rank the heads its
+    query heads use; otherwise they come whole to every rank, which takes
+    the heads its query heads read, and their gradient is partial over the
+    model axis. The kernels launch on the blocks: flash attention where the
+    whole-sequence path takes it, as ``chunked_attention`` chooses."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qp = tuple(q.placements)
+    heads = [i for i, a in enumerate(qp) if isinstance(a, Shard) and a.dim == 2]
+    k_heads = [i for i, a in enumerate(k.placements) if isinstance(a, Shard) and a.dim == 2]
+    if heads and k_heads == heads:
+        kp, pick = tuple(k.placements), False
+    else:
+        kp = tuple(Replicate() if i in k_heads else a for i, a in enumerate(k.placements))
+        pick = bool(heads)
+    k, v = redistribute(k, kp), redistribute(v, kp)
+    batch = tuple(Shard(1 if cfg.pos == "mrope" else 0) if isinstance(a, Shard) and a.dim == 0 else Replicate()
+                  for a in qp)
+    positions = redistribute(positions, batch) if is_dtensor(positions) else positions
+    kv_grad = tuple(Partial() if pick and i in heads else a for i, a in enumerate(kp))
+    G = H // KV
+
+    def body(ql, kl, vl, pos):
+        if pick:
+            Hl = ql.shape[2]
+            lo = sum(mesh.get_local_rank(i) * math.prod(mesh.size(j) for j in heads[n + 1:])
+                     for n, i in enumerate(heads)) * Hl
+            if Hl % G and G % Hl:
+                raise ValueError(f"{Hl} query heads a rank do not hold whole groups of {G} or lie in one")
+            kl, vl = kl[:, :, lo // G:(lo + Hl - 1) // G + 1], vl[:, :, lo // G:(lo + Hl - 1) // G + 1]
+        pos_t = pos[0] if cfg.pos == "mrope" else pos
+        ql, kl = _apply_pos(cfg, ql, pos), _apply_pos(cfg, kl, pos)
+        return chunked_attention(cfg, ql, kl, vl, pos_t, pos_t, causal=causal, allow_kernel=index_positions)
+
+    return local_map(body, out_placements=list(qp), in_placements=(qp, kp, kp, batch),
+                     in_grad_placements=(qp, kv_grad, kv_grad, batch), device_mesh=mesh)(q, k, v, positions)
 
 
 def self_attention(
@@ -408,6 +478,11 @@ def self_attention(
     H = cfg.n_heads
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, H)
+    if is_dtensor(q):
+        if mode != "train":
+            raise NotImplementedError(SERVING_ON_MESH)
+        o = _attend_sharded(cfg, q, k, v, positions, causal, index_positions)
+        return qeinsum(o.reshape(B, S, H * cfg.hd), p["wo"]), cache
     pos_t = positions[0] if cfg.pos == "mrope" else positions     # temporal stream for masks
     q = _apply_pos(cfg, q, positions)
     k = _apply_pos(cfg, k, positions)

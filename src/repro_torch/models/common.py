@@ -268,8 +268,31 @@ def apply_norm(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layernorm(x, p["w"], p["b"])
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.sharding.axes import is_dtensor
 
+    if is_dtensor(x):
+        return rmsnorm_sharded(x, p["w"])
     return rms_ops.rmsnorm(x, p["w"])
+
+
+def rmsnorm_sharded(x, w):
+    """rmsnorm of a DTensor x whose last dim is whole: the kernel wrapper on
+    each rank's rows (``local_map``), w replicated. w's gradient is partial
+    over the mesh axes that split x's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.sharding.axes import redistribute
+
+    mesh, xp = x.device_mesh, tuple(x.placements)
+    if any(isinstance(pl, Shard) and pl.dim == x.ndim - 1 for pl in xp):
+        raise ValueError(f"rmsnorm: the normalised dim of a DTensor must be whole, got {xp}")
+    rep = (Replicate(),) * mesh.ndim
+    w = redistribute(w, rep)
+    w_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in xp)
+    return local_map(rms_ops.rmsnorm, out_placements=list(xp), in_placements=(xp, rep),
+                     in_grad_placements=(xp, w_grad), device_mesh=mesh)(x, w)
 
 
 def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

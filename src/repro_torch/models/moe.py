@@ -284,3 +284,46 @@ def moe_blocks(cfg: ModelConfig, ctx, p: Mapping, x: torch.Tensor, valid=None, c
     p_local = {k: cut(p[k], specs[k]) for k in p}
     v_local = None if valid is None else cut(valid, specs["valid"])
     return p_local, cut(x, specs["x"]), v_local
+
+
+def moe_ffn_sharded(cfg: ModelConfig, ctx, p: Mapping, x, valid=None):
+    """``moe_ffn`` of a DTensor x (B, S, d) pinned to the batch axes, with
+    DTensor leaves ``p``: each leaf is redistributed to its ``moe_in_specs``
+    layout and the sharded body runs on the rank's blocks (``local_map``,
+    the reference's ``shard_map``). Returns (out, a DTensor laid out as x;
+    aux, replicated). Forward only: the body's collectives carry no
+    gradient, so a gradient through it raises."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.axes import NamedSharding, placements, redistribute
+
+    mesh, B = ctx.mesh, x.shape[0]
+    specs = moe_in_specs(cfg, ctx, p, B)
+    flat = [(k, None, p[k], specs[k]) if isinstance(specs[k], PartitionSpec) else (k, j, p[k][j], specs[k][j])
+            for k in sorted(p) for j in ([None] if isinstance(specs[k], PartitionSpec) else sorted(specs[k]))]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + [f[2] for f in flat]):
+        raise NotImplementedError("training the sharded MoE (a backward through its collectives) waits for "
+                                  "ROADMAP Queue 1 item 10")
+
+    def place(t, spec):
+        if isinstance(t, DTensor):
+            return redistribute(t, placements(spec, mesh))
+        return NamedSharding(mesh, spec).distribute(t)
+
+    names = [("x", None, x, specs["x"])] + ([("valid", None, valid, specs["valid"])] if valid is not None else [])
+    args = [place(t, spec) for _, _, t, spec in names + flat]
+
+    def body(*ls):
+        xl, vl = ls[0], (ls[1] if valid is not None else None)
+        pl: dict = {}
+        for (k, j, _, _), t in zip(flat, ls[len(names):]):
+            if j is None:
+                pl[k] = t
+            else:
+                pl.setdefault(k, {})[j] = t
+        return moe_ffn(cfg, pl, xl, vl, ctx=ctx, batch=B)
+
+    x_pl = placements(specs["x"], mesh)
+    return local_map(body, out_placements=(x_pl, placements(P(), mesh)),
+                     in_placements=tuple(tuple(a.placements) for a in args), device_mesh=mesh)(*args)

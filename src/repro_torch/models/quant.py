@@ -171,6 +171,34 @@ def quantized_shape_tree(shapes: Any) -> Any:
     return walk(shapes)
 
 
+def quantized_sharding_tree(shardings: Any, shapes: Any) -> Any:
+    """The sharding tree matching ``quantize_params`` of a tree of
+    ``shapes`` (tensors or anything with a ``shape``) laid out by
+    ``shardings`` (``sharding.axes.NamedSharding`` leaves or None): an
+    eligible leaf's q keeps the weight's spec and its scale drops the
+    sharding of its contracting axis, which is 1 long."""
+    from repro_torch.sharding.axes import NamedSharding, P
+
+    def walk(sh_node, shp_node):
+        if not isinstance(shp_node, Mapping):
+            return sh_node
+        out = {}
+        for k, v in shp_node.items():
+            sh = sh_node[k] if isinstance(sh_node, Mapping) else sh_node
+            if k in QUANT_LEAVES and hasattr(v, "shape") and len(v.shape) >= 2:
+                if sh is None:
+                    out[k] = {"q": None, "s": None}
+                else:
+                    spec = list(sh.spec) + [None] * (len(v.shape) - len(sh.spec))
+                    spec[-2] = None
+                    out[k] = {"q": sh, "s": NamedSharding(sh.mesh, P(*spec))}
+            else:
+                out[k] = walk(sh, v)
+        return out
+
+    return walk(shardings, shapes)
+
+
 def init_quantized(gen: torch.Generator, defs: Any, dtype, device) -> Any:
     """The tree ``quantize_params(init_tree(gen, defs, dtype, device))``
     would give, without the floating-point tree: every leaf is drawn in f32

@@ -43,7 +43,8 @@ from repro_torch.models.common import (
     stack_defs,
 )
 from repro_torch.models.mlp import mlp, mlp_defs
-from repro_torch.models.moe import moe_defs, moe_ffn
+from repro_torch.models.moe import moe_defs, moe_ffn, moe_ffn_sharded
+from repro_torch.sharding.axes import NamedSharding, P, gather_fsdp, redistribute, with_sharding_constraint
 
 RECURRENT = {"mamba": (mam.mamba_defs, mam.mamba_cache_defs, mam.mamba_mixer),
              "mlstm": (xl.mlstm_defs, xl.mlstm_cache_defs, xl.mlstm_mixer),
@@ -188,9 +189,29 @@ def _write(dst: Mapping, src: Mapping, at: Optional[int] = None) -> None:
         leaf.copy_(t)
 
 
+def sharded(ctx) -> bool:
+    """True where ``ctx`` spans more than one device: the model runs on
+    DTensors. With ``ctx`` None or a mesh of one device it runs as on one
+    device, as ``moe.moe_ffn`` does."""
+    return ctx is not None and ctx.n_devices > 1
+
+
+def _constrain(ctx, x, seq_shard: bool = False):
+    """Pin activations (B, S, ...) to the batch axes, the rest replicated
+    (the reference's ``_constrain``). Megatron-style sequence sharding of
+    the activations (``seq_shard``) is not ported."""
+    if seq_shard:
+        raise NotImplementedError("seq_shard_activations: sequence-sharded activations wait for "
+                                  "ROADMAP Queue 1 item 10, sub-item 2")
+    if not sharded(ctx):
+        return x
+    spec = P(ctx.batch_spec_for(x.shape[0]), *([None] * (x.ndim - 1)))
+    return with_sharding_constraint(x, NamedSharding(ctx.mesh, spec))
+
+
 def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: str,
                 cache_sb: Optional[Mapping], cache_index, valid=None, chunk_sb=None,
-                enc_out=None, causal: bool = True, index_positions: bool = True):
+                enc_out=None, causal: bool = True, index_positions: bool = True, ctx=None):
     """One superblock. Returns (x, new_chunk, aux) where ``new_chunk`` holds
     the recurrent carry after this chunk when ``chunk_sb`` was given and
     ``aux`` is, in train mode, the sum of its MoE layers' aux losses (an f32
@@ -205,9 +226,17 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
     in-cache state is left as it is. Paged prefill: recurrent mixers run from
     zero state (a fresh sequence) and their final state lands at the slot.
     Otherwise (dense prefill, decode): they run from the cache's state and
-    write the new state back."""
+    write the new state back.
+
+    On a mesh (``sharded(ctx)``) x and ``p`` are DTensors: the layer's
+    parameters are gathered over the fsdp axis, x is pinned to the batch
+    axes at entry and exit (``_constrain``), and so is each residual
+    branch's output before it is added."""
     new_chunk: dict = {}
     aux = 0.0
+    if sharded(ctx):
+        p = gather_fsdp(p, ctx)
+        x = _constrain(ctx, x)
     chunk_pf = isinstance(cache_index, (attn.ChunkPrefillIndex, attn.PagedChunkPrefillIndex))
     paged_pf = isinstance(cache_index, attn.PagedPrefillIndex)
     for i, kind in enumerate(cfg.block_pattern):
@@ -217,6 +246,9 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
         if kind == "attn":
             h, _ = attn.self_attention(cfg, p[key], h, positions, mode, c_in, cache_index,
                                        causal=causal, index_positions=index_positions)
+        elif sharded(ctx):
+            raise NotImplementedError(f"{kind} mixers on a multi-device mesh are not ported (ROADMAP Queue 1 "
+                                      f"item 10)")
         else:
             mixer = RECURRENT[kind][2]
             if chunk_pf and chunk_sb is not None:
@@ -230,7 +262,7 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
                 h, c_out = mixer(cfg, p[key], h, mode, c_in, valid=valid)
                 if c_in is not None:
                     _write(c_in, c_out)
-        x = x + h
+        x = x + _constrain(ctx, h)
         if cfg.cross_attn:
             h = apply_norm(cfg, p[f"l{i}_cross_norm"], x)
             if mode == "decode":
@@ -243,13 +275,16 @@ def _superblock(cfg: ModelConfig, p: Mapping, x: torch.Tensor, positions, mode: 
         if cfg.d_ff > 0:
             h = apply_norm(cfg, p[f"l{i}_ffn_norm"], x)
             if cfg.layer_has_moe(i):
-                h, a = moe_ffn(cfg, p[f"l{i}_ffn"], h, valid=valid)
+                if sharded(ctx):
+                    h, a = moe_ffn_sharded(cfg, ctx, p[f"l{i}_ffn"], h, valid=valid)
+                else:
+                    h, a = moe_ffn(cfg, p[f"l{i}_ffn"], h, valid=valid)
                 if mode == "train":
                     aux = aux + a
             else:
                 h = mlp(cfg, p[f"l{i}_ffn"], h)
-            x = x + h
-    return x, new_chunk, aux
+            x = x + _constrain(ctx, h)
+    return _constrain(ctx, x), new_chunk, aux
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -279,7 +314,7 @@ def _remat_wrap(cfg: ModelConfig, fn):
 def run_stack(cfg: ModelConfig, blocks: Mapping, x: torch.Tensor, positions, mode: str,
               cache: Optional[Mapping] = None, cache_index=None, valid=None,
               chunk_state: Optional[Mapping] = None, enc_out=None, causal: bool = True,
-              index_positions: bool = True):
+              index_positions: bool = True, ctx=None):
     """The superblocks over x, in order. Returns (x, new chunk state or
     None, aux: the MoE aux losses summed); the cache's leaves are updated in
     place. In train mode, where a gradient is wanted (grad on, and x or a
@@ -294,7 +329,7 @@ def run_stack(cfg: ModelConfig, blocks: Mapping, x: torch.Tensor, positions, mod
         c_sb = _index(cache["blocks"], sb) if cache is not None else None
         s_sb = _index(chunk_state["blocks"], sb) if chunk_state is not None else None
         x, s_new, a = block(cfg, p_sb, x, positions, mode, c_sb, cache_index, valid, s_sb,
-                            enc_out, causal, index_positions)
+                            enc_out, causal, index_positions, ctx)
         aux = aux + a
         for key, leaves in s_new.items():
             new_state.setdefault(key, {n: [] for n in leaves})
@@ -319,6 +354,7 @@ def forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     enc_out: Optional[torch.Tensor] = None,
     index_positions: bool = True,
+    ctx=None,
 ):
     """Returns (hidden (B, S, d) after the final norm, cache), or with
     ``chunk_state`` (chunked prefill) (hidden, cache, new_chunk_state); in
@@ -334,7 +370,17 @@ def forward(
 
     ``n_valid`` (B,) marks right-padded prefill: tokens at positions >=
     n_valid[b] are padding and identity for every recurrent state update
-    (causal attention keeps them out of every valid row by itself)."""
+    (causal attention keeps them out of every valid row by itself).
+
+    On a mesh (``sharded(ctx)``: training only) the parameters are DTensors
+    as ``launch/steps.param_shardings`` lays them out; tokens, positions and
+    ``inputs_embeds`` come full or as DTensors and are sharded over the
+    batch axes; the embedding is looked up on the vocab shards
+    (``embed_sharded``) and the hidden state comes back a DTensor."""
+    if sharded(ctx):
+        if mode != "train" or cache is not None or n_valid is not None:
+            raise NotImplementedError(attn.SERVING_ON_MESH)
+        return _forward_sharded(cfg, ctx, params, tokens, positions, inputs_embeds, enc_out, index_positions)
     if inputs_embeds is not None:
         x = inputs_embeds.to(cfg.compute_dtype)
     else:
@@ -352,3 +398,60 @@ def forward(
     if chunk_state is None:
         return h, cache
     return h, cache, new_state
+
+
+def batch_sharded(ctx, x, batch_dim: int = 0):
+    """A batch input (tokens, labels, positions, embeddings) sharded over
+    the batch axes along ``batch_dim``, the rest replicated: a DTensor
+    passes through ``with_sharding_constraint``, a full tensor is cut."""
+    spec = [None] * x.ndim
+    spec[batch_dim] = ctx.batch_spec_for(x.shape[batch_dim])
+    return with_sharding_constraint(x, NamedSharding(ctx.mesh, P(*spec)))
+
+
+def embed_sharded(cfg: ModelConfig, ctx, table, tokens):
+    """The embedding rows of ``tokens`` (a batch-sharded DTensor) from the
+    DTensor ``table`` (V, d), gathered over the fsdp axis, each rank looking
+    up the ids of its vocab shard and zeros elsewhere (Megatron's
+    vocab-parallel embedding): partial over the model axis where the vocab
+    is split there, then pinned to the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ctx.mesh
+    table = gather_fsdp(table, ctx)
+    tp = mesh.mesh_dim_names.index(ctx.tp_axis)
+    vocab = isinstance(table.placements[tp], Shard) and table.placements[tp].dim == 0
+    tab_pl = tuple(Shard(0) if i == tp and vocab else Replicate() for i in range(mesh.ndim))
+    tok_pl = tuple(tokens.placements)
+    out_pl = tuple(Partial() if i == tp and vocab else a for i, a in enumerate(tok_pl))
+    tab_grad = tuple(Partial() if isinstance(a, Shard) and i != tp else tab_pl[i] for i, a in enumerate(tok_pl))
+
+    def body(tab, tok):
+        tok = tok.long()
+        if not vocab:
+            return tab[tok].to(cfg.compute_dtype)
+        lo = mesh.get_local_rank(tp) * tab.shape[0]
+        here = (tok >= lo) & (tok < lo + tab.shape[0])
+        rows = tab[(tok - lo).clamp(0, tab.shape[0] - 1)]
+        return torch.where(here[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)).to(
+            cfg.compute_dtype)
+
+    x = local_map(body, out_placements=list(out_pl), in_placements=(tab_pl, tok_pl),
+                  in_grad_placements=(tab_grad, tok_pl), device_mesh=mesh)(redistribute(table, tab_pl), tokens)
+    return _constrain(ctx, x)
+
+
+def _forward_sharded(cfg: ModelConfig, ctx, params, tokens, positions, inputs_embeds, enc_out,
+                     index_positions: bool):
+    """``forward`` in train mode on a mesh: returns (hidden, aux)."""
+    if enc_out is not None:
+        raise NotImplementedError("the encoder-decoder on a multi-device mesh is not ported (ROADMAP Queue 1 "
+                                  "item 10)")
+    if inputs_embeds is not None:
+        x = _constrain(ctx, batch_sharded(ctx, inputs_embeds).to(cfg.compute_dtype))
+    else:
+        x = embed_sharded(cfg, ctx, params["embedding"], batch_sharded(ctx, tokens))
+    positions = batch_sharded(ctx, positions, 1 if cfg.pos == "mrope" else 0)
+    x, _, aux = run_stack(cfg, params["blocks"], x, positions, "train", index_positions=index_positions, ctx=ctx)
+    return apply_norm(cfg, gather_fsdp(params["final_norm"], ctx), x), aux

@@ -9,9 +9,12 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` when a process
 group is up (``launch/mesh.py``), or an ``AbstractMesh``: axis names and
 sizes only, as JAX's ``AbstractMesh``, for the rules and their tests. Both
 give ``mesh_dim_names`` and ``shape``. Where JAX places a global array on
-the devices, a rank here holds its own block: ``NamedSharding.block`` (the
-port's ``device_put``) cuts it from the full tensor by the rank's mesh
-coordinate.
+the devices, a rank here holds its own block: ``NamedSharding.block``
+cuts it from the full tensor by the rank's mesh coordinate, and
+``NamedSharding.distribute`` (the port's ``device_put``) wraps it as a
+DTensor (``torch.distributed.tensor``) whose placements are the spec's
+(``placements``). ``with_sharding_constraint`` redistributes a DTensor to
+a spec, as ``jax.lax.with_sharding_constraint`` pins an array's layout.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import math
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Tuple
 
-from repro_torch.models.common import EMBED, FSDP, NULL, STACK, TP, ParamDef, map_defs
+import torch
+
 
 
 class PartitionSpec(tuple):
@@ -133,6 +137,29 @@ def shard_block(x, spec, sizes: Mapping[str, int], coord: Mapping[str, int]):
     return x
 
 
+def placements(spec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on a mesh: one per mesh dim,
+    ``Shard(d)`` on every mesh axis that tensor dim ``d`` is sharded over,
+    ``Replicate()`` on the rest. A tuple entry shards one tensor dim over
+    several axes, the first outermost, as ``shard_block`` cuts it; DTensor
+    cuts such a dim over its mesh dims in mesh order, so the tuple must
+    name them in that order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh (JAX's ``NamedSharding``)."""
@@ -146,6 +173,69 @@ class NamedSharding:
         return shard_block(x, self.spec, axis_sizes(self.mesh),
                            coordinate(self.mesh) if coord is None else coord)
 
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+    def distribute(self, x, shape=None):
+        """A DTensor of this sharding (JAX's ``device_put``): from the full
+        tensor ``x``, which every rank holds (no communication: the rank
+        keeps a copy of its block), or, with ``shape``, from this rank's
+        block ``x`` of a tensor of that global shape."""
+        from torch.distributed.tensor import DTensor
+
+        if shape is None:
+            shape, x = tuple(x.shape), self.block(x).clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(x, self.mesh, self.placements, run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def like(block, ref):
+    """``block`` (this rank's local tensor) as a DTensor of ``ref``'s mesh,
+    placements and global shape."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(block, ref.device_mesh, ref.placements, run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
+def full_value(t):
+    """A DTensor's whole value as a plain tensor (gathered, or summed where
+    it is partial); a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def redistribute(x, placements):
+    """The DTensor ``x`` in ``placements``: ``x`` itself where it already is,
+    with no redistribution in the autograd graph (its backward would take
+    a partial gradient to ``x``'s placements, an all-reduce, where the
+    gradient should stay partial for the next reduction to scatter it)."""
+    placements = tuple(placements)
+    return x if tuple(x.placements) == placements else x.redistribute(x.device_mesh, placements)
+
+
+def with_sharding_constraint(x, sharding: NamedSharding):
+    """``x`` laid out as ``sharding`` says: a DTensor redistributed to its
+    placements (``redistribute``), a plain tensor distributed from its full
+    value."""
+    if is_dtensor(x):
+        return redistribute(x, sharding.placements)
+    return sharding.distribute(x)
+
 
 class Rules:
     """Resolve ParamDef logical axes to PartitionSpecs on a given ctx."""
@@ -154,7 +244,10 @@ class Rules:
         self.ctx = ctx
         self.fsdp_params = fsdp_params
 
-    def spec_for(self, d: ParamDef) -> PartitionSpec:
+    def spec_for(self, d) -> PartitionSpec:
+        """The spec of a ``models.common.ParamDef``."""
+        from repro_torch.models.common import EMBED, FSDP, NULL, STACK, TP
+
         if self.ctx is None:
             return P()
         sizes = self.ctx.shape
@@ -175,9 +268,38 @@ class Rules:
         return P(*out)
 
     def spec_tree(self, defs: Any) -> Any:
+        from repro_torch.models.common import map_defs
+
         return map_defs(self.spec_for, defs)
 
     def sharding_tree(self, defs: Any) -> Any:
+        from repro_torch.models.common import map_defs
+
         if self.ctx is None:
             return map_defs(lambda d: None, defs)
         return map_defs(lambda d: NamedSharding(self.ctx.mesh, self.spec_for(d)), defs)
+
+
+def unshard(x, axis: str, dim: Optional[int] = None):
+    """The DTensor ``x`` with mesh axis ``axis`` no longer sharding it (an
+    all-gather over that axis): every dim, or only tensor dim ``dim``. A
+    plain tensor, or one ``axis`` does not shard, comes back as it is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return x
+    i = x.device_mesh.mesh_dim_names.index(axis)
+    pl = list(x.placements)
+    if not isinstance(pl[i], Shard) or (dim is not None and pl[i].dim != dim % x.ndim):
+        return x
+    pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
+def gather_fsdp(tree, ctx: MeshCtx):
+    """Every DTensor leaf of ``tree`` all-gathered over the fsdp axis (the
+    layout it computes in: FSDP's gather at use); the other axes' shards
+    stay. The backward of the gather reduce-scatters each gradient back."""
+    if isinstance(tree, Mapping):
+        return {k: gather_fsdp(v, ctx) for k, v in tree.items()}
+    return unshard(tree, ctx.fsdp_axis)

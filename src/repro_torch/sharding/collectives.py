@@ -48,3 +48,32 @@ def pmean(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     for a in axes:
         n *= mesh.get_group(a).size()
     return psum(x, mesh, axes) / n
+
+
+class _SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) of per-rank partial values into a value every rank
+    of the group holds; the backward passes the gradient through, since
+    each rank's copy of the sum carries the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, differentiable where the result is
+    replicated: Megatron's reduce from the model-parallel region."""
+    return _SumReplicated.apply(x, mesh.get_group(axis))
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axis`` (no gradient)."""
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
+    return x

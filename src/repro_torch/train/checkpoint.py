@@ -12,6 +12,13 @@ array, as numpy saves the JAX package's ``ml_dtypes`` bfloat16) with dtype
 ``bfloat16`` in the manifest, and read back bit for bit. Writes are atomic
 (a tmp dir, then ``os.replace``), so a preemption mid-save never corrupts
 the latest checkpoint; ``latest_step`` counts completed manifests only.
+
+Sharded trees (DTensor leaves, ``launch/steps.py``): ``save`` writes each
+leaf whole (every rank gathers it; rank 0 of the world writes, and every
+rank waits until the step is published), and ``restore`` with
+``shardings`` (a tree of ``sharding.axes.NamedSharding`` or None) puts each
+leaf on the mesh its sharding names, which may differ from the mesh it was
+saved from: a checkpoint moves between meshes.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding.axes import is_dtensor
 from repro_torch.train.tree import leaves, paths, unflatten
 
 
@@ -44,7 +52,30 @@ def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.dtype(dtype_name), copy=False))
 
 
+def _writer() -> bool:
+    """True on the rank that writes: rank 0 of a started world, or a
+    process without one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(dir_: str, step: int, tree: Any, meta: Optional[dict] = None) -> str:
+    """Write ``tree`` as step ``step`` under ``dir_``; returns the step's
+    path. A tree with DTensor leaves is saved by every rank of the world
+    together (each leaf gathered whole, rank 0 writing)."""
+    flat = leaves(tree)
+    if any(is_dtensor(t) for t in flat):
+        import torch.distributed as dist
+
+        whole = [t.full_tensor() if is_dtensor(t) else t for t in flat]
+        path = _write(dir_, step, unflatten(tree, whole), meta) if _writer() else None
+        dist.barrier()
+        return str(Path(dir_) / f"step_{step:08d}") if path is None else path
+    return _write(dir_, step, tree, meta)
+
+
+def _write(dir_: str, step: int, tree: Any, meta: Optional[dict]) -> str:
     base = Path(dir_)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -84,22 +115,36 @@ def latest_step(dir_: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(dir_: str, step: int, like: Any, device=None) -> Any:
+def restore(dir_: str, step: int, like: Any, device=None, shardings: Any = None) -> Any:
     """A tree of ``like``'s structure from the checkpoint, each leaf on
-    ``device`` (default: the device of ``like``'s leaf). Raises ValueError
-    if the leaf count or a shape differs from ``like``'s."""
+    ``device`` (default: the device of ``like``'s leaf), and with
+    ``shardings`` (a tree of ``NamedSharding`` or None matching ``like``)
+    put on the mesh each leaf's sharding names, as a DTensor of its layout
+    (a None sharding keeps the leaf whole). Raises ValueError if the leaf
+    count or a shape differs from ``like``'s."""
     path = Path(dir_) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     ref = leaves(like)
     if manifest["n_leaves"] != len(ref):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, expected {len(ref)}")
+    shs = [None] * len(ref) if shardings is None else _sharding_leaves(like, shardings)
     out = []
-    for i, r in enumerate(ref):
+    for i, (r, sh) in enumerate(zip(ref, shs)):
         t = _from_numpy(np.load(path / "arrays" / f"{i}.npy"), manifest["leaves"][i]["dtype"])
         if tuple(t.shape) != tuple(r.shape):
             raise ValueError(f"leaf {i}: {tuple(t.shape)} != {tuple(r.shape)}")
-        out.append(t.to(r.device if device is None else device))
+        t = t.to(r.device if device is None else device)
+        out.append(t if sh is None else sh.distribute(t))
     return unflatten(like, out)
+
+
+def _sharding_leaves(like: Any, shardings: Any) -> list:
+    """``shardings``'s entries for ``like``'s leaves, in ``leaves`` order
+    (a None or a single sharding covers a whole subtree)."""
+    if isinstance(like, dict):
+        return [s for k in sorted(like)
+                for s in _sharding_leaves(like[k], shardings[k] if isinstance(shardings, dict) else shardings)]
+    return [shardings]
 
 
 def load_meta(dir_: str, step: int) -> dict:

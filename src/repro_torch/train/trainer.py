@@ -10,7 +10,10 @@ Fault-tolerance contract (exercised by the tests and ``chip_smoke.py``):
   * restart reproduces the loss trajectory bit for bit on the CPU (test).
 
 The trainer runs on one explicit device (``device=None`` is the card) and
-draws fresh weights from a ``torch.Generator`` seeded with ``seed``.
+draws fresh weights from a ``torch.Generator`` seeded with ``seed``. With a
+``ctx`` it hands it to ``make_train_step``: over more than one device the
+parameters and states it is given, or draws, or restores, are put on the
+mesh by ``launch/steps.param_shardings(fsdp=True)`` and ``opt_shardings``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import distribute_tree, make_train_step, opt_shardings, param_shardings
+from repro_torch.models.transformer import sharded
 from repro_torch.models.common import resolve_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, make_source
@@ -39,8 +43,9 @@ class TrainConfig:
 
 
 class Trainer:
-    def __init__(self, model, tcfg: TrainConfig, dcfg: DataConfig, schedule=None, device=None):
+    def __init__(self, model, tcfg: TrainConfig, dcfg: DataConfig, schedule=None, device=None, ctx=None):
         self.model = model
+        self.ctx = ctx
         self.tcfg = tcfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
@@ -48,7 +53,11 @@ class Trainer:
         self.source = make_source(dcfg)
         self.history: List[Dict[str, float]] = []
         self._preempted = False
-        self._step_fn = make_train_step(model, tcfg.opt, schedule=self.schedule)
+        self._step_fn = make_train_step(model, tcfg.opt, schedule=self.schedule, ctx=ctx)
+        self._psh = self._osh = None
+        if sharded(ctx):
+            self._psh = param_shardings(model, ctx, fsdp=True)
+            self._osh = opt_shardings(model, ctx, tcfg.opt)
 
     # -- preemption ---------------------------------------------------------
     def install_preemption_handler(self):
@@ -70,13 +79,17 @@ class Trainer:
             if last is not None:
                 params = self._init(seed)  # structure
                 opt_state = init_opt_state(params, tcfg.opt)
-                state = ckpt.restore(tcfg.ckpt_dir, last, {"p": params, "o": opt_state})
+                state = ckpt.restore(tcfg.ckpt_dir, last, {"p": params, "o": opt_state},
+                                     shardings=None if self._psh is None else {"p": self._psh, "o": self._osh})
                 params, opt_state = state["p"], state["o"]
                 start_step = last
         if params is None:
             params = self._init(seed)
         if opt_state is None:
             opt_state = init_opt_state(params, tcfg.opt)
+        if self._psh is not None:
+            params = distribute_tree(params, self._psh)
+            opt_state = distribute_tree(opt_state, self._osh)
 
         t0 = time.time()
         step = start_step

@@ -1911,6 +1911,53 @@ def test_cuda_moe_ffn_under_world1_mesh_is_single_device(nccl_world1):
 
 
 @pytest.mark.cuda
+def test_cuda_train_step_under_world1_mesh_is_single_device(nccl_world1):
+    """At smoke width on the card (glm4-9b SMOKE in bf16), the train step
+    under the world-size-1 mesh's ctx, its parameters and f32 AdamW states
+    DTensors of ``param_shardings(fsdp=True)`` and ``opt_shardings``, equals
+    the ``ctx=None`` step bit for bit: loss, gradients, parameters, states
+    and the rmsnorm and flash launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch.steps import (distribute_tree, make_train_step, opt_shardings, param_shardings,
+                                          value_and_grad)
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    ctx = nccl_world1
+    dev = ctx.mesh.device_type
+    cfg = get_config("glm4-9b", smoke=True).replace(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                                    remat="full")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)}
+    ocfg = OptConfig(lr=1e-3)
+
+    def counted(fn):
+        for w in (rms_ops.rmsnorm, fa_ops.flash_attention_bhsd):
+            _build.reset_launches(w)
+        out = fn()
+        return out, (rms_ops.rmsnorm.launches, fa_ops.flash_attention_bhsd.launches)
+
+    (a, ga), ca = counted(lambda: value_and_grad(model, params, batch))
+    (b, gb), cb = counted(lambda: value_and_grad(model, params, batch, ctx))
+    assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(leaves(ga), leaves(gb)))
+    assert ca == cb and ca[0] > 0 and ca[1] > 0
+    ref = make_train_step(model, ocfg)(params, init_opt_state(params, ocfg), batch)
+    dp = distribute_tree(params, param_shardings(model, ctx, fsdp=True))
+    do = distribute_tree(init_opt_state(params, ocfg), opt_shardings(model, ctx, ocfg))
+    got = make_train_step(model, ocfg, ctx=ctx)(dp, do, batch)
+    for i in (0, 1):
+        assert all(torch.equal(x.to_local(), y) for x, y in zip(leaves(got[i]), leaves(ref[i])))
+    assert torch.equal(got[2]["loss"], ref[2]["loss"])
+
+
+@pytest.mark.cuda
 def test_cuda_compressed_psum_matches_cpu(nccl_world1):
     """The compressed psum over the 1-rank 'data' axis on the card: its int8
     blocks and scales equal the CPU's ``_quantize`` (1 LSB allowed at a
